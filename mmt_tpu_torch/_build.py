@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Both sources under ``csrc/`` compile into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds).  The library
+is built at first use into ``build/mmt_tpu_torch/`` beside the package,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads the cached build.  There is no fallback: without
+``nvcc`` or a card, ``load_library`` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("ffn_block.cu", "moe_similarity.cu")
+BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, w1, b1, w2, b2, gamma, beta, out, R, H, I, eps, compute_dtype,
+    # stream
+    "mmt_ffn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      ctypes.c_float, _I, _P],
+    # t, v, tw, vw, out, Q, V, K, M, stream
+    "mmt_moe_similarity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def find_nvcc() -> str:
+  """Path of nvcc: on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
+  nvcc = shutil.which("nvcc")
+  if nvcc:
+    return nvcc
+  cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+  nvcc = os.path.join(cuda_home, "bin", "nvcc")
+  if os.path.isfile(nvcc) and os.access(nvcc, os.X_OK):
+    return nvcc
+  raise RuntimeError(
+      "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+      "of mmt_tpu_torch are built on a machine with the CUDA toolkit")
+
+
+def _source_hash() -> str:
+  h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  for name in SOURCES:
+    h.update(name.encode())
+    h.update((CSRC / name).read_bytes())
+  return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+  """Compile the sources into the cached library (if not built yet).
+
+  Returns its path.  The compiler's output (including ptxas's register and
+  shared-memory report) is kept beside it as ``build.log``.
+  """
+  target = BUILD_DIR / f"libmmt_kernels_{_source_hash()}.so"
+  if target.exists():
+    return target
+  nvcc = find_nvcc()
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+  os.close(fd)
+  cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+  proc = subprocess.run(cmd, capture_output=True, text=True)
+  (BUILD_DIR / "build.log").write_text(
+      " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+  if proc.returncode != 0:
+    os.unlink(tmp)
+    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+  os.replace(tmp, target)
+  return target
+
+
+def load_library() -> ctypes.CDLL:
+  """The kernels' library, built and loaded once per process."""
+  global _lib
+  if _lib is None:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+      fn = getattr(lib, name)
+      fn.argtypes = argtypes
+      fn.restype = ctypes.c_int
+    lib.mmt_error_string.argtypes = [ctypes.c_int]
+    lib.mmt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+  return _lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+  """Raise if a C entry point returned a CUDA error code."""
+  if code != 0:
+    msg = lib.mmt_error_string(code).decode()
+    raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

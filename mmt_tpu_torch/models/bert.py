@@ -1,0 +1,191 @@
+"""Transformer encoder for the video and text towers (eval forward).
+
+Port of mmt_tpu/models/bert.py: post-LN blocks, erf-GELU, the additive
+-10000 mask, fp32 LayerNorm statistics with the fast-variance form.  The
+FFN sub-block goes through ``ops.ffn.ffn_block`` (the fused kernel on the
+card).  Modules carry the reference's torch state-dict names
+(``encoder.layer.{i}.attention.self.query``, ``intermediate.dense``,
+``output.LayerNorm`` for the text tower and ``output.layer_norm`` for the
+video tower, ...), so the reference's checkpoints load by name.
+
+Parameters are fp32; matmul operands are rounded to ``compute_dtype``
+(bf16 on the card) with fp32 accumulation, as the JAX package computes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmt_tpu_torch.config import BertParams
+from mmt_tpu_torch.ops import attention as attention_ops
+from mmt_tpu_torch.ops import ffn as ffn_ops
+
+
+class Linear(nn.Linear):
+  """nn.Linear that keeps its weight and bias cast to a compute dtype.
+
+  The cast copy is made on first use and remade only when the parameters
+  change (a load, an in-place update or a move), never on every call.
+  """
+
+  def __init__(self, in_features, out_features, *, device=None):
+    super().__init__(in_features, out_features, device=device)
+    self._cast = None
+
+  def cast(self, dtype):
+    w, b = self.weight, self.bias
+    key = (dtype, w.data_ptr(), w._version, b.data_ptr(), b._version)
+    if self._cast is None or self._cast[0] != key:
+      self._cast = (key, w.detach().to(dtype).contiguous(),
+                    b.detach().to(dtype))
+    return self._cast[1], self._cast[2]
+
+
+def _container(**children):
+  mod = nn.Module()
+  for name, child in children.items():
+    mod.add_module(name, child)
+  return mod
+
+
+def init_normal_(module: nn.Module, generator: torch.Generator, std: float):
+  """BERT initialisation: Linear/Embedding weights ~ N(0, std), zero
+  Linear biases (LayerNorm keeps its construction defaults)."""
+  with torch.no_grad():
+    for mod in module.modules():
+      if isinstance(mod, (nn.Linear, nn.Embedding)):
+        mod.weight.normal_(0.0, std, generator=generator)
+      if isinstance(mod, nn.Linear):
+        mod.bias.zero_()
+
+
+def attention_bias_from_mask(attention_mask):
+  """[B, S] {0,1} mask -> [B, 1, 1, S] additive bias, -10000 at pads."""
+  return ((1.0 - attention_mask.float()) * -10000.0)[:, None, None, :]
+
+
+class TransformerLayer(nn.Module):
+  """Post-LN encoder block: attention -> add&norm -> fused FFN block."""
+
+  def __init__(self, cfg: BertParams, ln_name: str, *, compute_dtype,
+               device=None):
+    super().__init__()
+    if cfg.hidden_act != "gelu":
+      raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    self.cfg, self.ln_name, self.compute_dtype = cfg, ln_name, compute_dtype
+    ln = lambda: nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device)
+    self.attention = _container(
+        self=_container(query=Linear(h, h, device=device),
+                        key=Linear(h, h, device=device),
+                        value=Linear(h, h, device=device)),
+        output=_container(dense=Linear(h, h, device=device),
+                          **{ln_name: ln()}))
+    self.intermediate = _container(dense=Linear(h, i, device=device))
+    self.output = _container(dense=Linear(i, h, device=device),
+                             **{ln_name: ln()})
+
+  def forward(self, hidden, attn_bias):
+    cfg, cd = self.cfg, self.compute_dtype
+    b, s, h = hidden.shape
+    n_heads = cfg.num_attention_heads
+    hc = hidden.to(cd)
+
+    def heads(lin):
+      w, bias = lin.cast(cd)
+      return F.linear(hc, w, bias).view(b, s, n_heads, -1).transpose(1, 2)
+
+    sa = self.attention.self
+    ctx = attention_ops.attention_bhsd(heads(sa.query), heads(sa.key),
+                                       heads(sa.value), attn_bias=attn_bias)
+    ctx = ctx.transpose(1, 2).reshape(b, s, h).to(cd)
+    wo, bo = self.attention.output.dense.cast(cd)
+    attn_ln = getattr(self.attention.output, self.ln_name)
+    hidden = ffn_ops.layer_norm(F.linear(ctx, wo, bo).float() + hidden,
+                                attn_ln.weight, attn_ln.bias,
+                                eps=cfg.layer_norm_eps)
+
+    w1, _ = self.intermediate.dense.cast(cd)
+    w2, _ = self.output.dense.cast(cd)
+    ffn_ln = getattr(self.output, self.ln_name)
+    return ffn_ops.ffn_block(hidden, w1, self.intermediate.dense.bias, w2,
+                             self.output.dense.bias, ffn_ln.weight,
+                             ffn_ln.bias, eps=cfg.layer_norm_eps,
+                             compute_dtype=cd)
+
+
+class TransformerEncoder(nn.Module):
+
+  def __init__(self, cfg: BertParams, ln_name: str, *, compute_dtype,
+               device=None):
+    super().__init__()
+    self.layer = nn.ModuleList(
+        TransformerLayer(cfg, ln_name, compute_dtype=compute_dtype,
+                         device=device)
+        for _ in range(cfg.num_hidden_layers))
+
+  def forward(self, hidden, attn_bias):
+    for layer in self.layer:
+      hidden = layer(hidden, attn_bias)
+    return hidden
+
+
+class FeatureBert(nn.Module):
+  """Video BERT: embeddings = token type + position + continuous features
+  (no word table), then LayerNorm.  Reference names: ``embeddings.
+  {position_embeddings, token_type_embeddings, layer_norm}``."""
+
+  def __init__(self, cfg: BertParams, *, compute_dtype, device=None):
+    super().__init__()
+    h = cfg.hidden_size
+    self.cfg, self.compute_dtype = cfg, compute_dtype
+    self.embeddings = _container(
+        position_embeddings=nn.Embedding(cfg.max_position_embeddings, h,
+                                         device=device),
+        token_type_embeddings=nn.Embedding(cfg.type_vocab_size, h,
+                                           device=device),
+        layer_norm=nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device))
+    self.encoder = TransformerEncoder(cfg, "layer_norm",
+                                      compute_dtype=compute_dtype,
+                                      device=device)
+
+  def forward(self, features, attention_mask, token_type_ids, position_ids):
+    cd, emb = self.compute_dtype, self.embeddings
+    x = emb.token_type_embeddings.weight[token_type_ids].to(cd)
+    x = x + features.to(cd)
+    x = x + emb.position_embeddings.weight[position_ids].to(cd)
+    x = ffn_ops.layer_norm(x, emb.layer_norm.weight, emb.layer_norm.bias,
+                           eps=self.cfg.layer_norm_eps)
+    return self.encoder(x, attention_bias_from_mask(attention_mask))
+
+
+class TextBert(nn.Module):
+  """Text BERT (bert-base-cased geometry): word + position + type lookup.
+  Reference (HF) names: ``embeddings.{word_embeddings,
+  position_embeddings, token_type_embeddings, LayerNorm}``."""
+
+  def __init__(self, cfg: BertParams, *, compute_dtype, device=None):
+    super().__init__()
+    h = cfg.hidden_size
+    self.cfg, self.compute_dtype = cfg, compute_dtype
+    self.embeddings = _container(
+        word_embeddings=nn.Embedding(cfg.vocab_size, h, device=device),
+        position_embeddings=nn.Embedding(cfg.max_position_embeddings, h,
+                                         device=device),
+        token_type_embeddings=nn.Embedding(cfg.type_vocab_size, h,
+                                           device=device),
+        LayerNorm=nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device))
+    self.encoder = TransformerEncoder(cfg, "LayerNorm",
+                                      compute_dtype=compute_dtype,
+                                      device=device)
+
+  def forward(self, input_ids, attention_mask, token_type_ids, position_ids):
+    cd, emb = self.compute_dtype, self.embeddings
+    x = (emb.word_embeddings.weight[input_ids].to(cd)
+         + emb.position_embeddings.weight[position_ids].to(cd)
+         + emb.token_type_embeddings.weight[token_type_ids].to(cd))
+    x = ffn_ops.layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias,
+                           eps=self.cfg.layer_norm_eps)
+    return self.encoder(x, attention_bias_from_mask(attention_mask))

@@ -5,23 +5,41 @@
 
 Phases, each of which raises (exit code 1, no final line) on failure:
 
-1. Build both CUDA kernels from mmt_tpu_torch/csrc/ with nvcc (sm_90a).
-2. Kernel phase: each kernel against its plain PyTorch version on the
-   card, at the flagship eval shapes (FFN block: video 10,900 x 512 and
-   text 1,500 x 768 rows with I = 3072, bf16 and fp32, plus a ragged row
-   count; similarity: 1000 x 1000 with M = 7, D = 512, plus a ragged
+1. Build the CUDA kernels from mmt_tpu_torch/csrc/ with nvcc (sm_90a),
+   one nvcc process per source, all at once.
+2. Kernel phase: each eval kernel against its plain PyTorch version on
+   the card, at the flagship eval shapes (FFN block: video 10,900 x 512
+   and text 1,500 x 768 rows with I = 3072, bf16 and fp32, plus a ragged
+   row count; similarity: 1000 x 1000 with M = 7, D = 512, plus a ragged
    37 x 53 case with all-zero weight rows), with the max abs error and
    both times.  Tolerances: FFN fp32 atol 1e-4; FFN bf16 atol 3e-2 and
    mean abs error <= 2e-3; similarity atol 1e-5.
-3. Reference phase: a tiny fp32 CENet on the card (kernels) against the
+3. Train-kernel phase: the FFN train forward (B2) and backward (B3,
+   add_dz on and off) against their plain versions at the b32 train
+   shapes (video 6,976 x 512, text 960 x 768, ragged 1,013 x 768, I =
+   3072), bf16 and fp32, masks at p = 0.1 from a seeded generator.
+   Tolerances: fp32 atol 1e-4 on every output; bf16 fp32 outputs max 3e-2
+   and mean 2e-3; bf16 compute-dtype outputs within 2 bf16 ulps of the
+   plain version's (the ulp of the larger of the two magnitudes) plus an
+   absolute floor for values near zero (CD_ATOL below).
+4. Reference phase: a tiny fp32 CENet on the card (kernels) against the
    same weights on the CPU (plain versions), sims atol 1e-4.
-4. Slice phase: the full-width flagship CENet (bf16, random weights from
+5. Slice phase: the full-width flagship CENet (bf16, random weights from
    a seed) embeds 1000 captions and 1000 videos in 20 chunks of 50, builds
    the 1k x 1k similarity and ranks it.  The launch counters must read
    exactly 16 x 20 = 320 FFN launches and at least one similarity launch;
    every output must be finite; the same eval with the plain versions
    must give sims within 2e-2.  Then the eval's wall time on both paths,
    median of 5 runs after a warm-up, taken in turns.
+6. Train-step phase: the full-width flagship in bf16, b32, Adam (lr
+   5e-5) on the max-margin loss (margin 0.05, fix_norm).  One step must
+   launch exactly 16 B2, 16 B3, >= 1 similarity and 0 eval FFN kernels;
+   from the same state and generator seed the plain path's loss and
+   gradients must agree (loss within 1e-4 absolute, all gradients
+   within 2e-2 relative L2, every parameter's within 0.2, see STEP_*_TOL
+   below); 20 steps on one batch must give finite losses and move the
+   BatchNorm running statistics.  Then the step time on both paths, b32
+   and b128, median of 20 after 3 warm-ups, taken in turns.
 
 The last two lines of stdout are one JSON object of kernel results and
 {"ok": true, "device": {...}}.
@@ -140,6 +158,117 @@ def sim_phase(torch, similarity, dev, gen):
   return worst, times
 
 
+TRAIN_SHAPES = ((6976, 512), (960, 768), (1013, 768))   # b32 video, text
+TRAIN_I, TRAIN_P = 3072, 0.1
+# bf16 outputs in the compute dtype: within 2 bf16 ulps, plus an absolute
+# floor for values near zero, where a small absolute difference is many
+# ulps.  Before inter and dz are rounded, kernel and plain version differ
+# only by fp32 sum order (tensor-core WMMA against cuBLAS, warp against
+# torch reductions): 1e-5.  z and dinter come out of a second product
+# whose operand (the GELU output, dffn) was rounded to bf16, and that
+# sum-order noise flips such an operand by one ulp now and then; one flip
+# moves a sum by ulp(operand) * |weight|, up to ~3e-3 here: 4e-3.
+CD_ATOL = {"inter": 1e-5, "z": 4e-3, "dz": 1e-5, "dinter": 4e-3}
+
+
+def bf16_ulp(torch, got, want):
+  """Elementwise bf16 ulp at the larger of the two magnitudes."""
+  ref = torch.maximum(got.float().abs(), want.float().abs())
+  _, exp = torch.frexp(ref)
+  return torch.ldexp(torch.ones_like(ref), exp - 8)
+
+
+def check_outputs(torch, what, cd, got, want, cd_names):
+  """Compare each named output with the plain version's; ``cd_names``
+  are the compute-dtype outputs.  Returns the worst max abs error of the
+  fp32 outputs.  Raises past the tolerance."""
+  worst = 0.0
+  for name in got:
+    g, w = got[name], want[name]
+    if not bool(torch.isfinite(g).all()):
+      raise RuntimeError(f"{what}: non-finite {name}")
+    err = (g.float() - w.float()).abs()
+    max_err, mean_err = float(err.max()), float(err.mean())
+    msg = f"{name} max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e}"
+    if cd == torch.float32:
+      bad = max_err > 1e-4
+    elif name in cd_names:
+      ulp = bf16_ulp(torch, g, w)
+      over = err > 2 * ulp
+      max_over = float(err[over].max()) if bool(over.any()) else 0.0
+      msg += (f" max_ulps={float((err / ulp).max()):.2f} n_over_2ulps="
+              f"{int(over.sum())} of {err.numel()} (largest abs diff among "
+              f"them {max_over:.3e})")
+      bad = bool((err > 2 * ulp + CD_ATOL[name]).any())
+    else:
+      bad = max_err > 3e-2 or mean_err > 2e-3
+    print(f"  {what} {msg}", flush=True)
+    if bad:
+      raise RuntimeError(f"{what}: {name} outside its tolerance ({msg})")
+    if name not in cd_names:
+      worst = max(worst, max_err)
+  return worst
+
+
+def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
+  """B2 and B3 against their plain versions at the b32 train shapes;
+  returns {kernel: (worst bf16 error, video bf16 kernel ms, plain ms)}."""
+  res = {"ffn_train_fwd": [0.0, None, None],
+         "ffn_train_bwd": [0.0, None, None]}
+  for cd in (torch.bfloat16, torch.float32):
+    for r, h in TRAIN_SHAPES:
+      i = TRAIN_I
+      rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
+      x = rand(r, h)
+      drop = dropout.dropout_mask((r, h), TRAIN_P, gen, dev)
+      w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
+      b1, b2 = rand(i) * 0.02, rand(h) * 0.02
+      gamma, beta = 1.0 + 0.1 * rand(h), 0.1 * rand(h)
+      dy = rand(r, h)
+      kw = dict(eps=1e-12, compute_dtype=cd)
+      name = str(cd).replace("torch.", "")
+      tag = f"R={r} H={h} I={i} {name}"
+
+      fargs = (x, drop, w1, b1, w2, b2, gamma, beta)
+      got = ffn.ffn_train_fwd_cuda(*fargs, **kw)
+      want = ffn.ffn_train_fwd_plain(*fargs, **kw)
+      torch.cuda.synchronize()
+      err_f = check_outputs(torch, f"ffn_train_fwd {tag}", cd,
+                            dict(zip(("out", "inter", "z"), got)),
+                            dict(zip(("out", "inter", "z"), want)),
+                            ("inter", "z"))
+      _, inter, z = want
+      bargs = (dy, z, inter, drop, w1, w2, gamma)
+      err_b = 0.0
+      for add_dz in (True, False):
+        bkw = dict(kw, add_dz=add_dz)
+        got = ffn.ffn_train_bwd_cuda(*bargs, **bkw)
+        want = ffn.ffn_train_bwd_plain(*bargs, **bkw)
+        torch.cuda.synchronize()
+        err_b = max(err_b, check_outputs(
+            torch, f"ffn_train_bwd {tag} add_dz={add_dz}", cd,
+            dict(zip(("dx", "dz", "dinter"), got)),
+            dict(zip(("dx", "dz", "dinter"), want)), ("dz", "dinter")))
+      bkw = dict(kw, add_dz=True)
+      times = {
+          "ffn_train_fwd": (
+              time_ms(torch, lambda: ffn.ffn_train_fwd_cuda(*fargs, **kw)),
+              time_ms(torch, lambda: ffn.ffn_train_fwd_plain(*fargs, **kw))),
+          "ffn_train_bwd": (
+              time_ms(torch, lambda: ffn.ffn_train_bwd_cuda(*bargs, **bkw)),
+              time_ms(torch, lambda: ffn.ffn_train_bwd_plain(*bargs,
+                                                             **bkw)))}
+      for kname, err in (("ffn_train_fwd", err_f), ("ffn_train_bwd", err_b)):
+        ms, plain_ms = times[kname]
+        print(f"{kname} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"card: {card}", flush=True)
+        if cd == torch.bfloat16:
+          res[kname][0] = max(res[kname][0], err)
+          if (r, h) == TRAIN_SHAPES[0]:
+            res[kname][1:] = [ms, plain_ms]
+  return res
+
+
 def reference_phase(torch, flagship, evaluate, dev):
   """Tiny fp32 CENet: card (kernels) vs CPU (plain versions)."""
   arch = flagship.flagship_arch(tiny=True)
@@ -159,6 +288,142 @@ def reference_phase(torch, flagship, evaluate, dev):
         flush=True)
   if err > 1e-4:
     raise RuntimeError(f"card vs CPU sims differ by {err} > 1e-4")
+
+
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 5e-5, 20
+# Kernel path vs plain path, one b32 step from the same state and seed.
+# The only difference is bf16 rounding: the kernels and the plain versions
+# round an element of an intermediate to the neighbouring bf16 value now
+# and then (a few per 1e4, train-kernel phase).  That moves the loss by
+# ~1e-5 and all gradients together by ~1% (relative L2 over all
+# parameters), but a parameter whose gradient is a small sum of cancelling
+# terms (the last video layer's LayerNorm bias: 7 of 218 tokens carry
+# gradient) moves by up to ~8% of its own norm.
+STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_ALL_GRADS_TOL = 1e-4, 0.2, 2e-2
+
+
+def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
+  """The b32 train step of the full-width flagship (bf16): launch counts,
+  kernel path vs plain path, 20 steps, then step times at b32 and b128.
+  Returns the launch counts of the counted step."""
+  import contextlib
+
+  from mmt_tpu_torch.train import losses, optim, step
+
+  arch = flagship.flagship_arch()
+  model = flagship.flagship_model(device=dev, compute_dtype=torch.bfloat16,
+                                  seed=0, train=True)
+  spec = {"type": "Adam", "args": {"lr": TRAIN_LR, "weight_decay": 0}}
+  loss_fn = losses.max_margin_ranking_loss(0.05, True)
+
+  def make(batch_size, seed):
+    return flagship.batch_to_torch(flagship.make_batch(
+        arch["expert_dims"], batch_size, seed=seed), dev)
+
+  def run(opt, batch, seed, plain=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with ops.plain_versions() if plain else contextlib.nullcontext():
+      return step.train_step(model, opt, batch, loss_fn=loss_fn,
+                             lr=TRAIN_LR, generator=gen)
+
+  batch = make(TRAIN_BATCH, 101)
+  state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+  # 1. One counted step on the kernel path.
+  for fn in (ffn.ffn_block_cuda, ffn.ffn_train_fwd_cuda,
+             ffn.ffn_train_bwd_cuda, similarity.sim_cuda):
+    fn.launches = 0
+  loss_k = run(optim.build_optimizer(spec, model.parameters())[0], batch, 7)
+  torch.cuda.synchronize()
+  launches = {"ffn_block": ffn.ffn_block_cuda.launches,
+              "ffn_train_fwd": ffn.ffn_train_fwd_cuda.launches,
+              "ffn_train_bwd": ffn.ffn_train_bwd_cuda.launches,
+              "moe_similarity": similarity.sim_cuda.launches}
+  print(f"train step launches: {launches}", flush=True)
+  n_layers = FFN_LAYERS
+  if (launches["ffn_train_fwd"] != n_layers
+      or launches["ffn_train_bwd"] != n_layers
+      or launches["moe_similarity"] < 1 or launches["ffn_block"] != 0):
+    raise RuntimeError(f"expected {n_layers} B2, {n_layers} B3, >= 1 B4 and "
+                       f"0 B1 launches per train step, got {launches}")
+  grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+
+  # 2. The same step from the same state and seed on the plain path.
+  model.load_state_dict(state0)
+  loss_p = run(optim.build_optimizer(spec, model.parameters())[0], batch, 7,
+               plain=True)
+  torch.cuda.synchronize()
+  loss_diff = abs(float(loss_k) - float(loss_p))
+  # Relative L2 difference per parameter, the denominator floored at 1e-2
+  # of the median gradient norm: a gradient that is zero in exact
+  # arithmetic is rounding noise on both paths (the attention key biases,
+  # which the softmax cancels, and the biases in front of the train-mode
+  # BatchNorm, which its batch mean cancels).
+  diffs = {n: (float((grads_k[n].float() - p.grad.float()).norm()),
+               float(p.grad.float().norm()))
+           for n, p in model.named_parameters()}
+  floor = 1e-2 * statistics.median(ref for _, ref in diffs.values())
+  rel = {n: d / max(ref, floor) for n, (d, ref) in diffs.items()}
+  worst_name = max(rel, key=rel.get)
+  worst = rel[worst_name]
+  top = sorted(rel, key=rel.get, reverse=True)[:5]
+  overall = (sum(d * d for d, _ in diffs.values())
+             / sum(ref * ref for _, ref in diffs.values())) ** 0.5
+  print(f"train step kernel vs plain: loss {float(loss_k):.6f} vs "
+        f"{float(loss_p):.6f} abs_diff={loss_diff:.3e}; all grads rel L2 "
+        f"diff={overall:.3e}; worst grad rel L2 "
+        f"diff={worst:.3e} ({worst_name}; norm floor {floor:.3e}); top: "
+        + ", ".join(f"{n} {rel[n]:.3e} (|diff| {diffs[n][0]:.3e}, |grad| "
+                    f"{diffs[n][1]:.3e})" for n in top), flush=True)
+  if (not loss_diff <= STEP_LOSS_TOL or not worst <= STEP_GRAD_TOL
+      or not overall <= STEP_ALL_GRADS_TOL):
+    raise RuntimeError(f"kernel vs plain train step: loss diff {loss_diff} "
+                       f"(tol {STEP_LOSS_TOL}), grad diff {worst} "
+                       f"(tol {STEP_GRAD_TOL}, {worst_name}), all grads "
+                       f"{overall} (tol {STEP_ALL_GRADS_TOL})")
+  del grads_k, state0
+
+  # 3. 20 steps on one batch.
+  opt = optim.build_optimizer(spec, model.parameters())[0]
+  bn = next(iter(model.text_GU.values())).cg.batch_norm
+  stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+  losses_seen = [float(run(opt, batch, 1000 + i))
+                 for i in range(TRAIN_STEPS)]
+  print(f"train {TRAIN_STEPS} steps on one batch: first loss "
+        f"{losses_seen[0]:.6f} last {losses_seen[-1]:.6f} all: "
+        f"{[round(x, 6) for x in losses_seen]}", flush=True)
+  if not all(x == x and abs(x) != float("inf") for x in losses_seen):
+    raise RuntimeError(f"non-finite train losses: {losses_seen}")
+  moved = float((bn.running_mean - stats0[0]).abs().max()
+                + (bn.running_var - stats0[1]).abs().max())
+  if not moved > 0:
+    raise RuntimeError("BatchNorm running statistics did not move")
+  print(f"BatchNorm running stats moved by {moved:.3e}", flush=True)
+
+  # 4. Step time, kernel and plain paths in turns.
+  times = {}
+  for batch_size in (TRAIN_BATCH, 128):
+    b = batch if batch_size == TRAIN_BATCH else make(batch_size, 202)
+    runs = {False: [], True: []}
+    for i in range(3 + TRAIN_STEPS):
+      for plain in (False, True):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        run(opt, b, 5000 + i, plain=plain)
+        torch.cuda.synchronize()
+        if i >= 3:
+          runs[plain].append(time.perf_counter() - tic)
+    k_ms = statistics.median(runs[False]) * 1e3
+    p_ms = statistics.median(runs[True]) * 1e3
+    times[batch_size] = (k_ms, p_ms)
+    print(f"train step b{batch_size} (median of {TRAIN_STEPS}): "
+          f"kernel_path_ms={k_ms:.3f} plain_path_ms={p_ms:.3f} "
+          f"ratio={k_ms / p_ms:.4f} samples_per_s={batch_size * 1e3 / k_ms:.1f}"
+          f" card: {card}", flush=True)
+    print(f"train step b{batch_size} runs kernel_path_ms="
+          f"{[round(x * 1e3, 3) for x in runs[False]]} plain_path_ms="
+          f"{[round(x * 1e3, 3) for x in runs[True]]}", flush=True)
+  return launches
 
 
 def finite_metrics(res):
@@ -183,7 +448,7 @@ def main():
         f"device {torch.cuda.get_device_name(0)}", flush=True)
 
   from mmt_tpu_torch import _build, evaluate, flagship, ops
-  from mmt_tpu_torch.ops import ffn, similarity
+  from mmt_tpu_torch.ops import dropout, ffn, similarity
 
   tic = time.perf_counter()
   lib_path = _build.build()
@@ -198,6 +463,7 @@ def main():
   gen = torch.Generator(device=dev).manual_seed(0)
   ffn_err, ffn_times = ffn_phase(torch, ffn, dev, gen)
   sim_err, sim_times = sim_phase(torch, similarity, dev, gen)
+  train_res = train_kernel_phase(torch, ffn, dropout, dev, gen, card)
   reference_phase(torch, flagship, evaluate, dev)
 
   # ---- slice phase: the full-width flagship, 1k x 1k ----
@@ -267,6 +533,11 @@ def main():
         f"videos_per_s={N_VIDEOS / k_s:.1f} card: {card}", flush=True)
   print(f"eval runs kernel_path_s={[round(x, 6) for x in runs[False]]} "
         f"plain_path_s={[round(x, 6) for x in runs[True]]}", flush=True)
+  del model, batches, res, res_plain, sims
+  torch.cuda.empty_cache()
+
+  train_launches = train_step_phase(torch, flagship, ops, ffn, similarity,
+                                    dev, card)
 
   print(f"card: {card}")
   print(json.dumps({"kernels": [
@@ -280,7 +551,15 @@ def main():
        "replaces": "mmt_tpu/ops/similarity.py:244",
        "launches": launches["moe_similarity"], "max_abs_err": sim_err,
        "ms": sim_times[0], "plain_ms": sim_times[1]},
-  ]}))
+  ] + [
+      {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+       "launches": train_launches[name], "max_abs_err": train_res[name][0],
+       "ms": train_res[name][1], "plain_ms": train_res[name][2]}
+      for name, source, replaces in (
+          ("ffn_train_fwd", "mmt_tpu_torch/csrc/ffn_block.cu",
+           "mmt_tpu/ops/ffn.py:477"),
+          ("ffn_train_bwd", "mmt_tpu_torch/csrc/ffn_train_bwd.cu",
+           "mmt_tpu/ops/ffn.py:499"))]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Both sources under ``csrc/`` compile into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds).  The library
-is built at first use into ``build/mmt_tpu_torch/`` beside the package,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the cached build.  There is no fallback: without
-``nvcc`` or a card, ``load_library`` raises.
+The sources under ``csrc/`` compile, one nvcc process each and all at
+once, into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds).  The library is built at first use
+into ``build/mmt_tpu_torch/`` beside the package, named by a hash of the
+sources, headers and flags, so an edited source rebuilds and an unchanged
+one loads the cached build.  There is no fallback: without ``nvcc`` or a
+card, ``load_library`` raises.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ffn_block.cu", "moe_similarity.cu")
+SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu")
+HEADERS = ("ffn_common.cuh",)
 BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,13 @@ _SIGNATURES = {
     # stream
     "mmt_ffn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       ctypes.c_float, _I, _P],
+    # x, drop, w1, b1, w2, b2, gamma, beta, out, inter, z, R, H, I, eps,
+    # compute_dtype, stream
+    "mmt_ffn_train_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, R, H, I, eps,
+    # compute_dtype, add_dz, stream
+    "mmt_ffn_train_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I,
+                                      _P],
     # t, v, tw, vw, out, Q, V, K, M, stream
     "mmt_moe_similarity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -54,7 +63,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
   h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-  for name in SOURCES:
+  for name in SOURCES + HEADERS:
     h.update(name.encode())
     h.update((CSRC / name).read_bytes())
   return h.hexdigest()[:16]
@@ -63,24 +72,37 @@ def _source_hash() -> str:
 def build() -> pathlib.Path:
   """Compile the sources into the cached library (if not built yet).
 
-  Returns its path.  The compiler's output (including ptxas's register and
-  shared-memory report) is kept beside it as ``build.log``.
+  Each source compiles in its own nvcc process, all started together;
+  then one nvcc links the objects.  Returns the library's path.  The
+  compilers' output (including ptxas's register and shared-memory report)
+  is kept beside it as ``build.log``.
   """
   target = BUILD_DIR / f"libmmt_kernels_{_source_hash()}.so"
   if target.exists():
     return target
   nvcc = find_nvcc()
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-  os.close(fd)
-  cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-  proc = subprocess.run(cmd, capture_output=True, text=True)
-  (BUILD_DIR / "build.log").write_text(
-      " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-  if proc.returncode != 0:
-    os.unlink(tmp)
-    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-  os.replace(tmp, target)
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    objs = [os.path.join(tmp, s.replace(".cu", ".o")) for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    lib = os.path.join(tmp, "lib.so")
+    link = [nvcc, "-shared", "-o", lib, *objs]
+    log = [" ".join(c) + "\n" + out for c, out in zip(cmds, outs)]
+    failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode]
+    if not failed:
+      proc = subprocess.run(link, capture_output=True, text=True)
+      log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+      if proc.returncode:
+        failed.append((link, proc.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if failed:
+      raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n" + "".join(log))
+    os.replace(lib, target)
   return target
 
 

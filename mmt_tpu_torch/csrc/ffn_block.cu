@@ -1,13 +1,20 @@
-// Fused eval FFN sub-block for Hopper (sm_90a):
+// Fused FFN sub-block for Hopper (sm_90a), eval and train forward:
 //
-//   out = LayerNorm(x + GELU_erf(x W1^T + b1) W2^T + b2)
+//   eval  (B1):  out = LayerNorm(x + GELU_erf(x W1^T + b1) W2^T + b2)
+//   train (B2):  z   = (GELU_erf(x W1^T + b1) W2^T + b2) * drop + x
+//                out = LayerNorm(z), and also writes inter = x W1^T + b1
+//                and z, both rounded to the compute type, for B3
 //
-// Replaces the TPU kernel mmt_tpu/ops/ffn.py:_ffn_kernel (launched by
-// _pallas_ffn_2d through ffn_block).  Same numerics: x is rounded to the
-// compute type for the first product, bias and erf-GELU run in fp32, the
-// GELU output is rounded to the compute type for the second product, both
-// products accumulate in fp32, and the residual + LayerNorm (fast variance
-// mean(y^2) - mean^2, clamped at 0) run in fp32.  The output is fp32.
+// B1 replaces the TPU kernel mmt_tpu/ops/ffn.py:_ffn_kernel (launched by
+// _pallas_ffn_2d through ffn_block); B2 replaces _ffn_train_fwd_kernel
+// (launched by _pallas_ffn_train_fwd through ffn_block_train).  One
+// template (kTrain) gives both.  Same numerics as the TPU kernels: x is
+// rounded to the compute type for the first product, bias and erf-GELU
+// run in fp32 on the unrounded product, the GELU output is rounded to the
+// compute type for the second product, both products accumulate in fp32,
+// the pre-scaled dropout mask multiplies y + b2 before the residual, and
+// the residual + LayerNorm (fast variance mean(z^2) - mean^2, clamped at
+// 0) run in fp32 on the unrounded z.  The output is fp32.
 //
 // What bounds it on the H100: at the flagship eval shapes (video 10,900 x
 // 512 and text 1,500 x 768 rows per chunk of 50, I = 3072) the two
@@ -21,7 +28,10 @@
 // in bf16) stay resident in the 50 MB L2 and every block streams them from
 // there: with 16-row tiles that L2 traffic, not the tensor cores, is the
 // limit of this first version (larger row tiles, TMA and wgmma are later
-// work).  The text tower gives only 94 blocks for 132 SMs.
+// work).  The text tower gives only 94 blocks for 132 SMs at eval (60 at
+// the b32 train step).  B2 must write inter for the backward ([R, I] in
+// the compute type: 43 MB at the b32 video shape), one 16 x 16 tile per
+// warp and chunk straight from the fp32 scratch.
 //
 // bf16 compute uses WMMA 16x16x16 bf16 fragments with fp32 accumulation.
 // fp32 compute uses plain FMA (no TF32), so the card can check the kernel
@@ -36,31 +46,12 @@
 
 #include <cstddef>
 
+#include "ffn_common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mmt_ffn;
 using namespace nvcuda;
-
-constexpr int TR = 16;              // rows per block: one WMMA M tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int IC = WARPS * 16;      // I-chunk: one 16-wide tile per warp
-constexpr int MAX_H = 1024;
-constexpr int MAXF = MAX_H / 16 / WARPS;  // output column tiles per warp
-constexpr int MAXJ = MAX_H / THREADS;     // output columns per thread (fp32)
-constexpr int PAD = 8;              // row padding of the staged tiles
-
-__device__ __forceinline__ float gelu_erf(float u) {
-  return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Shared memory: x tile [TR, H + PAD] and GELU chunk [TR, IC + PAD] in the
 // compute type, then an fp32 scratch [TR, max(H, IC) + 4] that holds the
@@ -88,20 +79,30 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x, TC* xs,
   }
 }
 
-// Residual + bias + fast-variance LayerNorm over the [TR, H] fp32 rows in
-// ss, one warp per row.
+// Bias (+ dropout mask) + residual + fast-variance LayerNorm over the
+// [TR, H] fp32 rows in ss, one warp per row.  The train forward also
+// writes the pre-LN rows z in the compute type.
+template <bool kTrain, typename TC>
 __device__ __forceinline__ void layer_norm_epilogue(
     const float* __restrict__ x, const float* __restrict__ b2,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    float* __restrict__ out, float* ss, int lds, int row0, int R, int H,
+    const float* __restrict__ drop, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* __restrict__ out,
+    TC* __restrict__ z, float* ss, int lds, int row0, int R, int H,
     float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < TR; r += WARPS) {
     const int gr = row0 + r;
     if (gr >= R) continue;  // warp-uniform
+    const size_t base = size_t(gr) * H;
     float s = 0.0f, s2 = 0.0f;
     for (int c = lane; c < H; c += 32) {
-      const float y = ss[r * lds + c] + b2[c] + x[size_t(gr) * H + c];
+      float y;
+      if constexpr (kTrain) {
+        y = (ss[r * lds + c] + b2[c]) * drop[base + c] + x[base + c];
+        z[base + c] = from_float<TC>(y);
+      } else {
+        y = ss[r * lds + c] + b2[c] + x[base + c];
+      }
       ss[r * lds + c] = y;
       s += y;
       s2 += y * y;
@@ -115,21 +116,25 @@ __device__ __forceinline__ void layer_norm_epilogue(
     const float var = fmaxf(s2 / H - mean * mean, 0.0f);
     const float rstd = rsqrtf(var + eps);
     for (int c = lane; c < H; c += 32) {
-      out[size_t(gr) * H + c] =
-          (ss[r * lds + c] - mean) * rstd * gamma[c] + beta[c];
+      out[base + c] = (ss[r * lds + c] - mean) * rstd * gamma[c] + beta[c];
     }
   }
 }
 
+// Kernel parameters: drop, inter and z are read or written only by the
+// train forward (kTrain); the eval block gets null pointers.
+#define FFN_PARAMS(TC)                                                    \
+  const float* __restrict__ x, const TC* __restrict__ w1,                 \
+      const float* __restrict__ b1, const TC* __restrict__ w2,            \
+      const float* __restrict__ b2, const float* __restrict__ gamma,      \
+      const float* __restrict__ beta, const float* __restrict__ drop,     \
+      float* __restrict__ out, TC* __restrict__ inter, TC* __restrict__ z, \
+      int R, int H, int I, float eps
+
 // bf16 compute: WMMA fragments, [TR, H] accumulator in registers.
+template <bool kTrain>
 __global__ void __launch_bounds__(THREADS)
-ffn_block_bf16_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
-                      const float* __restrict__ b1,
-                      const bf16* __restrict__ w2,
-                      const float* __restrict__ b2,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ out,
-                      int R, int H, int I, float eps) {
+ffn_block_bf16_kernel(FFN_PARAMS(bf16)) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(H, sizeof(bf16));
   bf16* xs = reinterpret_cast<bf16*>(smem);
@@ -162,11 +167,18 @@ ffn_block_bf16_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
       wmma::store_matrix_sync(ss + warp * 16, u, L.lds, wmma::mem_row_major);
     }
     __syncwarp();
-    // Bias + GELU in fp32, rounded to bf16 for the second product.
+    // Bias + GELU in fp32, rounded to bf16 for the second product; the
+    // train forward also stores the pre-GELU chunk.
     for (int e = lane; e < 256; e += 32) {
       const int r = e / 16, cc = e % 16, c = warp * 16 + cc;
-      const float v = (col < I) ? gelu_erf(ss[r * L.lds + c] + b1[col + cc])
-                                : 0.0f;
+      float v = 0.0f;
+      if (col < I) {
+        const float u = ss[r * L.lds + c] + b1[col + cc];
+        if (kTrain && row0 + r < R) {
+          inter[size_t(row0 + r) * I + col + cc] = __float2bfloat16(u);
+        }
+        v = gelu_erf(u);
+      }
       is[r * L.ldi + c] = __float2bfloat16(v);
     }
     __syncthreads();
@@ -196,19 +208,15 @@ ffn_block_bf16_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
     }
   }
   __syncthreads();
-  layer_norm_epilogue(x, b2, gamma, beta, out, ss, L.lds, row0, R, H, eps);
+  layer_norm_epilogue<kTrain>(x, b2, drop, gamma, beta, out, z, ss, L.lds,
+                              row0, R, H, eps);
 }
 
 // fp32 compute: plain FMA, [TR, H] accumulator in registers (thread t owns
 // columns t, t + 256, ...).
+template <bool kTrain>
 __global__ void __launch_bounds__(THREADS)
-ffn_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2,
-                     const float* __restrict__ gamma,
-                     const float* __restrict__ beta, float* __restrict__ out,
-                     int R, int H, int I, float eps) {
+ffn_block_f32_kernel(FFN_PARAMS(float)) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(H, sizeof(float));
   float* xs = reinterpret_cast<float*>(smem);
@@ -242,7 +250,15 @@ ffn_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     }
 #pragma unroll
     for (int r = 0; r < RH; ++r) {
-      is[(rh + r) * L.ldi + c] = (col < I) ? gelu_erf(u[r] + b1[col]) : 0.0f;
+      float v = 0.0f;
+      if (col < I) {
+        const float uu = u[r] + b1[col];
+        if (kTrain && row0 + rh + r < R) {
+          inter[size_t(row0 + rh + r) * I + col] = uu;
+        }
+        v = gelu_erf(uu);
+      }
+      is[(rh + r) * L.ldi + c] = v;
     }
     __syncthreads();
     const int kmax = min(IC, I - c0);
@@ -270,7 +286,45 @@ ffn_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     }
   }
   __syncthreads();
-  layer_norm_epilogue(x, b2, gamma, beta, out, ss, L.lds, row0, R, H, eps);
+  layer_norm_epilogue<kTrain>(x, b2, drop, gamma, beta, out, z, ss, L.lds,
+                              row0, R, H, eps);
+}
+
+template <typename TC>
+int launch(void (*fn)(FFN_PARAMS(TC)), const float* x, const void* w1,
+           const float* b1, const void* w2, const float* b2,
+           const float* gamma, const float* beta, const float* drop,
+           float* out, void* inter, void* z, int R, int H, int I, float eps,
+           cudaStream_t stream) {
+  const Layout L(H, sizeof(TC));
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(fn),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<dim3((R + TR - 1) / TR), THREADS, L.bytes, stream>>>(
+      x, static_cast<const TC*>(w1), b1, static_cast<const TC*>(w2), b2,
+      gamma, beta, drop, out, static_cast<TC*>(inter), static_cast<TC*>(z),
+      R, H, I, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTrain>
+int dispatch(const float* x, const void* w1, const float* b1, const void* w2,
+             const float* b2, const float* gamma, const float* beta,
+             const float* drop, float* out, void* inter, void* z, int R,
+             int H, int I, float eps, int compute_dtype, void* stream_ptr) {
+  if (!shapes_ok(R, H, I, compute_dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (compute_dtype == 1) {
+    return launch<bf16>(&ffn_block_bf16_kernel<kTrain>, x, w1, b1, w2, b2,
+                        gamma, beta, drop, out, inter, z, R, H, I, eps,
+                        stream);
+  }
+  return launch<float>(&ffn_block_f32_kernel<kTrain>, x, w1, b1, w2, b2,
+                       gamma, beta, drop, out, inter, z, R, H, I, eps,
+                       stream);
 }
 
 }  // namespace
@@ -282,29 +336,22 @@ extern "C" int mmt_ffn_block(const float* x, const void* w1, const float* b1,
                              const float* gamma, const float* beta, float* out,
                              int R, int H, int I, float eps, int compute_dtype,
                              void* stream_ptr) {
-  if (R <= 0 || H <= 0 || H > MAX_H || H % 16 != 0 || I <= 0 || I % 16 != 0 ||
-      compute_dtype < 0 || compute_dtype > 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool bf = compute_dtype == 1;
-  const Layout L(H, bf ? sizeof(bf16) : sizeof(float));
-  const void* fn = bf ? reinterpret_cast<const void*>(&ffn_block_bf16_kernel)
-                      : reinterpret_cast<const void*>(&ffn_block_f32_kernel);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((R + TR - 1) / TR);
-  if (bf) {
-    ffn_block_bf16_kernel<<<grid, THREADS, L.bytes, stream>>>(
-        x, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-        gamma, beta, out, R, H, I, eps);
-  } else {
-    ffn_block_f32_kernel<<<grid, THREADS, L.bytes, stream>>>(
-        x, static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-        b2, gamma, beta, out, R, H, I, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
+                         nullptr, nullptr, R, H, I, eps, compute_dtype,
+                         stream_ptr);
+}
+
+// Train forward (B2): as mmt_ffn_block, plus the float32 mask drop [R, H]
+// and the compute-type outputs inter [R, I] and z [R, H].
+extern "C" int mmt_ffn_train_fwd(const float* x, const float* drop,
+                                 const void* w1, const float* b1,
+                                 const void* w2, const float* b2,
+                                 const float* gamma, const float* beta,
+                                 float* out, void* inter, void* z, int R,
+                                 int H, int I, float eps, int compute_dtype,
+                                 void* stream_ptr) {
+  return dispatch<true>(x, w1, b1, w2, b2, gamma, beta, drop, out, inter, z,
+                        R, H, I, eps, compute_dtype, stream_ptr);
 }
 
 extern "C" const char* mmt_error_string(int code) {

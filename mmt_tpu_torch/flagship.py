@@ -46,13 +46,13 @@ def flagship_arch(tiny=False):
 
 
 def flagship_model(*, device, compute_dtype=torch.bfloat16, seed=0,
-                   tiny=False):
+                   tiny=False, train=False):
   """The flagship CENet on ``device`` with random weights from ``seed``,
-  in eval mode."""
+  in eval mode (``train=True``: in train mode, for ``train.step``)."""
   arch = flagship_arch(tiny=tiny)
   model = CENet(**arch, compute_dtype=compute_dtype, device=device)
   gen = torch.Generator(device=device).manual_seed(seed)
-  return model.init_weights(gen).eval()
+  return model.init_weights(gen).train(train)
 
 
 def make_batch(expert_dims, batch_size, *, max_expert_tokens=30,

@@ -1,9 +1,14 @@
-"""Transformer encoder for the video and text towers (eval forward).
+"""Transformer encoder for the video and text towers.
 
 Port of mmt_tpu/models/bert.py: post-LN blocks, erf-GELU, the additive
 -10000 mask, fp32 LayerNorm statistics with the fast-variance form.  The
-FFN sub-block goes through ``ops.ffn.ffn_block`` (the fused kernel on the
-card).  Modules carry the reference's torch state-dict names
+FFN sub-block goes through ``ops.ffn.ffn_block`` in eval mode and
+``ops.ffn.ffn_block_train`` in train mode (the fused kernels on the card).
+Train mode (``train=True`` with a ``torch.Generator``) adds dropout where
+JAX has it: after the embeddings' LayerNorm, on the attention
+probabilities, on the attention output before the residual, and as the
+FFN block's mask; at rate 0 the FFN still takes the train block, with a
+ones mask.  Modules carry the reference's torch state-dict names
 (``encoder.layer.{i}.attention.self.query``, ``intermediate.dense``,
 ``output.LayerNorm`` for the text tower and ``output.layer_norm`` for the
 video tower, ...), so the reference's checkpoints load by name.
@@ -21,13 +26,17 @@ from torch import nn
 from mmt_tpu_torch.config import BertParams
 from mmt_tpu_torch.ops import attention as attention_ops
 from mmt_tpu_torch.ops import ffn as ffn_ops
+from mmt_tpu_torch.ops.dropout import dropout, dropout_mask
 
 
 class Linear(nn.Linear):
   """nn.Linear that keeps its weight and bias cast to a compute dtype.
 
-  The cast copy is made on first use and remade only when the parameters
-  change (a load, an in-place update or a move), never on every call.
+  Without autograd (``no_grad`` / ``inference_mode``) the cast copy is
+  made on first use and remade only when the parameters change (a load,
+  an in-place update or a move), never on every call.  Under autograd the
+  copy is made in the graph on every call, so that gradients reach the
+  fp32 parameters.
   """
 
   def __init__(self, in_features, out_features, *, device=None):
@@ -36,6 +45,8 @@ class Linear(nn.Linear):
 
   def cast(self, dtype):
     w, b = self.weight, self.bias
+    if torch.is_grad_enabled() and (w.requires_grad or b.requires_grad):
+      return w.to(dtype), b.to(dtype)
     key = (dtype, w.data_ptr(), w._version, b.data_ptr(), b._version)
     if self._cast is None or self._cast[0] != key:
       self._cast = (key, w.detach().to(dtype).contiguous(),
@@ -87,8 +98,9 @@ class TransformerLayer(nn.Module):
     self.output = _container(dense=Linear(i, h, device=device),
                              **{ln_name: ln()})
 
-  def forward(self, hidden, attn_bias):
+  def forward(self, hidden, attn_bias, *, train=False, generator=None):
     cfg, cd = self.cfg, self.compute_dtype
+    p_hidden = cfg.hidden_dropout_prob if train else 0.0
     b, s, h = hidden.shape
     n_heads = cfg.num_attention_heads
     hc = hidden.to(cd)
@@ -98,22 +110,39 @@ class TransformerLayer(nn.Module):
       return F.linear(hc, w, bias).view(b, s, n_heads, -1).transpose(1, 2)
 
     sa = self.attention.self
-    ctx = attention_ops.attention_bhsd(heads(sa.query), heads(sa.key),
-                                       heads(sa.value), attn_bias=attn_bias)
+    ctx = attention_ops.attention_bhsd(
+        heads(sa.query), heads(sa.key), heads(sa.value), attn_bias=attn_bias,
+        dropout_p=cfg.attention_probs_dropout_prob if train else 0.0,
+        generator=generator)
     ctx = ctx.transpose(1, 2).reshape(b, s, h).to(cd)
     wo, bo = self.attention.output.dense.cast(cd)
+    attn_out = dropout(F.linear(ctx, wo, bo), p_hidden, generator)
     attn_ln = getattr(self.attention.output, self.ln_name)
-    hidden = ffn_ops.layer_norm(F.linear(ctx, wo, bo).float() + hidden,
+    hidden = ffn_ops.layer_norm(attn_out.float() + hidden,
                                 attn_ln.weight, attn_ln.bias,
                                 eps=cfg.layer_norm_eps)
 
-    w1, _ = self.intermediate.dense.cast(cd)
-    w2, _ = self.output.dense.cast(cd)
+    inter, out = self.intermediate.dense, self.output.dense
     ffn_ln = getattr(self.output, self.ln_name)
-    return ffn_ops.ffn_block(hidden, w1, self.intermediate.dense.bias, w2,
-                             self.output.dense.bias, ffn_ln.weight,
-                             ffn_ln.bias, eps=cfg.layer_norm_eps,
-                             compute_dtype=cd)
+    if train:
+      drop = dropout_mask(hidden.shape, p_hidden, generator, hidden.device)
+      return ffn_ops.ffn_block_train(
+          hidden, drop, inter.weight, inter.bias, out.weight, out.bias,
+          ffn_ln.weight, ffn_ln.bias, eps=cfg.layer_norm_eps,
+          compute_dtype=cd)
+    w1, _ = inter.cast(cd)
+    w2, _ = out.cast(cd)
+    return ffn_ops.ffn_block(hidden, w1, inter.bias, w2, out.bias,
+                             ffn_ln.weight, ffn_ln.bias,
+                             eps=cfg.layer_norm_eps, compute_dtype=cd)
+
+
+def _encode(bert, x, attention_mask, train, generator):
+  """Embedding dropout (train mode), then the encoder."""
+  p = bert.cfg.hidden_dropout_prob if train else 0.0
+  return bert.encoder(dropout(x, p, generator),
+                      attention_bias_from_mask(attention_mask), train=train,
+                      generator=generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -126,9 +155,9 @@ class TransformerEncoder(nn.Module):
                          device=device)
         for _ in range(cfg.num_hidden_layers))
 
-  def forward(self, hidden, attn_bias):
+  def forward(self, hidden, attn_bias, *, train=False, generator=None):
     for layer in self.layer:
-      hidden = layer(hidden, attn_bias)
+      hidden = layer(hidden, attn_bias, train=train, generator=generator)
     return hidden
 
 
@@ -151,14 +180,15 @@ class FeatureBert(nn.Module):
                                       compute_dtype=compute_dtype,
                                       device=device)
 
-  def forward(self, features, attention_mask, token_type_ids, position_ids):
+  def forward(self, features, attention_mask, token_type_ids, position_ids,
+              *, train=False, generator=None):
     cd, emb = self.compute_dtype, self.embeddings
     x = emb.token_type_embeddings.weight[token_type_ids].to(cd)
     x = x + features.to(cd)
     x = x + emb.position_embeddings.weight[position_ids].to(cd)
     x = ffn_ops.layer_norm(x, emb.layer_norm.weight, emb.layer_norm.bias,
                            eps=self.cfg.layer_norm_eps)
-    return self.encoder(x, attention_bias_from_mask(attention_mask))
+    return _encode(self, x, attention_mask, train, generator)
 
 
 class TextBert(nn.Module):
@@ -181,11 +211,12 @@ class TextBert(nn.Module):
                                       compute_dtype=compute_dtype,
                                       device=device)
 
-  def forward(self, input_ids, attention_mask, token_type_ids, position_ids):
+  def forward(self, input_ids, attention_mask, token_type_ids, position_ids,
+              *, train=False, generator=None):
     cd, emb = self.compute_dtype, self.embeddings
     x = (emb.word_embeddings.weight[input_ids].to(cd)
          + emb.position_embeddings.weight[position_ids].to(cd)
          + emb.token_type_embeddings.weight[token_type_ids].to(cd))
     x = ffn_ops.layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias,
                            eps=self.cfg.layer_norm_eps)
-    return self.encoder(x, attention_bias_from_mask(attention_mask))
+    return _encode(self, x, attention_mask, train, generator)

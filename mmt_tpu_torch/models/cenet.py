@@ -1,4 +1,4 @@
-"""CENet eval forward with the flagship switches.
+"""CENet forward (eval and train) with the flagship switches.
 
 Port of mmt_tpu/models/cenet.py for the MSRVTT-jsfusion flagship:
 txt_agg ``bertftn`` (CLS of a bert-base-cased tower), txt_pro ``gbn``
@@ -25,6 +25,7 @@ from mmt_tpu_torch.config import BertParams, TEXT_BERT_BASE_CASED
 from mmt_tpu_torch.models import components as C
 from mmt_tpu_torch.models.bert import FeatureBert, TextBert, init_normal_
 from mmt_tpu_torch.ops import similarity as similarity_ops
+from mmt_tpu_torch.ops.dropout import dropout
 
 FLAGSHIP_SWITCHES = dict(
     keep_missing_modalities=True, test_caption_mode="indep",
@@ -34,7 +35,7 @@ FLAGSHIP_SWITCHES = dict(
 
 
 class CENet(nn.Module):
-  """Cross-modal video/text retrieval network (eval forward)."""
+  """Cross-modal video/text retrieval network."""
 
   def __init__(self, expert_dims: Mapping[str, Mapping[str, int]],
                vid_bert_params: Mapping[str, Any],
@@ -79,6 +80,9 @@ class CENet(nn.Module):
         for m, d in self.expert_dims.items()})
     self.moe_fc_txt = nn.ModuleDict({
         m: nn.Linear(text_dim, 1, device=device) for m in self.modalities})
+    # Dropout on the caption embedding before the MoE weight heads.
+    self.moe_txt_dropout = float(
+        (txt_bert_params or {}).get("hidden_dropout_prob", 0.1))
 
   def init_weights(self, generator: torch.Generator):
     """Random weights from ``generator`` (BERT towers N(0, 0.02)-style,
@@ -90,15 +94,21 @@ class CENet(nn.Module):
       C.init_heads_(heads, generator)
     return self
 
-  def forward(self, batch):
+  def forward(self, batch, *, train=False, generator=None):
     """batch: token_ids [B,K,T,2], and per-modality dicts features
     [B,L,D_m], features_t / features_ind [B,L], features_avgpool /
     features_maxpool [B,D_m] (torch tensors on one device).  Returns
     text_embds [B,K,M,D], text_weights [B,K,M], vid_embds [B,M,D] and
-    vid_weights [B,M], all fp32."""
-    return {**self.embed_text(batch["token_ids"]), **self.embed_video(batch)}
+    vid_weights [B,M], all fp32.
 
-  def embed_text(self, token_ids):
+    ``train=True`` runs the train forward: dropout from ``generator`` (a
+    torch.Generator on the batch's device) at the configured rates, and
+    BatchNorm on batch statistics, whose running buffers it updates."""
+    return {**self.embed_text(batch["token_ids"], train=train,
+                              generator=generator),
+            **self.embed_video(batch, train=train, generator=generator)}
+
+  def embed_text(self, token_ids, *, train=False, generator=None):
     b, k, t, _ = token_ids.shape
     m = len(self.modalities)
     flat = token_ids.reshape(b * k, t, 2)
@@ -106,17 +116,18 @@ class CENet(nn.Module):
     pos_ids = torch.arange(t, device=dev)[None]
     type_ids = torch.zeros((1, t), dtype=torch.long, device=dev)
     last = self.txt_bert(flat[:, :, 0].long(), flat[:, :, 1], type_ids,
-                         pos_ids)
+                         pos_ids, train=train, generator=generator)
     text = last[:, 0]
     stacked = C.batched_gated_embedding(
-        text, [self.text_GU[mod] for mod in self.modalities])
+        text, [self.text_GU[mod] for mod in self.modalities], train=train)
+    e = dropout(text, self.moe_txt_dropout if train else 0.0, generator)
     logits = C.batched_moe_logits(
-        text, [self.moe_fc_txt[mod] for mod in self.modalities])
+        e, [self.moe_fc_txt[mod] for mod in self.modalities])
     text_weights = C.l1_normalize(torch.softmax(logits, 1).reshape(b, k, m))
     return {"text_embds": C.l2_normalize(stacked).reshape(b, k, m, -1),
             "text_weights": text_weights}
 
-  def embed_video(self, batch):
+  def embed_video(self, batch, *, train=False, generator=None):
     mods = self.modalities
     b = batch["features_ind"][mods[0]].shape[0]
     reducers = [self.video_dim_reduce[mod] for mod in mods]
@@ -126,7 +137,7 @@ class CENet(nn.Module):
         batch["features"][mod].float(), r.fc.weight, r.fc.bias))
             for mod, r in zip(mods, reducers)]
     seq = self._assemble_video_sequence(batch, b, maxp, temp)
-    last = self.vid_bert(*seq)
+    last = self.vid_bert(*seq, train=train, generator=generator)
     experts = last[:, 1:1 + len(mods)]            # the agg tokens
     vid_weights = C.l1_normalize(
         torch.ones((b, len(mods)), device=experts.device))

@@ -1,4 +1,4 @@
-"""Normalisations and the batched per-modality heads (eval forward).
+"""Normalisations and the batched per-modality heads.
 
 Port of mmt_tpu/models/components.py:24-46 and :314-416.  The per-modality
 modules are parameter holders under the reference's names
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -63,9 +64,17 @@ def init_heads_(module: nn.Module, generator: torch.Generator):
         mod.bias.zero_()
 
 
-def batched_gated_embedding(x, geus):
-  """All modalities' GatedEmbeddingUnits (eval-mode BatchNorm with running
-  stats), followed by the L2 norm.  x [B, D_in] -> [B, M, D_out]."""
+def batched_gated_embedding(x, geus, *, train=False):
+  """All modalities' GatedEmbeddingUnits, followed by the L2 norm.
+  x [B, D_in] -> [B, M, D_out].
+
+  Eval mode normalises the gate with the BatchNorm running statistics.
+  Train mode (mmt_tpu/models/components.py:_batched_torch_bn) uses the
+  batch moments, with the fast biased variance mean(g^2) - mean^2, and
+  updates the running buffers in place to 0.9 * old + 0.1 * batch: flax's
+  BatchNorm, whose running variance is biased (torch's BatchNorm1d keeps
+  an unbiased one, so it is not called here).
+  """
   w1 = torch.stack([g.fc.weight for g in geus])              # [M, Do, Di]
   b1 = torch.stack([g.fc.bias for g in geus])                # [M, Do]
   wc = torch.stack([g.cg.fc.weight for g in geus])           # [M, Do, Do]
@@ -73,8 +82,17 @@ def batched_gated_embedding(x, geus):
   bns = [g.cg.batch_norm for g in geus]
   h = torch.einsum("bd,med->bme", x, w1) + b1
   gate = torch.einsum("bme,mfe->bmf", h, wc) + bc
-  mean = torch.stack([bn.running_mean for bn in bns])
-  var = torch.stack([bn.running_var for bn in bns])
+  if train:
+    mean = gate.mean(0)                                      # [M, Do]
+    var = (gate * gate).mean(0) - mean * mean
+    with torch.no_grad():
+      for i, bn in enumerate(bns):
+        for buf, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+          buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * batch[i])
+        bn.num_batches_tracked += 1
+  else:
+    mean = torch.stack([bn.running_mean for bn in bns])
+    var = torch.stack([bn.running_var for bn in bns])
   scale = torch.stack([bn.weight for bn in bns])
   shift = torch.stack([bn.bias for bn in bns])
   gate = (gate - mean) * torch.rsqrt(var + BN_EPS) * scale + shift

@@ -1,13 +1,18 @@
 """Fused transformer FFN sub-block: LN(x + GELU_erf(x W1^T + b1) W2^T + b2).
 
-Port of mmt_tpu/ops/ffn.py (``ffn_block``, ``layer_norm``).  On the card
-the block is one hand-written CUDA kernel (csrc/ffn_block.cu) that keeps
-the [R, I] intermediate out of device memory; ``ffn_block_plain`` is the
-same arithmetic in plain PyTorch.  Both mirror the TPU kernel's numerics
-(not the XLA reference's, which keeps bias and GELU in the compute type):
+Port of mmt_tpu/ops/ffn.py (``ffn_block``, ``ffn_block_train``,
+``layer_norm``).  On the card each block is a hand-written CUDA kernel
+that keeps the [R, I] intermediate out of device memory: the eval block
+(B1) and the train forward (B2, with the pre-scaled dropout mask on
+ffn_out before the residual) in csrc/ffn_block.cu, the train backward
+(B3) in csrc/ffn_train_bwd.cu.  The ``*_plain`` functions are the same
+arithmetic in plain PyTorch.  All mirror the TPU kernels' numerics (not
+the XLA references', which keep bias and GELU in the compute type):
 operands rounded to the compute dtype, fp32 accumulation, fp32 bias and
 exact erf-GELU, the GELU output rounded to the compute dtype, then fp32
-residual + LayerNorm with the fast-variance form.
+residual + LayerNorm with the fast-variance form.  The train forward
+also returns inter (pre-GELU) and z (pre-LN) rounded to the compute
+dtype; the backward returns dz and dinter rounded to it.
 
 Weights use nn.Linear's layout: w1 [I, H], w2 [H, I].
 """
@@ -27,15 +32,24 @@ def gelu_erf(x):
   return F.gelu(x, approximate="none")
 
 
+def gelu_erf_grad(u):
+  """d/du gelu_erf(u) = Phi(u) + u phi(u), with the exact erf."""
+  phi = torch.exp(-0.5 * u * u) * 0.3989422804014327
+  return 0.5 * (1.0 + torch.erf(u * 0.7071067811865476)) + u * phi
+
+
+def _zhat(z, eps):
+  """(z - mean) * rstd of fp32 rows, with the fast variance; and rstd."""
+  mean = z.mean(-1, keepdim=True)
+  var = ((z * z).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+  rstd = torch.rsqrt(var + eps)
+  return (z - mean) * rstd, rstd
+
+
 def layer_norm(y, gamma, beta, *, eps):
   """fp32 LayerNorm with flax's fast-variance form (mean(y^2) - mean^2,
   clamped at 0)."""
-  y = y.float()
-  mean = y.mean(-1, keepdim=True)
-  mean2 = (y * y).mean(-1, keepdim=True)
-  var = (mean2 - mean * mean).clamp_min(0.0)
-  y = (y - mean) * torch.rsqrt(var + eps)
-  return y * gamma.float() + beta.float()
+  return _zhat(y.float(), eps)[0] * gamma.float() + beta.float()
 
 
 def ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
@@ -47,44 +61,65 @@ def ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
   return layer_norm(y, gamma, beta, eps=eps)
 
 
-def _require(cond, msg):
-  if not cond:
-    raise ValueError(f"ffn_block kernel: {msg}")
+def _check_operands(kernel, *, f32, cd, rows, h, i, compute_dtype):
+  """Raise ValueError unless the operands are what the kernel takes:
+  ``f32`` / ``cd`` map names to (tensor, shape) in float32 / the compute
+  dtype, ``cd`` including the weights w1 [I, H] and w2 [H, I].  Returns
+  the operands' device."""
+  def require(cond, msg):
+    if not cond:
+      raise ValueError(f"{kernel} kernel: {msg}")
+
+  named = {**f32, **cd}
+  dev = next(iter(named.values()))[0].device
+  require(all(t.is_cuda and t.device == dev for t, _ in named.values()),
+          "every operand must lie on the same CUDA device")
+  require(compute_dtype in _DTYPE_CODES,
+          f"compute dtype {compute_dtype} not supported")
+  for name, (t, _) in f32.items():
+    require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+  for name, (t, _) in cd.items():
+    require(t.dtype == compute_dtype,
+            f"{name} must be {compute_dtype}, got {t.dtype}")
+  for name, (t, shape) in named.items():
+    require(tuple(t.shape) == shape,
+            f"{name} must have shape {shape}, got {tuple(t.shape)}")
+  require(rows > 0 and h % 16 == 0 and 0 < h <= 1024 and i % 16 == 0
+          and i > 0, f"needs R > 0, H % 16 == 0, H <= 1024 and I % 16 == 0 "
+          f"(R={rows}, H={h}, I={i})")
+  require(all(t.is_contiguous() for t, _ in named.values()),
+          "operands must be contiguous")
+  require(all(cd[w][0].data_ptr() % 32 == 0 for w in ("w1", "w2")),
+          "weights must be 32-byte aligned")
+  return dev
+
+
+def _weight_shapes(x, w1):
+  """(R, H, I) from rows x [R, H] and w1 [I, H]; raises on a non-2-D x."""
+  if x.dim() != 2:
+    raise ValueError(f"rows must be [R, H], got {tuple(x.shape)}")
+  return x.shape[0], x.shape[1], w1.shape[0]
+
+
+def _launch(lib, name, dev, *args):
+  with torch.cuda.device(dev):
+    code = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+  _build.check(lib, name, code)
 
 
 def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
   """Launch csrc/ffn_block.cu on x [R, H] (CUDA); returns fp32 [R, H]."""
-  args = (x, w1, b1, w2, b2, gamma, beta)
-  _require(all(t.is_cuda and t.device == x.device for t in args),
-           "every operand must lie on the same CUDA device")
-  _require(x.dim() == 2, f"x must be [R, H], got {tuple(x.shape)}")
-  r, h = x.shape
-  i = w1.shape[0]
-  _require(compute_dtype in _DTYPE_CODES,
-           f"compute dtype {compute_dtype} not supported")
-  _require(w1.dtype == compute_dtype and w2.dtype == compute_dtype,
-           f"weights must be {compute_dtype}, got {w1.dtype}/{w2.dtype}")
-  _require(all(t.dtype == torch.float32 for t in (x, b1, b2, gamma, beta)),
-           "x, biases and LayerNorm parameters must be float32")
-  _require(tuple(w1.shape) == (i, h) and tuple(w2.shape) == (h, i)
-           and tuple(b1.shape) == (i,)
-           and all(tuple(t.shape) == (h,) for t in (b2, gamma, beta)),
-           "shapes must be x [R, H], w1 [I, H], b1 [I], w2 [H, I], "
-           "b2/gamma/beta [H]")
-  _require(h % 16 == 0 and 0 < h <= 1024 and i % 16 == 0 and i > 0,
-           f"needs H % 16 == 0, H <= 1024 and I % 16 == 0 (H={h}, I={i})")
-  _require(all(t.is_contiguous() for t in args), "operands must be contiguous")
-  _require(w1.data_ptr() % 32 == 0 and w2.data_ptr() % 32 == 0,
-           "weights must be 32-byte aligned")
-  out = torch.empty((r, h), dtype=torch.float32, device=x.device)
-  lib = _build.load_library()
-  with torch.cuda.device(x.device):
-    code = lib.mmt_ffn_block(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), r, h, i, float(eps), _DTYPE_CODES[compute_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(lib, "mmt_ffn_block", code)
+  r, h, i = _weight_shapes(x, w1)
+  dev = _check_operands(
+      "ffn_block", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      f32=dict(x=(x, (r, h)), b1=(b1, (i,)), b2=(b2, (h,)),
+               gamma=(gamma, (h,)), beta=(beta, (h,))),
+      cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
+  out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  _launch(_build.load_library(), "mmt_ffn_block", dev,
+          x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+          b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+          r, h, i, float(eps), _DTYPE_CODES[compute_dtype])
   ffn_block_cuda.launches += 1
   return out
 
@@ -104,4 +139,159 @@ def ffn_block(x, w1, b1, w2, b2, gamma, beta, *, eps,
   fn = ffn_block_cuda if ops.use_kernel(x) else ffn_block_plain
   out = fn(x2, w1, b1, w2, b2, gamma, beta, eps=eps,
            compute_dtype=compute_dtype)
+  return out.reshape(*lead, h)
+
+
+# ---------------------------------------------------------------------------
+# Train path: the block with a pre-scaled dropout mask ``drop`` ([R, H],
+# values 0 or 1/(1-p)) on ffn_out before the residual.  The forward (B2)
+# also returns inter and z for the backward (B3); the weight gradients
+# (K = R products and row sums) are plain GEMMs, as they were XLA on the
+# TPU (mmt_tpu/ops/ffn.py:725-748).
+# ---------------------------------------------------------------------------
+
+
+def ffn_train_fwd_plain(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
+                        compute_dtype):
+  """Plain version of B2: x, drop [R, H] -> (out fp32 [R, H],
+  inter cd [R, I], z cd [R, H])."""
+  cd = compute_dtype
+  u = x.to(cd).float() @ w1.to(cd).float().T + b1.float()
+  g = gelu_erf(u).to(cd).float()
+  z = (g @ w2.to(cd).float().T + b2.float()) * drop.float() + x.float()
+  return layer_norm(z, gamma, beta, eps=eps), u.to(cd), z.to(cd)
+
+
+def ffn_train_fwd_cuda(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
+                       compute_dtype):
+  """Launch B2 (csrc/ffn_block.cu, train forward); same contract as
+  ``ffn_train_fwd_plain``, with w1/w2 in the compute dtype."""
+  r, h, i = _weight_shapes(x, w1)
+  dev = _check_operands(
+      "ffn_train_fwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      f32=dict(x=(x, (r, h)), drop=(drop, (r, h)), b1=(b1, (i,)),
+               b2=(b2, (h,)), gamma=(gamma, (h,)), beta=(beta, (h,))),
+      cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
+  out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  inter = torch.empty((r, i), dtype=compute_dtype, device=dev)
+  z = torch.empty((r, h), dtype=compute_dtype, device=dev)
+  _launch(_build.load_library(), "mmt_ffn_train_fwd", dev,
+          x.data_ptr(), drop.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+          w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+          out.data_ptr(), inter.data_ptr(), z.data_ptr(), r, h, i,
+          float(eps), _DTYPE_CODES[compute_dtype])
+  ffn_train_fwd_cuda.launches += 1
+  return out, inter, z
+
+
+ffn_train_fwd_cuda.launches = 0
+
+
+def ffn_train_bwd_plain(dy, z, inter, drop, w1, w2, gamma, *, eps,
+                        compute_dtype, add_dz=True):
+  """Plain version of B3: dy fp32 [R, H], z cd [R, H], inter cd [R, I],
+  drop fp32 [R, H] -> (dx fp32 [R, H], dz cd [R, H], dinter cd [R, I]).
+  ``add_dz=False`` leaves out dz from dx (the tensor-parallel partial)."""
+  cd = compute_dtype
+  zhat, rstd = _zhat(z.float(), eps)
+  dyg = dy.float() * gamma.float()
+  dz = rstd * (dyg - dyg.mean(-1, keepdim=True)
+               - zhat * (dyg * zhat).mean(-1, keepdim=True))
+  dffn = (dz * drop.float()).to(cd).float()
+  dinter = ((dffn @ w2.to(cd).float())
+            * gelu_erf_grad(inter.float())).to(cd)
+  dx = dinter.float() @ w1.to(cd).float()
+  return (dx + dz if add_dz else dx), dz.to(cd), dinter
+
+
+def ffn_train_bwd_cuda(dy, z, inter, drop, w1, w2, gamma, *, eps,
+                       compute_dtype, add_dz=True):
+  """Launch B3 (csrc/ffn_train_bwd.cu); same contract as
+  ``ffn_train_bwd_plain``, with w1/w2 in the compute dtype."""
+  r, h, i = _weight_shapes(z, w1)
+  dev = _check_operands(
+      "ffn_train_bwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      f32=dict(dy=(dy, (r, h)), drop=(drop, (r, h)), gamma=(gamma, (h,))),
+      cd=dict(z=(z, (r, h)), inter=(inter, (r, i)), w1=(w1, (i, h)),
+              w2=(w2, (h, i))))
+  dx = torch.empty((r, h), dtype=torch.float32, device=dev)
+  dz = torch.empty((r, h), dtype=compute_dtype, device=dev)
+  dinter = torch.empty((r, i), dtype=compute_dtype, device=dev)
+  _launch(_build.load_library(), "mmt_ffn_train_bwd", dev,
+          dy.data_ptr(), z.data_ptr(), inter.data_ptr(), drop.data_ptr(),
+          w1.data_ptr(), w2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+          dz.data_ptr(), dinter.data_ptr(), r, h, i, float(eps),
+          _DTYPE_CODES[compute_dtype], int(bool(add_dz)))
+  ffn_train_bwd_cuda.launches += 1
+  return dx, dz, dinter
+
+
+ffn_train_bwd_cuda.launches = 0
+
+
+def ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter, *, eps,
+                           compute_dtype):
+  """dW1 [I, H], db1 [I], dW2 [H, I], db2 [H], dgamma [H], dbeta [H], all
+  fp32, from the forward's residuals and B3's outputs.  The products take
+  the compute-dtype-rounded operands with fp32 accumulation, as the JAX
+  package's dot_generals with preferred_element_type=float32."""
+  cd = compute_dtype
+  dy = dy.float()
+  zhat, _ = _zhat(z.float(), eps)
+  dffn = dz.float() * drop.float()
+  gelu_out = gelu_erf(inter.float()).to(cd).float()
+  dinter = dinter.float()
+  dw2 = dffn.to(cd).float().T @ gelu_out
+  dw1 = dinter.T @ x.to(cd).float()
+  return (dw1, dinter.sum(0), dw2, dffn.sum(0), (dy * zhat).sum(0),
+          dy.sum(0))
+
+
+class FFNBlockTrain(torch.autograd.Function):
+  """Train-time FFN block on x [R, H] with its pre-scaled mask: B2
+  forward, B3 backward (or their plain versions), plain weight gradients.
+
+  Takes the fp32 master weights w1 [I, H] and w2 [H, I] and casts them to
+  the compute dtype inside, so their gradients come back in fp32.  The
+  choice between kernels and plain versions is made once, in the forward,
+  and the backward follows it.  The mask gets no gradient.
+  """
+
+  @staticmethod
+  def forward(ctx, x, drop, w1, b1, w2, b2, gamma, beta, eps, compute_dtype):
+    cd = compute_dtype
+    w1c, w2c = w1.to(cd).contiguous(), w2.to(cd).contiguous()
+    use_kernel = ops.use_kernel(x)
+    fwd = ffn_train_fwd_cuda if use_kernel else ffn_train_fwd_plain
+    out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,
+                        compute_dtype=cd)
+    ctx.save_for_backward(x, drop, w1c, w2c, gamma, inter, z)
+    ctx.eps, ctx.cd, ctx.use_kernel = eps, cd, use_kernel
+    return out
+
+  @staticmethod
+  def backward(ctx, dy):
+    x, drop, w1c, w2c, gamma, inter, z = ctx.saved_tensors
+    dy = dy.float().contiguous()
+    bwd = ffn_train_bwd_cuda if ctx.use_kernel else ffn_train_bwd_plain
+    dx, dz, dinter = bwd(dy, z, inter, drop, w1c, w2c, gamma, eps=ctx.eps,
+                         compute_dtype=ctx.cd)
+    grads = ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter,
+                                   eps=ctx.eps, compute_dtype=ctx.cd)
+    return (dx, None, *grads, None, None)
+
+
+def ffn_block_train(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
+                    compute_dtype=torch.bfloat16):
+  """Train-time FFN sub-block over [..., H] with the pre-scaled dropout
+  mask ``drop`` (same shape as x, fp32); returns fp32 [..., H].
+
+  Same dispatch rule as ``ffn_block``: a CUDA tensor launches B2 and, in
+  the backward, B3 (each raises on what it does not take); a CPU tensor
+  takes the plain versions.  w1/w2 are the fp32 master weights.
+  """
+  lead, h = x.shape[:-1], x.shape[-1]
+  out = FFNBlockTrain.apply(x.reshape(-1, h).contiguous(),
+                            drop.reshape(-1, h).float().contiguous(), w1, b1,
+                            w2, b2, gamma, beta, eps, compute_dtype)
   return out.reshape(*lead, h)

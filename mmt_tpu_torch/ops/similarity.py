@@ -10,7 +10,11 @@ and video v:
 The weight pre-scaling and the flattening to [., M * D] happen here, in
 torch, as in the JAX wrapper; the product, the denominator, the guard and
 the divide are one CUDA kernel on the card (csrc/moe_similarity.cu), in
-fp32 throughout.  ``sim_plain`` is its plain PyTorch version.
+fp32 throughout.  ``sim_plain`` is its plain PyTorch version.  Under
+autograd ``MoESimilarity`` wraps the kernel contract (t, v, tw, vw): the
+kernel (or plain version) forward, and the closed-form backward of
+mmt_tpu/ops/similarity.py:_fused_bwd in plain torch (it was einsums, not
+Pallas, on the TPU).  The pre-scaling stays outside, under autograd.
 """
 
 from __future__ import annotations
@@ -67,6 +71,34 @@ def sim_cuda(t, v, tw, vw):
 sim_cuda.launches = 0
 
 
+class MoESimilarity(torch.autograd.Function):
+  """sims = (t v^T) / guard(tw vw^T) on pre-scaled t [Q, K], v [V, K].
+
+  With gd = g / denom (the guarded denominator), the gradients are
+  dt = gd v, dv = gd^T t, dtw = -(gd * sims) vw and dvw = -(gd * sims)^T
+  tw.  The guard (denom == 0 -> 1e-5) is a constant: no gradient reaches
+  tw or vw through a guarded entry.
+  """
+
+  @staticmethod
+  def forward(ctx, t, v, tw, vw):
+    fn = sim_cuda if ops.use_kernel(t) else sim_plain
+    sims = fn(t, v, tw, vw)
+    ctx.save_for_backward(t, v, tw, vw, sims)
+    return sims
+
+  @staticmethod
+  def backward(ctx, g):
+    t, v, tw, vw, sims = ctx.saved_tensors
+    g = g.float()
+    denom = tw @ vw.T
+    guarded = denom == 0
+    gd = g / torch.where(guarded, torch.full_like(denom, EPS_ZERO_GUARD),
+                         denom)
+    gs = torch.where(guarded, torch.zeros_like(gd), gd * sims)
+    return gd @ v, gd.T @ t, -(gs @ vw), -(gs.T @ tw)
+
+
 def moe_similarity(text_embds, vid_embds, text_weights, vid_weights,
                    merge: str = "avg", num_caps: int = 1):
   """Similarity matrix between all captions and all videos.
@@ -83,8 +115,7 @@ def moe_similarity(text_embds, vid_embds, text_weights, vid_weights,
   vw = vid_weights.float().contiguous()
   t = (text_embds.float() * tw[:, :, None]).reshape(q, m * d)
   v = (vid_embds.float() * vw[:, :, None]).reshape(nv, m * d)
-  fn = sim_cuda if ops.use_kernel(t) else sim_plain
-  sims = fn(t, v, tw, vw)
+  sims = MoESimilarity.apply(t, v, tw, vw)
   if num_caps > 1 and merge == "avg":
     sims = sims.reshape(q // num_caps, num_caps, nv).mean(1)
   return sims

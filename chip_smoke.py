@@ -14,7 +14,16 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    37 x 53 case with all-zero weight rows), with the max abs error and
    both times.  Tolerances: FFN fp32 atol 1e-4; FFN bf16 atol 3e-2 and
    mean abs error <= 2e-3; similarity atol 1e-5.
-3. Train-kernel phase: the FFN train forward (B2) and backward (B3,
+3. Rank-kernel phase: the fused similarity-and-rank kernel (B5) against
+   its plain version, each case in the t2v and the v2t orientation: (a)
+   50,000 x 50,000 unit-norm random embeddings (M = 7, D = 512) with
+   all-zero weight rows; (b) 2,000 captions x 1,000 videos with masked
+   caption slots, one video with every slot masked and 24 padding
+   videos; (c) exact arithmetic with duplicated rows.  Tolerance: every
+   rank within 1, on fewer than 1e-3 of the queries, the same inf
+   positions; (c) equal counts with a tie counted.  Kernel, plain and
+   fp32 torch.mm (numerator only) times and the bound of each.
+4. Train-kernel phase: the FFN train forward (B2) and backward (B3,
    add_dz on and off) against their plain versions at the b32 train
    shapes (video 6,976 x 512, text 960 x 768, ragged 1,013 x 768, I =
    3072), bf16 and fp32, masks at p = 0.1 from a seeded generator.
@@ -22,16 +31,28 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    and mean 2e-3; bf16 compute-dtype outputs within 2 bf16 ulps of the
    plain version's (the ulp of the larger of the two magnitudes) plus an
    absolute floor for values near zero (CD_ATOL below).
-4. Reference phase: a tiny fp32 CENet on the card (kernels) against the
+5. Reference phase: a tiny fp32 CENet on the card (kernels) against the
    same weights on the CPU (plain versions), sims atol 1e-4.
-5. Slice phase: the full-width flagship CENet (bf16, random weights from
-   a seed) embeds 1000 captions and 1000 videos in 20 chunks of 50, builds
-   the 1k x 1k similarity and ranks it.  The launch counters must read
-   exactly 16 x 20 = 320 FFN launches and at least one similarity launch;
-   every output must be finite; the same eval with the plain versions
-   must give sims within 2e-2.  Then the eval's wall time on both paths,
-   median of 5 runs after a warm-up, taken in turns.
-6. Train-step phase: the full-width flagship in bf16, b32, Adam (lr
+6. Slice phase: the full-width flagship CENet (bf16, random weights from
+   a seed, ``bench.staged_flagship``) embeds 1000 captions and 1000 videos
+   in 20 chunks of 50, builds the 1k x 1k similarity and ranks it.  The
+   launch counters must read exactly 16 x 20 = 320 FFN launches and at
+   least one similarity launch; every output must be finite; the same
+   eval with the plain versions must give sims within 2e-2.  Then the
+   eval's wall time on both paths, median of 5 runs after a warm-up,
+   taken in turns.
+7. At-scale phase: the same model and videos through bench.py's
+   streaming protocol at 20,000 videos (20 salted passes of 1000 in
+   chunks of 50) and the fused eval (``retrieval_eval(fused=True)``, no
+   [Q, V] matrix).  Exactly 16 x 400 = 6,400 FFN, 0 similarity and 2 rank
+   kernel launches; finite metrics; on the same embeddings the kernel
+   path's ranks against the plain path's (the rule of phase 3) and
+   against the matrix path's (B4 and the matrix ranks), which may differ
+   only by the candidates that lie between the two paths' GT values (the
+   fused path computes the GT similarity directly); the peak device
+   memory of both rankings; B5's time at 20k; the fused eval's wall time
+   on both paths, median of 3 after a warm-up, taken in turns.
+8. Train-step phase: the full-width flagship in bf16, b32, Adam (lr
    5e-5) on the max-margin loss (margin 0.05, fix_norm).  One step must
    launch exactly 16 B2, 16 B3, >= 1 similarity and 0 eval FFN kernels;
    from the same state and generator seed the plain path's loss and
@@ -41,27 +62,22 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    BatchNorm running statistics.  Then the step time on both paths, b32
    and b128, median of 20 after 3 warm-ups, taken in turns.
 
-The last two lines of stdout are one JSON object of kernel results and
-{"ok": true, "device": {...}}.
+The last two lines of stdout are one JSON object of kernel results (each
+kernel's launches on its main path, worst disagreement, times, bound and
+library time) and {"ok": true, "device": {...}}; the card's name and
+power limit come on the line before them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 N_VIDEOS, CHUNK = 1000, 50
 FFN_LAYERS = 12 + 4     # text + video tower layers, one FFN block each
-
-
-def card_line():
-  out = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-      capture_output=True, text=True, timeout=60, check=True)
-  return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, reps=20):
@@ -79,16 +95,32 @@ def time_ms(torch, fn, reps=20):
   return start.elapsed_time(end) / reps
 
 
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 tensor
+# cores, fp32 FMA outside the tensor cores, device memory.
+H100_BF16, H100_FP32, H100_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops, rate, tensors):
+  """(ms, what sets it): the least time of the work on the H100, the
+  larger of its FLOPs at ``rate`` and its bytes (each tensor read or
+  written once) at the memory rate."""
+  nbytes = sum(t.numel() * t.element_size() for t in tensors)
+  ops_ms, bytes_ms = flops / rate * 1e3, nbytes / H100_BYTES * 1e3
+  return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                            "bytes")
+
+
 def ffn_phase(torch, ffn, dev, gen):
-  """Each FFN case: kernel vs plain version; returns the bf16 cases'
-  worst error and the video-shape bf16 times."""
+  """Each FFN case: kernel vs plain version; returns the kernel's line
+  entries: the bf16 cases' worst error, and the video-shape bf16 times
+  and bound (no single PyTorch call computes the block)."""
   cases = [(10900, 512, 3072, torch.bfloat16), (1500, 768, 3072,
                                                 torch.bfloat16),
            (1013, 768, 3072, torch.bfloat16),
            (10900, 512, 3072, torch.float32), (1500, 768, 3072,
                                                torch.float32),
            (1013, 768, 3072, torch.float32)]
-  worst_bf16, video_ms = 0.0, None
+  res = {"max_abs_err": 0.0, "library_ms": None}
   for r, h, i, cd in cases:
     rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
     x = rand(r, h)
@@ -116,16 +148,20 @@ def ffn_phase(torch, ffn, dev, gen):
       if max_err > 3e-2 or mean_err > 2e-3:
         raise RuntimeError(f"ffn_block bf16 error {max_err}/{mean_err} "
                            "exceeds 3e-2 (max) / 2e-3 (mean)")
-      worst_bf16 = max(worst_bf16, max_err)
+      res["max_abs_err"] = max(res["max_abs_err"], max_err)
       if (r, h) == (10900, 512):
-        video_ms = (ms, plain_ms)
-  return worst_bf16, video_ms
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + (got,))
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+  return res
 
 
 def sim_phase(torch, similarity, dev, gen):
-  """Similarity kernel vs plain version; returns the worst error and the
-  1000 x 1000 times."""
-  worst, times = 0.0, None
+  """Similarity kernel vs plain version; returns the kernel's line
+  entries: the worst error, and the 1000 x 1000 times, bound and
+  library time (the fp32 ``torch.mm`` of the numerator alone, which
+  computes less than the kernel)."""
+  res = {"max_abs_err": 0.0}
   for q, v, m, d, zero_rows in ((1000, 1000, 7, 512, False),
                                 (37, 53, 7, 512, True)):
     te = torch.randn(q, m, d, generator=gen, device=dev)
@@ -152,10 +188,16 @@ def sim_phase(torch, similarity, dev, gen):
           flush=True)
     if not bool(torch.isfinite(got).all()) or max_err > 1e-5:
       raise RuntimeError(f"moe_similarity error {max_err} > 1e-5")
-    worst = max(worst, max_err)
+    res["max_abs_err"] = max(res["max_abs_err"], max_err)
     if q == 1000:
-      times = (ms, plain_ms)
-  return worst, times
+      lib_ms = time_ms(torch, lambda: torch.mm(t, vv.T))
+      b_ms, b_by = bound(2 * q * v * m * (d + 1), H100_FP32,
+                         (t, vv, tw, vw, got))
+      res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=b_ms, bound_by=b_by)
+      print(f"  library (torch.mm numerator) {lib_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by})", flush=True)
+  return res
 
 
 TRAIN_SHAPES = ((6976, 512), (960, 768), (1013, 768))   # b32 video, text
@@ -212,9 +254,10 @@ def check_outputs(torch, what, cd, got, want, cd_names):
 
 def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
   """B2 and B3 against their plain versions at the b32 train shapes;
-  returns {kernel: (worst bf16 error, video bf16 kernel ms, plain ms)}."""
-  res = {"ffn_train_fwd": [0.0, None, None],
-         "ffn_train_bwd": [0.0, None, None]}
+  returns each kernel's line entries: the worst bf16 error, and the video
+  bf16 times and bound (no single PyTorch call computes either)."""
+  res = {name: {"max_abs_err": 0.0, "library_ms": None}
+         for name in ("ffn_train_fwd", "ffn_train_bwd")}
   for cd in (torch.bfloat16, torch.float32):
     for r, h in TRAIN_SHAPES:
       i = TRAIN_I
@@ -230,7 +273,7 @@ def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
       tag = f"R={r} H={h} I={i} {name}"
 
       fargs = (x, drop, w1, b1, w2, b2, gamma, beta)
-      got = ffn.ffn_train_fwd_cuda(*fargs, **kw)
+      got = fwd_out = ffn.ffn_train_fwd_cuda(*fargs, **kw)
       want = ffn.ffn_train_fwd_plain(*fargs, **kw)
       torch.cuda.synchronize()
       err_f = check_outputs(torch, f"ffn_train_fwd {tag}", cd,
@@ -258,14 +301,19 @@ def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
               time_ms(torch, lambda: ffn.ffn_train_bwd_cuda(*bargs, **bkw)),
               time_ms(torch, lambda: ffn.ffn_train_bwd_plain(*bargs,
                                                              **bkw)))}
+      # Both do the two products of the block, 4 R H I FLOP.
+      tensors = {"ffn_train_fwd": fargs + tuple(fwd_out),
+                 "ffn_train_bwd": bargs + tuple(got)}
       for kname, err in (("ffn_train_fwd", err_f), ("ffn_train_bwd", err_b)):
         ms, plain_ms = times[kname]
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16, tensors[kname])
         print(f"{kname} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"card: {card}", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) card: {card}", flush=True)
         if cd == torch.bfloat16:
-          res[kname][0] = max(res[kname][0], err)
+          res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], err)
           if (r, h) == TRAIN_SHAPES[0]:
-            res[kname][1:] = [ms, plain_ms]
+            res[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
   return res
 
 
@@ -306,8 +354,6 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   """The b32 train step of the full-width flagship (bf16): launch counts,
   kernel path vs plain path, 20 steps, then step times at b32 and b128.
   Returns the launch counts of the counted step."""
-  import contextlib
-
   from mmt_tpu_torch.train import losses, optim, step
 
   arch = flagship.flagship_arch()
@@ -426,6 +472,306 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   return launches
 
 
+# Rank-kernel cases: (name, videos, captions per video).  (a) 50k x 50k
+# unit-norm random embeddings with all-zero weight rows; (b) 2,000
+# captions x 1,000 videos with masked caption slots, a video whose slots
+# are all masked and 24 padding videos; (c) exact arithmetic with
+# duplicated rows (ties).
+RANK_CASES = (("a", 50_000, 1), ("b", 1_000, 2), ("c", 1_000, 2))
+RANK_M, RANK_D, RANK_PAD = 7, 512, 24
+
+
+def rank_inputs(torch, case, nv, cpv, dev, gen):
+  """te, ve, tw, vw, masks, vid_valid of one rank-kernel case."""
+  q, m, d = nv * cpv, RANK_M, RANK_D
+  masks = torch.ones(nv, cpv, device=dev)
+  vid_valid = None
+  if case == "c":
+    # Values in {0, +-0.5, +-1} and unit weights: every partial sum is a
+    # multiple of 0.25 below 2^22, exact in fp32 in any order, so kernel
+    # and plain version must count alike.
+    rand = lambda *sh: torch.randint(-2, 3, sh, generator=gen,
+                                     device=dev).float() / 2
+    te, ve = rand(q, m, d), rand(nv, m, d)
+    ve[10] = ve[3]          # duplicates of GT rows: ties in t2v
+    ve[20:25] = ve[0]
+    te[100] = te[41]        # duplicate captions: ties in v2t
+    te[7] = te[6]
+    return (te, ve, torch.ones(q, m, device=dev), torch.ones(nv, m, device=dev),
+            masks, vid_valid)
+  te = torch.randn(q, m, d, generator=gen, device=dev)
+  ve = torch.randn(nv, m, d, generator=gen, device=dev)
+  te, ve = te / te.norm(dim=-1, keepdim=True), ve / ve.norm(dim=-1,
+                                                          keepdim=True)
+  tw = torch.rand(q, m, generator=gen, device=dev)
+  vw = torch.rand(nv, m, generator=gen, device=dev)
+  tw, vw = tw / tw.sum(-1, keepdim=True), vw / vw.sum(-1, keepdim=True)
+  if case == "a":            # the denominator's 1e-5 guard
+    tw[3] = 0.0
+    vw[5] = 0.0
+    vw[7] = 0.0
+  else:
+    masks = (torch.rand(nv, cpv, generator=gen, device=dev) > 0.1).float()
+    masks[0] = 0.0           # every slot masked: v2t rank inf
+    # Padding videos, as a mesh pads them: zero rows, dead in both
+    # orientations.
+    pad = RANK_PAD
+    ve[-pad:], vw[-pad:], masks[-pad:] = 0.0, 0.0, 0.0
+    te[-pad * cpv:], tw[-pad * cpv:] = 0.0, 0.0
+    vid_valid = torch.ones(nv, device=dev)
+    vid_valid[-pad:] = 0.0
+  return te, ve, tw, vw, masks, vid_valid
+
+
+def rank_agreement(torch, got, want):
+  """(worst |diff| over ranks finite in both, share of them that differ,
+  whether the inf positions agree)."""
+  inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+  fin = ~inf_g & ~inf_w
+  diff = (got[fin] - want[fin]).abs()
+  worst = float(diff.max()) if diff.numel() else 0.0
+  return worst, float((diff > 0).float().mean()), bool(torch.equal(inf_g,
+                                                                   inf_w))
+
+
+def check_rank_rule(torch, what, got, want):
+  """Same inf positions; finite ranks within 1, on < 1e-3 of queries (the
+  JAX package's rule for the fused ranks).  Returns the worst |diff|."""
+  worst, frac, same_inf = rank_agreement(torch, got, want)
+  print(f"  {what}: worst rank diff {worst} on {frac:.3e} of queries, "
+        f"same inf positions {same_inf}", flush=True)
+  if not same_inf or worst > 1 or frac >= 1e-3:
+    raise RuntimeError(f"{what}: ranks outside the rule (worst {worst}, "
+                       f"share {frac}, same inf {same_inf})")
+  return worst
+
+
+def counts_bound(torch, args):
+  """Bound of one fused-counts call: its FMAs (2 Q C (K + M)) at the fp32
+  rate, its operands and two [Q] int32 counts at the memory rate."""
+  q, k = args[0].shape
+  c, m = args[3].shape
+  out = torch.empty(2 * q, dtype=torch.int32, device=args[0].device)
+  return bound(2 * q * c * (k + m), H100_FP32, tuple(args) + (out,))
+
+
+def rank_kernel_phase(torch, ranking, dev, gen, card):
+  """B5 against its plain version on the card, each case in both
+  orientations; returns the worst rank disagreement."""
+  worst_all = 0.0
+  for case, nv, cpv in RANK_CASES:
+    te, ve, tw, vw, masks, vid_valid = rank_inputs(torch, case, nv, cpv,
+                                                   dev, gen)
+    for orient in ("t2v", "v2t"):
+      ranks, logs = {}, {}
+      for name, fn in (("kernel", ranking.fused_counts_cuda),
+                       ("plain", ranking.fused_counts_plain)):
+        log = logs[name] = []
+
+        def counted(*a, fn=fn, log=log):
+          out = fn(*a)
+          log.append((a, out))
+          return out
+
+        ranks[name] = (
+            ranking._t2v_ranks_from_counts(counted, te, ve, tw, vw, vid_valid)
+            if orient == "t2v" else
+            ranking._v2t_ranks_from_counts(counted, te, ve, tw, vw, masks))
+      torch.cuda.synchronize()
+      what = f"fused_ranks case ({case}) {orient} {nv * cpv} x {nv}"
+      worst_all = max(worst_all, check_rank_rule(
+          torch, f"{what} kernel vs plain", ranks["kernel"], ranks["plain"]))
+      if case == "c":
+        pairs = list(zip(logs["kernel"], logs["plain"]))
+        equal = all(torch.equal(k[1][0], p[1][0]) and torch.equal(k[1][1],
+                                                                  p[1][1])
+                    for k, p in pairs)
+        max_tied = max(float(k[1][1].max()) for k, _ in pairs)
+        print(f"  exact case: counts equal {equal}, largest tied count "
+              f"{max_tied}", flush=True)
+        if not equal or not max_tied > 0:
+          raise RuntimeError("exact case: kernel and plain counts differ or "
+                             "no tie was counted")
+      if case == "b" and orient == "v2t":
+        if not (torch.isinf(ranks["kernel"][0])
+                and torch.isinf(ranks["plain"][0])):
+          raise RuntimeError("a video with every slot masked must rank inf")
+      args = logs["kernel"][0][0]
+      reps = 3 if nv > 10_000 else 10
+      ms = time_ms(torch, lambda: ranking.fused_counts_cuda(*args), reps)
+      plain_ms = time_ms(torch, lambda: ranking.fused_counts_plain(*args),
+                         reps)
+      lib_ms = time_ms(torch, lambda: torch.mm(args[0], args[1].T), reps)
+      b_ms, b_by = counts_bound(torch, args)
+      print(f"{what} (one counts call, {len(logs['kernel'])} per "
+            f"orientation): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (torch.mm of the numerator) "
+            f"bound_ms={b_ms:.4f} ({b_by}) card: {card}", flush=True)
+    del te, ve, tw, vw
+    torch.cuda.empty_cache()
+  return worst_all
+
+
+AT_SCALE_VIDEOS = 20_000
+
+
+def between_gts(torch, a, g_fused, gtcol):
+  """Per row of a [rows, candidates] similarity matrix: the candidates
+  other than the GT column whose similarity lies between the fused path's
+  GT value and the matrix's (both included)."""
+  g_matrix = a.gather(1, gtcol[:, None])[:, 0]
+  lo = torch.minimum(g_fused, g_matrix)[:, None]
+  hi = torch.maximum(g_fused, g_matrix)[:, None]
+  return ((a >= lo) & (a <= hi)).sum(1) - 1
+
+
+def at_scale_phase(torch, modules, model, staged, dev, card):
+  """The fused eval at 20,000 videos (bench.py's streaming protocol):
+  launch counts, kernel vs plain and fused vs matrix ranks on the same
+  embeddings, peak memory, B5's time at this shape, and the eval's wall
+  time on both paths.  Returns the B5 line entries."""
+  bench, evaluate, metrics, ops, ffn, similarity, ranking = modules
+  n = AT_SCALE_VIDEOS
+  vocab = model.txt_bert.cfg.vocab_size
+  passes = lambda: bench.salted_passes(staged, n, vocab)
+
+  # 1. The main path, counted.
+  for fn in (ffn.ffn_block_cuda, similarity.sim_cuda,
+             ranking.fused_counts_cuda):
+    fn.launches = 0
+  tic = time.perf_counter()
+  res = evaluate.retrieval_eval(model, passes(), fused=True)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - tic
+  launches = {"ffn_block": ffn.ffn_block_cuda.launches,
+              "moe_similarity": similarity.sim_cuda.launches,
+              "fused_ranks": ranking.fused_counts_cuda.launches}
+  print(f"at-scale: fused eval of {n} videos ({n // CHUNK} chunks of {CHUNK},"
+        f" {n // N_VIDEOS} salted passes) in {first_s:.3f} s; launches "
+        f"{launches}", flush=True)
+  want = {"ffn_block": FFN_LAYERS * (n // CHUNK), "moe_similarity": 0,
+          "fused_ranks": 2}       # t2v + one per caption slot (cpv = 1)
+  if launches != want:
+    raise RuntimeError(f"expected launches {want}, got {launches}")
+  if "sims" in res:
+    raise RuntimeError("the fused eval returned a sims matrix")
+  finite_metrics(res)
+
+  # 2. The same run's embeddings, ranked on the kernel path, the plain
+  # path and the matrix path (B4 + the matrix ranks).
+  emb = evaluate.embed_corpus(model, passes())
+  te, ve, tw, vw, masks = (emb[k] for k in (
+      "text_embds", "vid_embds", "text_weights", "vid_weights",
+      "query_masks"))
+  if masks.shape != (n, 1) or not bool(masks.all()):
+    raise RuntimeError("the at-scale corpus has one live caption per video")
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  with torch.inference_mode():
+    kern = {"t2v": ranking.fused_t2v_ranks(te, ve, tw, vw),
+            "v2t": ranking.fused_v2t_ranks(te, ve, tw, vw, masks)}
+    torch.cuda.synchronize()
+    peak_fused = torch.cuda.max_memory_allocated() - base
+    with ops.plain_versions():
+      plain = {"t2v": ranking.fused_t2v_ranks(te, ve, tw, vw),
+               "v2t": ranking.fused_v2t_ranks(te, ve, tw, vw, masks)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sims = similarity.moe_similarity(te, ve, tw, vw, merge="indep",
+                                     num_caps=1)
+    matrix = {"t2v": ranking.t2v_ranks(sims),
+              "v2t": ranking.v2t_ranks(sims, masks)}
+    torch.cuda.synchronize()
+    peak_matrix = torch.cuda.max_memory_allocated() - base
+  print(f"at-scale peak device memory above the {base / 2**30:.3f} GiB "
+        f"resident (embeddings, inputs, weights): fused ranking "
+        f"{peak_fused / 2**30:.3f} GiB, matrix ranking "
+        f"{peak_matrix / 2**30:.3f} GiB card: {card}", flush=True)
+
+  worst = 0.0
+  t, tws = ranking._scaled_flat(te, tw)
+  v, vws = ranking._scaled_flat(ve, vw)
+  gtcol = torch.arange(n, device=dev)
+  for orient, a, g in (
+      ("t2v", sims, ranking._gt_sims(t, v, tws, vws, gtcol)),
+      ("v2t", sims.T, ranking._gt_sims(v, t, vws, tws, gtcol))):
+    worst = max(worst, check_rank_rule(
+        torch, f"at-scale {orient} kernel vs plain", kern[orient],
+        plain[orient]))
+    # Fused vs matrix: the candidates' values are bitwise equal (one tile
+    # code), the GT value is not (computed directly on the fused path, read
+    # from the matrix on the other), so a rank may differ by the
+    # candidates that lie between the two GT values, and by nothing else.
+    m_worst, frac, same_inf = rank_agreement(torch, kern[orient],
+                                             matrix[orient])
+    slack = between_gts(torch, a, g, gtcol)
+    diff = (kern[orient] - matrix[orient]).abs()
+    explained = bool((diff <= slack).all())
+    g_m = a.gather(1, gtcol[:, None])[:, 0]
+    print(f"  at-scale {orient} fused vs matrix: worst rank diff {m_worst} "
+          f"on {frac:.3e} of queries (the 1 / 1e-3 rule "
+          f"{'met' if m_worst <= 1 and frac < 1e-3 else 'NOT met'}); GT "
+          f"values differ on {float((g != g_m).float().mean()):.3e} of "
+          f"queries, by at most {float((g - g_m).abs().max()):.3e}; every "
+          f"difference within the candidates between the two GT values: "
+          f"{explained}; same inf positions {same_inf}", flush=True)
+    if not explained or not same_inf:
+      raise RuntimeError(f"at-scale {orient}: fused and matrix ranks differ "
+                         "beyond the GT's rounding")
+  side = {}
+  for name, ranks in (("fused kernel", kern), ("fused plain", plain),
+                      ("matrix", matrix)):
+    side[name] = {o: {k: v for k, v in metrics.cols2metrics(
+        ranks[o].cpu().numpy(), n).items() if k in ("R1", "R5", "R10",
+                                                     "MedR")}
+                  for o in ("t2v", "v2t")}
+  print(f"at-scale metrics side by side: {json.dumps(side)}", flush=True)
+  same = all(metrics.cols2metrics(kern[o].cpu().numpy(), n) == res[w]
+             for o, w in (("t2v", "t2v_metrics"), ("v2t", "v2t_metrics")))
+  print(f"at-scale: the counted run's metrics equal these kernel ranks' "
+        f"{same}", flush=True)
+  del sims, matrix
+
+  # 3. B5 at this shape (t2v operands), against its plain version and
+  # the fp32 torch.mm of the numerator.
+  args = (t, v, tws, vws, ranking._gt_sims(t, v, tws, vws, gtcol), gtcol,
+          torch.zeros(n, device=dev))
+  ms = time_ms(torch, lambda: ranking.fused_counts_cuda(*args), 5)
+  plain_ms = time_ms(torch, lambda: ranking.fused_counts_plain(*args), 5)
+  lib_ms = time_ms(torch, lambda: torch.mm(t, v.T), 5)
+  b_ms, b_by = counts_bound(torch, args)
+  print(f"fused_ranks {n} x {n} (one counts call): kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms="
+        f"{b_ms:.4f} ({b_by}) card: {card}", flush=True)
+  del emb, te, ve, tw, vw, t, v, args, kern, plain
+  torch.cuda.empty_cache()
+
+  # 4. Wall time of the fused eval, kernel and plain paths in turns.
+  def wall(plain_path):
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with ops.plain_versions() if plain_path else contextlib.nullcontext():
+      evaluate.retrieval_eval(model, passes(), fused=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - tic
+
+  wall(False)
+  wall(True)
+  runs = {False: [], True: []}
+  for _ in range(3):
+    for plain_path in (False, True):
+      runs[plain_path].append(wall(plain_path))
+  k_s, p_s = statistics.median(runs[False]), statistics.median(runs[True])
+  print(f"fused eval {n} videos wall (median of 3): kernel_path_s={k_s:.6f} "
+        f"plain_path_s={p_s:.6f} ratio={k_s / p_s:.4f} "
+        f"videos_per_s={n / k_s:.1f} card: {card}", flush=True)
+  print(f"fused eval runs kernel_path_s={[round(x, 6) for x in runs[False]]} "
+        f"plain_path_s={[round(x, 6) for x in runs[True]]}", flush=True)
+  return {"launches": launches["fused_ranks"], "max_abs_err": worst,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": b_ms, "bound_by": b_by}
+
+
 def finite_metrics(res):
   for which in ("t2v_metrics", "v2t_metrics"):
     vals = [res[which][k] for k in ("R1", "R5", "R10", "R50", "MedR",
@@ -442,13 +788,14 @@ def main():
     return 1
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  card = card_line()
+  from mmt_tpu_torch import _build, bench, evaluate, flagship, ops
+  from mmt_tpu_torch.ops import dropout, ffn, ranking, similarity
+  from mmt_tpu_torch.train import metrics
+
+  card = bench.card_line()
   print(f"card: {card}", flush=True)
   print(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}", flush=True)
-
-  from mmt_tpu_torch import _build, evaluate, flagship, ops
-  from mmt_tpu_torch.ops import dropout, ffn, similarity
 
   tic = time.perf_counter()
   lib_path = _build.build()
@@ -461,22 +808,18 @@ def main():
 
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev).manual_seed(0)
-  ffn_err, ffn_times = ffn_phase(torch, ffn, dev, gen)
-  sim_err, sim_times = sim_phase(torch, similarity, dev, gen)
-  train_res = train_kernel_phase(torch, ffn, dropout, dev, gen, card)
+  entries = {"ffn_block": ffn_phase(torch, ffn, dev, gen),
+             "moe_similarity": sim_phase(torch, similarity, dev, gen)}
+  rank_err = rank_kernel_phase(torch, ranking, dev, gen, card)
+  entries.update(train_kernel_phase(torch, ffn, dropout, dev, gen, card))
   reference_phase(torch, flagship, evaluate, dev)
 
   # ---- slice phase: the full-width flagship, 1k x 1k ----
-  arch = flagship.flagship_arch()
-  model = flagship.flagship_model(device=dev, compute_dtype=torch.bfloat16,
-                                  seed=0)
   tic = time.perf_counter()
-  batches = [flagship.batch_to_torch(
-      flagship.make_batch(arch["expert_dims"], CHUNK, seed=1 + c), dev)
-             for c in range(N_VIDEOS // CHUNK)]
+  model, batches = bench.staged_flagship(dev)
   torch.cuda.synchronize()
   print(f"slice: flagship CENet bf16, {N_VIDEOS} videos in "
-        f"{len(batches)} chunks of {CHUNK} (inputs made in "
+        f"{len(batches)} chunks of {CHUNK} (model and inputs made in "
         f"{time.perf_counter() - tic:.1f} s)", flush=True)
 
   ffn.ffn_block_cuda.launches = 0
@@ -533,33 +876,35 @@ def main():
         f"videos_per_s={N_VIDEOS / k_s:.1f} card: {card}", flush=True)
   print(f"eval runs kernel_path_s={[round(x, 6) for x in runs[False]]} "
         f"plain_path_s={[round(x, 6) for x in runs[True]]}", flush=True)
-  del model, batches, res, res_plain, sims
+  del res, res_plain, sims
+
+  # ---- at-scale phase: the fused eval at 20k videos, no matrix ----
+  entries["fused_ranks"] = at_scale_phase(
+      torch, (bench, evaluate, metrics, ops, ffn, similarity, ranking),
+      model, batches, dev, card)
+  entries["fused_ranks"]["max_abs_err"] = max(
+      rank_err, entries["fused_ranks"]["max_abs_err"])
+  del model, batches
   torch.cuda.empty_cache()
 
   train_launches = train_step_phase(torch, flagship, ops, ffn, similarity,
                                     dev, card)
+  entries["ffn_block"]["launches"] = launches["ffn_block"]
+  entries["moe_similarity"]["launches"] = launches["moe_similarity"]
+  for name in ("ffn_train_fwd", "ffn_train_bwd"):
+    entries[name]["launches"] = train_launches[name]
 
   print(f"card: {card}")
   print(json.dumps({"kernels": [
-      {"name": "ffn_block", "route": "cuda",
-       "source": "mmt_tpu_torch/csrc/ffn_block.cu",
-       "replaces": "mmt_tpu/ops/ffn.py:119",
-       "launches": launches["ffn_block"], "max_abs_err": ffn_err,
-       "ms": ffn_times[0], "plain_ms": ffn_times[1]},
-      {"name": "moe_similarity", "route": "cuda",
-       "source": "mmt_tpu_torch/csrc/moe_similarity.cu",
-       "replaces": "mmt_tpu/ops/similarity.py:244",
-       "launches": launches["moe_similarity"], "max_abs_err": sim_err,
-       "ms": sim_times[0], "plain_ms": sim_times[1]},
-  ] + [
-      {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-       "launches": train_launches[name], "max_abs_err": train_res[name][0],
-       "ms": train_res[name][1], "plain_ms": train_res[name][2]}
-      for name, source, replaces in (
-          ("ffn_train_fwd", "mmt_tpu_torch/csrc/ffn_block.cu",
-           "mmt_tpu/ops/ffn.py:477"),
-          ("ffn_train_bwd", "mmt_tpu_torch/csrc/ffn_train_bwd.cu",
-           "mmt_tpu/ops/ffn.py:499"))]}))
+      {"name": name, "route": "cuda", "source": f"mmt_tpu_torch/csrc/{src}",
+       "replaces": replaces, **entries[name]}
+      for name, src, replaces in (
+          ("ffn_block", "ffn_block.cu", "mmt_tpu/ops/ffn.py:119"),
+          ("moe_similarity", "moe_similarity.cu",
+           "mmt_tpu/ops/similarity.py:244"),
+          ("ffn_train_fwd", "ffn_block.cu", "mmt_tpu/ops/ffn.py:477"),
+          ("ffn_train_bwd", "ffn_train_bwd.cu", "mmt_tpu/ops/ffn.py:499"),
+          ("fused_ranks", "fused_ranks.cu", "mmt_tpu/ops/ranking.py:101"))]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -20,8 +20,9 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu")
-HEADERS = ("ffn_common.cuh",)
+SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu",
+           "fused_ranks.cu")
+HEADERS = ("ffn_common.cuh", "sim_tile.cuh")
 BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,8 @@ _SIGNATURES = {
                                       _P],
     # t, v, tw, vw, out, Q, V, K, M, stream
     "mmt_moe_similarity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # t, c, tw, cw, gt, gtcol, colbias, closer, tied, Q, C, K, M, stream
+    "mmt_fused_ranks": [_P] * 9 + [_I, _I, _I, _I, _P],
 }
 
 _lib = None

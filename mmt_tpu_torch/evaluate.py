@@ -1,8 +1,11 @@
-"""Retrieval eval: embed a corpus in chunks, build the [Q, V] MoE
-similarity matrix, rank on the device and reduce to metrics.
+"""Retrieval eval: embed a corpus in chunks, rank on the device and
+reduce to metrics, from the [Q, V] MoE similarity matrix or (fused)
+straight from the embeddings.
 
-Port of the matrix branch of mmt_tpu/train/trainer.py:_get_embeddings /
-_valid_epoch, which bench.py:build_full_eval times at 1k x 1k.
+Port of mmt_tpu/train/trainer.py:_get_embeddings / _valid_epoch: the
+matrix branch, which bench.py:build_full_eval times at 1k x 1k, and the
+``use_fused`` branch, which never builds the matrix (bench.py's
+streaming eval).
 """
 
 from __future__ import annotations
@@ -32,12 +35,21 @@ def embed_corpus(model, batches):
   return {k: torch.cat(v, 0) for k, v in parts.items()}
 
 
-def retrieval_eval(model, batches):
+def retrieval_eval(model, batches, fused=False):
   """Embeddings -> sims (merge='indep') -> t2v / v2t metrics.
 
   Returns {"sims": [Q, V] tensor, "t2v_metrics": ..., "v2t_metrics": ...}.
+  ``fused=True`` ranks straight from the embeddings
+  (``metrics.fused_retrieval_metrics``): no sims matrix is built and the
+  result has no "sims".
   """
   emb = embed_corpus(model, batches)
+  if fused:
+    with torch.inference_mode():
+      return metrics_lib.fused_retrieval_metrics(
+          emb["text_embds"], emb["vid_embds"], emb["text_weights"],
+          emb["vid_weights"], emb["query_masks"],
+          device=emb["vid_embds"].device)
   num_caps = emb["query_masks"].shape[1]
   with torch.inference_mode():
     sims = similarity_ops.moe_similarity(

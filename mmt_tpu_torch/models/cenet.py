@@ -35,14 +35,15 @@ FLAGSHIP_SWITCHES = dict(
 
 
 class CENet(nn.Module):
-  """Cross-modal video/text retrieval network."""
+  """Cross-modal video/text retrieval network, built on ``device`` (the
+  card unless the caller asks for the CPU)."""
 
   def __init__(self, expert_dims: Mapping[str, Mapping[str, int]],
                vid_bert_params: Mapping[str, Any],
                txt_bert_params: Optional[Mapping[str, Any]] = None,
                text_bert_geometry: Optional[Mapping[str, Any]] = None,
                same_dim: int = 512, compute_dtype=torch.float32,
-               device=None, **switches):
+               device="cuda", **switches):
     super().__init__()
     for name, value in switches.items():
       if name not in FLAGSHIP_SWITCHES:

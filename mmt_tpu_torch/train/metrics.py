@@ -1,10 +1,12 @@
 """Retrieval metrics: device ranks (ops/ranking.py) + a host reduction.
 
 Port of mmt_tpu/train/metrics.py (cols2metrics, t2v_metrics, v2t_metrics,
-device path): tie-averaged ranks, query masking and the +1 offsets of
-MedR/MeanR as the reference computes them.  The ranks (integers and
-halves, exact in fp32) reach the host as float64, so the reduction is the
-numpy path's to the last bit.
+device path, and fused_retrieval_metrics without its mesh branch):
+tie-averaged ranks, query masking and the +1 offsets of MedR/MeanR as the
+reference computes them.  The ranks are integers and halves, exact in
+fp32.  From a matrix they reach the host as float64, so the reduction is
+the numpy path's to the last bit; the fused path keeps them fp32, as the
+JAX package's fused path does, so its MeanR is that path's.
 """
 
 from __future__ import annotations
@@ -57,3 +59,34 @@ def v2t_metrics(sims, query_masks=None):
   masks = torch.as_tensor(np.asarray(query_masks), device=sims.device)
   ranks = ranking.v2t_ranks(sims, masks).cpu().double().numpy()
   return cols2metrics(ranks, nv)
+
+
+def fused_retrieval_metrics(text_embds, vid_embds, text_weights,
+                            vid_weights, query_masks,
+                            which=("t2v_metrics", "v2t_metrics"),
+                            device="cuda"):
+  """Retrieval metrics straight from embeddings, never building the
+  [Q, V] similarity matrix (ops/ranking.py fused ranks): for corpora where
+  the matrix would be GBs.  Semantics match t2v_metrics / v2t_metrics on
+  the full matrix up to the rounding of near-ties.
+
+  text_embds [Q, M, D], vid_embds [V, M, D], text_weights [Q, M],
+  vid_weights [V, M] and query_masks [V, Q // V] (None: all valid), as
+  numpy arrays or tensors; they are moved to ``device``.
+  """
+  to = lambda x: torch.as_tensor(x, device=device)
+  te, ve, tw, vw = map(to, (text_embds, vid_embds, text_weights,
+                            vid_weights))
+  nv = ve.shape[0]
+  if query_masks is None:
+    query_masks = np.ones((nv, te.shape[0] // nv), np.float32)
+  masks = torch.as_tensor(query_masks).cpu().numpy()
+  out = {}
+  if "t2v_metrics" in which:
+    cols = ranking.fused_t2v_ranks(te, ve, tw, vw).cpu().numpy()
+    keep = masks.reshape(-1).astype(bool)
+    out["t2v_metrics"] = cols2metrics(cols[keep], int(keep.sum()))
+  if "v2t_metrics" in which:
+    ranks = ranking.fused_v2t_ranks(te, ve, tw, vw, to(masks)).cpu().numpy()
+    out["v2t_metrics"] = cols2metrics(ranks[:nv], nv)
+  return out

@@ -53,7 +53,7 @@ def test_cenet_matches_flax(tiny_arch):
   batch = make_batch(tiny_arch["expert_dims"], b=3, k=2, t=7, l=5)
   variables, want, want_sims = _flax_forward(tiny_arch, batch)
 
-  model = CENet(**tiny_arch).eval()
+  model = CENet(**tiny_arch, device="cpu").eval()
   sd = convert.state_dict_from_flax(
       jax.tree_util.tree_map(np.asarray, variables["params"]),
       variables["batch_stats"])

@@ -3,6 +3,7 @@ from JAX, each against the JAX package where it has a counterpart."""
 
 import dataclasses
 import importlib.util
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -51,7 +52,7 @@ def test_state_dict_matches_export_state_dict(tiny_arch):
     np.testing.assert_array_equal(got[name].numpy(), want[name],
                                   err_msg=name)
   # ... and it is exactly the port's state dict.
-  port = CENet(**tiny_arch)
+  port = CENet(**tiny_arch, device="cpu")
   port.load_state_dict(got, strict=True)
   assert set(port.state_dict()) == set(got)
 
@@ -81,7 +82,7 @@ def test_port_imports_no_jax():
   code = (
       "import sys, torch\n"
       "before = set(sys.modules)\n"
-      "from mmt_tpu_torch import evaluate, flagship\n"
+      "from mmt_tpu_torch import bench, evaluate, flagship\n"
       "arch = flagship.flagship_arch(tiny=True)\n"
       "model = flagship.flagship_model(device='cpu', tiny=True,\n"
       "                                compute_dtype=torch.float32)\n"
@@ -90,6 +91,8 @@ def test_port_imports_no_jax():
       "    vocab=512), 'cpu')\n"
       "res = evaluate.retrieval_eval(model, [batch])\n"
       "assert res['sims'].shape == (3, 3)\n"
+      "res = evaluate.retrieval_eval(model, [batch], fused=True)\n"
+      "assert 'sims' not in res and len(res['t2v_metrics']['cols']) == 3\n"
       "new = set(sys.modules) - before\n"
       "bad = sorted(m for m in new if m.split('.')[0] in\n"
       "             ('jax', 'jaxlib', 'flax', 'optax', 'mmt_tpu'))\n"
@@ -99,6 +102,20 @@ def test_port_imports_no_jax():
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "BAD []" in proc.stdout
+
+
+def test_entry_points_default_to_the_card(tiny_arch):
+  from mmt_tpu_torch import bench
+  from mmt_tpu_torch.train import metrics
+  for fn in (CENet.__init__, metrics.fused_retrieval_metrics,
+             bench.staged_flagship, bench.build_full_eval,
+             bench.build_streaming_eval, bench.bench_train_step):
+    assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+  if torch.cuda.is_available():
+    assert next(CENet(**tiny_arch).parameters()).is_cuda
+  else:
+    with pytest.raises((AssertionError, RuntimeError)):
+      CENet(**tiny_arch)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -110,7 +110,7 @@ def port_run(jax_run):
   """The same two steps in the port: each step's loss, grads, buffers
   and parameters."""
   arch, batch, variables, _ = jax_run
-  model = CENet(**arch).train()
+  model = CENet(**arch, device="cpu").train()
   model.load_state_dict(convert.state_dict_from_flax(
       jax.tree_util.tree_map(np.asarray, variables["params"]),
       variables["batch_stats"]), strict=True)

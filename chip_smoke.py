@@ -61,11 +61,33 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    below); 20 steps on one batch must give finite losses and move the
    BatchNorm running statistics.  Then the step time on both paths, b32
    and b128, median of 20 after 3 warm-ups, taken in turns.
+9. Partial-kernel phase: the tensor-parallel halves B6 (eval, video
+   10,900 x 512 and text 1,500 x 768 rows) and B7 (train forward, video
+   6,976 x 512 and text 960 x 768 rows), each also at a ragged 1,013 x
+   768, and B3 with add_dz off on B7's residuals, all at I/mp = 1536,
+   bf16 and fp32, against their plain versions.  A partial is not
+   normalised, so the rules of phase 4 hold on its fp32 outputs divided
+   by the plain version's largest magnitude; the compute-dtype outputs
+   keep phase 4's ulp rule.
+10. Tensor-parallel phase: ``parallel.spawn`` starts two ranks that
+   share the card over gloo (NCCL refuses two ranks on one device).
+   Each builds the flagship from the same seed and keeps its shards.
+   The 1k x 1k eval of phase 6: exactly 320 B6 and 0 B1 launches per
+   rank, both ranks' sims bitwise equal, within TP_SIMS_TOL (5e-3) of
+   phase 6's kernel path, and its ranks against phase 6's
+   (check_tp_ranks).  The b32 step
+   of phase 8 from its state, batch and dropout seed: exactly 16 B7, 16
+   B3 and 0 B1/B2/B6 launches per rank, the loss and the gathered
+   gradients within phase 8's tolerances of its kernel step; after 3
+   steps every replicated parameter and buffer bitwise equal on both
+   ranks.  Wall times are of two gloo ranks sharing one card: a
+   correctness path, no claim of speed.  A failing rank fails the run.
 
-The last two lines of stdout are one JSON object of kernel results (each
-kernel's launches on its main path, worst disagreement, times, bound and
-library time) and {"ok": true, "device": {...}}; the card's name and
-power limit come on the line before them.
+Each phase prints its seconds, and the run its total.  The last two
+lines of stdout are one JSON object of kernel results (each kernel's
+launches on its main path, worst disagreement, times, bound and library
+time) and {"ok": true, "device": {...}}; the card's name and power limit
+come on the line before them.
 """
 
 from __future__ import annotations
@@ -350,10 +372,46 @@ TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 5e-5, 20
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_ALL_GRADS_TOL = 1e-4, 0.2, 2e-2
 
 
+def check_step(torch, what, loss, loss_ref, grads, grads_ref):
+  """One train step against a reference step from the same state and
+  seed: the loss within STEP_LOSS_TOL, all gradients together within
+  STEP_ALL_GRADS_TOL relative L2 and each parameter's within
+  STEP_GRAD_TOL.  Raises past them."""
+  loss_diff = abs(loss - loss_ref)
+  # Relative L2 difference per parameter, the denominator floored at 1e-2
+  # of the median gradient norm: a gradient that is zero in exact
+  # arithmetic is rounding noise on both paths (the attention key biases,
+  # which the softmax cancels, and the biases in front of the train-mode
+  # BatchNorm, which its batch mean cancels).
+  diffs = {n: (float((grads[n].float() - g.float()).norm()),
+               float(g.float().norm()))
+           for n, g in grads_ref.items()}
+  floor = 1e-2 * statistics.median(ref for _, ref in diffs.values())
+  rel = {n: d / max(ref, floor) for n, (d, ref) in diffs.items()}
+  worst_name = max(rel, key=rel.get)
+  worst = rel[worst_name]
+  top = sorted(rel, key=rel.get, reverse=True)[:5]
+  overall = (sum(d * d for d, _ in diffs.values())
+             / sum(ref * ref for _, ref in diffs.values())) ** 0.5
+  print(f"{what}: loss {loss:.6f} vs {loss_ref:.6f} abs_diff="
+        f"{loss_diff:.3e}; all grads rel L2 diff={overall:.3e}; worst grad "
+        f"rel L2 diff={worst:.3e} ({worst_name}; norm floor {floor:.3e}); "
+        "top: " + ", ".join(f"{n} {rel[n]:.3e} (|diff| {diffs[n][0]:.3e}, "
+                            f"|grad| {diffs[n][1]:.3e})" for n in top),
+        flush=True)
+  if (not loss_diff <= STEP_LOSS_TOL or not worst <= STEP_GRAD_TOL
+      or not overall <= STEP_ALL_GRADS_TOL):
+    raise RuntimeError(f"{what}: loss diff {loss_diff} (tol {STEP_LOSS_TOL}),"
+                       f" grad diff {worst} (tol {STEP_GRAD_TOL}, "
+                       f"{worst_name}), all grads {overall} (tol "
+                       f"{STEP_ALL_GRADS_TOL})")
+
+
 def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   """The b32 train step of the full-width flagship (bf16): launch counts,
   kernel path vs plain path, 20 steps, then step times at b32 and b128.
-  Returns the launch counts of the counted step."""
+  Returns the launch counts of the counted step, and its loss and
+  gradients (on the CPU) for the tensor-parallel phase."""
   from mmt_tpu_torch.train import losses, optim, step
 
   arch = flagship.flagship_arch()
@@ -399,35 +457,12 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   loss_p = run(optim.build_optimizer(spec, model.parameters())[0], batch, 7,
                plain=True)
   torch.cuda.synchronize()
-  loss_diff = abs(float(loss_k) - float(loss_p))
-  # Relative L2 difference per parameter, the denominator floored at 1e-2
-  # of the median gradient norm: a gradient that is zero in exact
-  # arithmetic is rounding noise on both paths (the attention key biases,
-  # which the softmax cancels, and the biases in front of the train-mode
-  # BatchNorm, which its batch mean cancels).
-  diffs = {n: (float((grads_k[n].float() - p.grad.float()).norm()),
-               float(p.grad.float().norm()))
-           for n, p in model.named_parameters()}
-  floor = 1e-2 * statistics.median(ref for _, ref in diffs.values())
-  rel = {n: d / max(ref, floor) for n, (d, ref) in diffs.items()}
-  worst_name = max(rel, key=rel.get)
-  worst = rel[worst_name]
-  top = sorted(rel, key=rel.get, reverse=True)[:5]
-  overall = (sum(d * d for d, _ in diffs.values())
-             / sum(ref * ref for _, ref in diffs.values())) ** 0.5
-  print(f"train step kernel vs plain: loss {float(loss_k):.6f} vs "
-        f"{float(loss_p):.6f} abs_diff={loss_diff:.3e}; all grads rel L2 "
-        f"diff={overall:.3e}; worst grad rel L2 "
-        f"diff={worst:.3e} ({worst_name}; norm floor {floor:.3e}); top: "
-        + ", ".join(f"{n} {rel[n]:.3e} (|diff| {diffs[n][0]:.3e}, |grad| "
-                    f"{diffs[n][1]:.3e})" for n in top), flush=True)
-  if (not loss_diff <= STEP_LOSS_TOL or not worst <= STEP_GRAD_TOL
-      or not overall <= STEP_ALL_GRADS_TOL):
-    raise RuntimeError(f"kernel vs plain train step: loss diff {loss_diff} "
-                       f"(tol {STEP_LOSS_TOL}), grad diff {worst} "
-                       f"(tol {STEP_GRAD_TOL}, {worst_name}), all grads "
-                       f"{overall} (tol {STEP_ALL_GRADS_TOL})")
-  del grads_k, state0
+  check_step(torch, "train step kernel vs plain", float(loss_k),
+             float(loss_p), grads_k,
+             {n: p.grad for n, p in model.named_parameters()})
+  loss_k = float(loss_k)
+  grads_k = {n: g.cpu() for n, g in grads_k.items()}
+  del state0
 
   # 3. 20 steps on one batch.
   opt = optim.build_optimizer(spec, model.parameters())[0]
@@ -469,7 +504,7 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
     print(f"train step b{batch_size} runs kernel_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[False]]} plain_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[True]]}", flush=True)
-  return launches
+  return launches, loss_k, grads_k
 
 
 # Rank-kernel cases: (name, videos, captions per video).  (a) 50k x 50k
@@ -772,6 +807,329 @@ def at_scale_phase(torch, modules, model, staged, dev, card):
           "bound_ms": b_ms, "bound_by": b_by}
 
 
+TP_SIZE, TP_I = 2, 3072 // 2     # two ranks: each holds I/mp of I = 3072
+PARTIAL_SHAPES = {"ffn_partial": ((10900, 512), (1500, 768), (1013, 768)),
+                  "ffn_train_fwd_partial": ((6976, 512), (960, 768),
+                                            (1013, 768))}
+
+
+def check_partial(torch, what, cd, got, want, cd_names):
+  """``check_outputs`` for a partial, which is not normalised: each fp32
+  output divided by the plain version's largest magnitude, so that its
+  rules hold relative to the partial's scale.  Returns the worst max abs
+  error of the fp32 outputs, unscaled."""
+  scale = {n: float(want[n].abs().max()) for n in want if n not in cd_names}
+  print(f"  {what} scale (max |plain|): "
+        + ", ".join(f"{n} {v:.3e}" for n, v in scale.items()), flush=True)
+  div = lambda d: {n: t / scale[n] if n in scale else t for n, t in d.items()}
+  check_outputs(torch, what, cd, div(got), div(want), cd_names)
+  return max(float((got[n] - want[n]).abs().max()) for n in scale)
+
+
+def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
+  """B6 and B7, and B3 with add_dz off on B7's residuals, against their
+  plain versions at the two-rank shapes (I/mp = 1536), bf16 and fp32.
+  Returns B6's and B7's line entries: the worst bf16 error, and the
+  video-shape bf16 times and bound (no single PyTorch call computes
+  either)."""
+  res = {name: {"max_abs_err": 0.0, "library_ms": None}
+         for name in PARTIAL_SHAPES}
+  i = TP_I
+  for cd in (torch.bfloat16, torch.float32):
+    for kname, shapes in PARTIAL_SHAPES.items():
+      train = kname == "ffn_train_fwd_partial"
+      kfn, pfn = getattr(ffn, f"{kname}_cuda"), getattr(ffn, f"{kname}_plain")
+      names = ("out", "inter") if train else ("out",)
+      for r, h in shapes:
+        rand = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+        x = rand(r, h)
+        w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
+        args, kw = (x, w1, rand(i) * 0.02, w2), dict(compute_dtype=cd)
+        tag = f"R={r} H={h} I={i} {str(cd).replace('torch.', '')}"
+        got, want = kfn(*args, **kw), pfn(*args, **kw)
+        if not train:
+          got, want = (got,), (want,)
+        got, want = dict(zip(names, got)), dict(zip(names, want))
+        torch.cuda.synchronize()
+        err = check_partial(torch, f"{kname} {tag}", cd, got, want,
+                            ("inter",))
+        ms = time_ms(torch, lambda: kfn(*args, **kw))
+        plain_ms = time_ms(torch, lambda: pfn(*args, **kw))
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16,
+                           args + tuple(got.values()))
+        print(f"{kname} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) card: {card}", flush=True)
+        if cd == torch.bfloat16:
+          res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], err)
+          if (r, h) == shapes[0]:
+            res[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+        if not train:
+          continue
+        # B3 as the tensor-parallel backward runs it, on B7's residuals.
+        drop = dropout.dropout_mask((r, h), TRAIN_P, gen, dev)
+        z = (want["out"] + x).to(cd)
+        bargs = (rand(r, h), z, want["inter"], drop, w1, w2,
+                 1.0 + 0.1 * rand(h))
+        bkw = dict(eps=1e-12, compute_dtype=cd, add_dz=False)
+        names_b = ("dx", "dz", "dinter")
+        got_b = dict(zip(names_b, ffn.ffn_train_bwd_cuda(*bargs, **bkw)))
+        want_b = dict(zip(names_b, ffn.ffn_train_bwd_plain(*bargs, **bkw)))
+        torch.cuda.synchronize()
+        check_partial(torch, f"ffn_train_bwd add_dz=False {tag}", cd, got_b,
+                      want_b, ("dz", "dinter"))
+        ms = time_ms(torch, lambda: ffn.ffn_train_bwd_cuda(*bargs, **bkw))
+        plain_ms = time_ms(torch,
+                           lambda: ffn.ffn_train_bwd_plain(*bargs, **bkw))
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16,
+                           bargs + tuple(got_b.values()))
+        print(f"ffn_train_bwd add_dz=False {tag}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"card: {card}", flush=True)
+  return res
+
+
+TP_EVAL_VIDEOS, TP_TIMED_EVALS, TP_TIMED_STEPS = N_VIDEOS, 2, 5
+TP_TIMEOUT = 900.0
+# TP eval sims against the single-device kernel path: only the order of
+# the FFN's fp32 sums and one bf16 rounding of the reduced partial differ,
+# which moved the sims by 6.8e-4 at most on an H100 (about as far as the
+# kernel path is from the plain one); 5e-3 leaves room for that, not for a
+# wrong shard, bias or reduce.
+TP_SIMS_TOL = 5e-3
+# The fp32 all-reduces of the TP path, [rows, H] with the count of each
+# per eval (20 chunks of 50: 2 per layer, forward only) and per step (4
+# per layer: 2 forward, 2 backward): video then text tower.
+TP_REDUCES = {"eval": (((50 * 218, 512), 2 * 4 * 20), ((50 * 30, 768),
+                                                       2 * 12 * 20)),
+              "step": (((32 * 218, 512), 4 * 4), ((32 * 30, 768), 4 * 12))}
+# The launch counters a rank reads, by the names of the kernels line.
+COUNTED = {"ffn_block": "ffn_block_cuda", "ffn_partial": "ffn_partial_cuda",
+           "ffn_train_fwd": "ffn_train_fwd_cuda",
+           "ffn_train_fwd_partial": "ffn_train_fwd_partial_cuda",
+           "ffn_train_bwd": "ffn_train_bwd_cuda"}
+
+
+def tp_rank(tp, device, tiny, videos):
+  """One rank of the tensor-parallel phase (run by ``parallel.spawn``):
+  the 1k x 1k eval of the slice phase and the b32 step of the train-step
+  phase on this rank's shards of the same model.  Returns numpy arrays
+  and Python values; the gathered gradients on rank 0 only."""
+  import hashlib
+
+  import torch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  from mmt_tpu_torch import bench, convert, evaluate, flagship
+  from mmt_tpu_torch.ops import ffn, similarity
+  from mmt_tpu_torch.train import losses, optim, step
+
+  dev = torch.device(device)
+  counters = {n: getattr(ffn, f) for n, f in COUNTED.items()}
+  counters["moe_similarity"] = similarity.sim_cuda
+
+  def reset():
+    for fn in counters.values():
+      fn.launches = 0
+
+  def sync():
+    if dev.type == "cuda":
+      torch.cuda.synchronize(dev)
+
+  def timed(fn):
+    sync()
+    tic = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - tic
+
+  out = {}
+  model, batches = bench.staged_flagship(dev, tiny=tiny, videos=videos,
+                                         tp=tp)
+  reset()
+  res = evaluate.retrieval_eval(model, batches)
+  sync()
+  out["eval_launches"] = {n: fn.launches for n, fn in counters.items()}
+  out["sims"] = res["sims"].cpu().numpy()
+  out["eval_wall_s"] = [timed(lambda: evaluate.retrieval_eval(model, batches))
+                        for _ in range(TP_TIMED_EVALS)]
+  del model, batches, res
+
+  arch = flagship.flagship_arch(tiny=tiny)
+  model = flagship.flagship_model(device=dev, compute_dtype=torch.bfloat16,
+                                  seed=0, tiny=tiny, train=True, tp=tp)
+  vocab = dict(vocab=bench.TINY_VOCAB) if tiny else {}
+  batch = flagship.batch_to_torch(flagship.make_batch(
+      arch["expert_dims"], TRAIN_BATCH, seed=101, **vocab), dev)
+  opt = optim.build_optimizer({"type": "Adam", "args": {
+      "lr": TRAIN_LR, "weight_decay": 0}}, model.parameters())[0]
+  loss_fn = losses.max_margin_ranking_loss(0.05, True)
+
+  def run(seed):
+    return step.train_step(model, opt, batch, loss_fn=loss_fn, lr=TRAIN_LR,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+
+  reset()
+  out["loss"] = float(run(7))      # the train-step phase's counted step
+  sync()
+  out["step_launches"] = {n: fn.launches for n, fn in counters.items()}
+  grads = convert.gather_state_dict(
+      {n: p.grad for n, p in model.named_parameters()}, tp,
+      model.shard_dims)
+  out["grads"] = ({n: g.numpy() for n, g in grads.items()} if tp.rank == 0
+                  else None)
+  del grads
+  for seed in (8, 9):
+    run(seed)
+  sync()
+  out["replicated"] = {
+      n: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+      for n, t in [*model.named_parameters(), *model.named_buffers()]
+      if n not in model.shard_dims}
+  out["step_wall_s"] = [timed(lambda i=i: run(100 + i))
+                        for i in range(TP_TIMED_STEPS)]
+  del model, opt, batch
+
+  # One fp32 all-reduce of each shape the path reduces, mean of 10.
+  out["reduce_s"] = {}
+  for what, shapes in TP_REDUCES.items():
+    for shape, _ in shapes:
+      x = torch.ones(shape, device=dev)
+      tp.all_reduce(x)
+      out["reduce_s"][shape] = sum(timed(lambda: tp.all_reduce(x))
+                                   for _ in range(10)) / 10
+  return out
+
+
+def check_tp_launches(results):
+  """Per rank: 320 B6 and 0 B1 per eval (>= 1 B4); 16 B7 and 16 B3, 0
+  B1, B2 and B6 per step (>= 1 B4)."""
+  n_eval = FFN_LAYERS * (TP_EVAL_VIDEOS // CHUNK)
+  none = dict(ffn_partial=0, ffn_block=0, ffn_train_fwd=0,
+              ffn_train_fwd_partial=0, ffn_train_bwd=0)
+  want_ev = dict(none, ffn_partial=n_eval)
+  want_st = dict(none, ffn_train_fwd_partial=FFN_LAYERS,
+                 ffn_train_bwd=FFN_LAYERS)
+  for rank, r in enumerate(results):
+    ev, st = r["eval_launches"], r["step_launches"]
+    print(f"tp rank {rank} launches: eval {ev}; step {st}", flush=True)
+    if (any(ev[n] != v for n, v in want_ev.items())
+        or any(st[n] != v for n, v in want_st.items())
+        or ev["moe_similarity"] < 1 or st["moe_similarity"] < 1):
+      raise RuntimeError(f"tp rank {rank}: expected eval launches {want_ev} "
+                         f"and step launches {want_st} (>= 1 B4 each), got "
+                         f"{ev} and {st}")
+
+
+def check_tp_ranks(torch, ranking, sims, ref):
+  """The ranks of the tensor-parallel sims against the single-device
+  ones.  Prints whether the rank rule of phase 3 holds (every rank within
+  1, on < 1e-3 of queries; random weights pack the sims so tightly that
+  it is not expected to); raises unless every difference is one that
+  sims within TP_SIMS_TOL allow: a candidate can change sides of the GT
+  only if their two similarities lie within 2 x TP_SIMS_TOL of each
+  other, so a rank may move by at most the number of such candidates."""
+  n = sims.shape[0]
+  masks = torch.ones(n, 1, device=sims.device)
+  d = TP_SIMS_TOL
+  gt = torch.arange(n, device=sims.device)
+  ranks = {"t2v": lambda a: ranking.t2v_ranks(a),
+           "v2t": lambda a: ranking.v2t_ranks(a, masks)}
+  for orient, rows in (("t2v", ref), ("v2t", ref.T)):
+    got, want = ranks[orient](sims), ranks[orient](ref)
+    worst, frac, same_inf = rank_agreement(torch, got, want)
+    g = rows.gather(1, gt[:, None])
+    slack = ((rows - g).abs() <= 2 * d).sum(1) - 1
+    explained = bool(((got - want).abs() <= slack).all())
+    print(f"  tp eval {orient} ranks vs single device: worst rank diff "
+          f"{worst} on {frac:.3e} of queries (the 1 / 1e-3 rule "
+          f"{'met' if worst <= 1 and frac < 1e-3 else 'NOT met'}); every "
+          f"difference within the candidates that lie within 2 x {d:.0e} "
+          f"of the GT: {explained} (at most "
+          f"{int(slack.max())} such candidates); same inf positions "
+          f"{same_inf}", flush=True)
+    if not explained or not same_inf:
+      raise RuntimeError(f"tp eval {orient}: ranks differ beyond the "
+                         "rounding of the sims")
+
+
+def tp_phase(torch, parallel, ranking, ref_sims, step_ref, dev, card):
+  """The tensor-parallel eval and train step on two gloo ranks sharing the
+  card, against the slice phase's kernel-path sims and the train-step
+  phase's kernel step.  Returns the launches of B6 (per eval) and B7 (per
+  step) on rank 0."""
+  tic = time.perf_counter()
+  results = parallel.spawn(tp_rank, TP_SIZE, "cuda", False, TP_EVAL_VIDEOS,
+                           timeout=TP_TIMEOUT)
+  print(f"tp: {TP_SIZE} gloo ranks sharing one card ran in "
+        f"{time.perf_counter() - tic:.1f} s", flush=True)
+  check_tp_launches(results)
+
+  sims = [torch.from_numpy(r["sims"]).to(dev) for r in results]
+  if not torch.equal(sims[0], sims[1]):
+    raise RuntimeError("tp eval: the ranks' sims differ")
+  if not bool(torch.isfinite(sims[0]).all()):
+    raise RuntimeError("tp eval: non-finite sims")
+  diff = float((sims[0] - ref_sims).abs().max())
+  print(f"tp eval {TP_EVAL_VIDEOS} x {TP_EVAL_VIDEOS}: sims vs the slice "
+        f"phase's kernel path max_abs_diff={diff:.3e} (limit "
+        f"{TP_SIMS_TOL:.0e}; the sims' spread: std {float(ref_sims.std()):.3e}"
+        f", range {float(ref_sims.max() - ref_sims.min()):.3e})", flush=True)
+  if diff > TP_SIMS_TOL:
+    raise RuntimeError(f"tp eval sims differ by {diff} > {TP_SIMS_TOL}")
+  check_tp_ranks(torch, ranking, sims[0], ref_sims)
+
+  loss_ref, grads_ref = step_ref
+  for rank, r in enumerate(results):
+    if not abs(r["loss"] - loss_ref) <= STEP_LOSS_TOL:
+      raise RuntimeError(f"tp rank {rank} loss {r['loss']} vs {loss_ref}")
+  check_step(torch, "tp train step vs single-device kernel step",
+             results[0]["loss"], loss_ref,
+             {n: torch.from_numpy(g) for n, g in results[0]["grads"].items()},
+             grads_ref)
+  a, b = (r["replicated"] for r in results)
+  same = [n for n in a if a[n] == b.get(n)]
+  print(f"tp: after 3 steps {len(same)} of {len(a)} replicated parameters "
+        "and buffers bitwise equal on both ranks", flush=True)
+  if len(same) != len(a) or set(a) != set(b):
+    raise RuntimeError("tp: replicated parameters differ across ranks: "
+                       f"{sorted(set(a) - set(same))[:5]}")
+  for what in ("eval", "step"):
+    runs = [[round(x, 6) for x in r[f"{what}_wall_s"]] for r in results]
+    wall = statistics.median(results[0][f"{what}_wall_s"])
+    reduce_s = results[0]["reduce_s"]
+    in_reduces = sum(n * reduce_s[shape] for shape, n in TP_REDUCES[what])
+    print(f"tp {what} wall (two gloo ranks sharing one card, per rank): "
+          f"{runs}; median rank 0 {wall:.6f} s, of which its "
+          f"{sum(n for _, n in TP_REDUCES[what])} all-reduces take about "
+          f"{in_reduces:.6f} s (" + ", ".join(
+              f"{n} x {list(shape)} at {reduce_s[shape] * 1e3:.3f} ms"
+              for shape, n in TP_REDUCES[what]) + f") card: {card}",
+          flush=True)
+  return {"ffn_partial": results[0]["eval_launches"]["ffn_partial"],
+          "ffn_train_fwd_partial":
+              results[0]["step_launches"]["ffn_train_fwd_partial"]}
+
+
+class PhaseClock:
+  """Seconds of each phase: ``done(name)`` ends the phase that began at
+  the last call (or at construction) and prints its seconds."""
+
+  def __init__(self):
+    self.start = self.last = time.perf_counter()
+    self.seconds = {}
+
+  def done(self, name):
+    now = time.perf_counter()
+    self.seconds[name] = now - self.last
+    self.last = now
+    print(f"phase {name}: {self.seconds[name]:.1f} s", flush=True)
+
+  def total(self):
+    return time.perf_counter() - self.start
+
+
 def finite_metrics(res):
   for which in ("t2v_metrics", "v2t_metrics"):
     vals = [res[which][k] for k in ("R1", "R5", "R10", "R50", "MedR",
@@ -788,9 +1146,11 @@ def main():
     return 1
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  from mmt_tpu_torch import _build, bench, evaluate, flagship, ops
+  from mmt_tpu_torch import _build, bench, evaluate, flagship, ops, parallel
   from mmt_tpu_torch.ops import dropout, ffn, ranking, similarity
   from mmt_tpu_torch.train import metrics
+
+  clock = PhaseClock()
 
   card = bench.card_line()
   print(f"card: {card}", flush=True)
@@ -805,14 +1165,21 @@ def main():
   for line in (lib_path.parent / "build.log").read_text().splitlines():
     if "registers" in line or "spill" in line:
       print(f"  ptxas: {line.strip()}")
+  clock.done("build")
 
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev).manual_seed(0)
   entries = {"ffn_block": ffn_phase(torch, ffn, dev, gen),
              "moe_similarity": sim_phase(torch, similarity, dev, gen)}
+  clock.done("kernel")
   rank_err = rank_kernel_phase(torch, ranking, dev, gen, card)
+  clock.done("rank-kernel")
   entries.update(train_kernel_phase(torch, ffn, dropout, dev, gen, card))
+  clock.done("train-kernel")
+  entries.update(partial_kernel_phase(torch, ffn, dropout, dev, gen, card))
+  clock.done("partial-kernel")
   reference_phase(torch, flagship, evaluate, dev)
+  clock.done("reference")
 
   # ---- slice phase: the full-width flagship, 1k x 1k ----
   tic = time.perf_counter()
@@ -876,7 +1243,8 @@ def main():
         f"videos_per_s={N_VIDEOS / k_s:.1f} card: {card}", flush=True)
   print(f"eval runs kernel_path_s={[round(x, 6) for x in runs[False]]} "
         f"plain_path_s={[round(x, 6) for x in runs[True]]}", flush=True)
-  del res, res_plain, sims
+  del res, res_plain
+  clock.done("slice")
 
   # ---- at-scale phase: the fused eval at 20k videos, no matrix ----
   entries["fused_ranks"] = at_scale_phase(
@@ -886,13 +1254,24 @@ def main():
       rank_err, entries["fused_ranks"]["max_abs_err"])
   del model, batches
   torch.cuda.empty_cache()
+  clock.done("at-scale")
 
-  train_launches = train_step_phase(torch, flagship, ops, ffn, similarity,
-                                    dev, card)
+  train_launches, *step_ref = train_step_phase(torch, flagship, ops, ffn,
+                                               similarity, dev, card)
+  torch.cuda.empty_cache()
+  clock.done("train-step")
+  tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
+  del sims, step_ref
+  clock.done("tp")
   entries["ffn_block"]["launches"] = launches["ffn_block"]
   entries["moe_similarity"]["launches"] = launches["moe_similarity"]
   for name in ("ffn_train_fwd", "ffn_train_bwd"):
     entries[name]["launches"] = train_launches[name]
+  for name, n in tp_launches.items():
+    entries[name]["launches"] = n
+  shown = {k: round(v, 1) for k, v in clock.seconds.items()}
+  print(f"phases (s): {json.dumps(shown)}; total {clock.total():.1f} s",
+        flush=True)
 
   print(f"card: {card}")
   print(json.dumps({"kernels": [
@@ -904,7 +1283,10 @@ def main():
            "mmt_tpu/ops/similarity.py:244"),
           ("ffn_train_fwd", "ffn_block.cu", "mmt_tpu/ops/ffn.py:477"),
           ("ffn_train_bwd", "ffn_train_bwd.cu", "mmt_tpu/ops/ffn.py:499"),
-          ("fused_ranks", "fused_ranks.cu", "mmt_tpu/ops/ranking.py:101"))]}))
+          ("fused_ranks", "fused_ranks.cu", "mmt_tpu/ops/ranking.py:101"),
+          ("ffn_partial", "ffn_block.cu", "mmt_tpu/ops/ffn.py:369"),
+          ("ffn_train_fwd_partial", "ffn_block.cu",
+           "mmt_tpu/ops/ffn.py:576"))]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -4,12 +4,14 @@ The slices ported so far are the eval path (the flagship CENet's
 forward in models/, the MoE similarity and the retrieval ranks and
 metrics in ops/, train/metrics.py, evaluate.py) and the train step
 (train/step.py, train/losses.py, train/optim.py, dropout and train-mode
-BatchNorm in models/).  Hand-written sm_90a CUDA kernels carry them on the
-card: the fused FFN block, eval and train forward (ops/ffn.py,
-csrc/ffn_block.cu), its backward (csrc/ffn_train_bwd.cu) and the fused
-MoE similarity (ops/similarity.py, csrc/moe_similarity.cu).  _build.py
-compiles them with nvcc at first use.  The package imports torch and
-never jax.
+BatchNorm in models/), both also under tensor parallelism (parallel/,
+the Megatron layout over torch.distributed).  Hand-written sm_90a CUDA
+kernels carry them on the card: the fused FFN block, eval and train
+forward and their tensor-parallel partials (ops/ffn.py,
+csrc/ffn_block.cu), its backward (csrc/ffn_train_bwd.cu), the fused MoE
+similarity (ops/similarity.py, csrc/moe_similarity.cu) and the fused
+ranks (ops/ranking.py, csrc/fused_ranks.cu).  _build.py compiles them
+with nvcc at first use.  The package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

@@ -37,6 +37,10 @@ _SIGNATURES = {
     # x, drop, w1, b1, w2, b2, gamma, beta, out, inter, z, R, H, I, eps,
     # compute_dtype, stream
     "mmt_ffn_train_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    # x, w1, b1, w2, out, R, H, I, compute_dtype, stream
+    "mmt_ffn_partial": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # x, w1, b1, w2, out, inter, R, H, I, compute_dtype, stream
+    "mmt_ffn_train_fwd_partial": [_P] * 6 + [_I, _I, _I, _I, _P],
     # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, R, H, I, eps,
     # compute_dtype, add_dz, stream
     "mmt_ffn_train_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I,

@@ -61,15 +61,17 @@ def _sync(device):
 
 
 def staged_flagship(device="cuda", *, tiny=False, videos=N_VIDEOS,
-                    chunk=BATCH):
+                    chunk=BATCH, tp=None):
   """The flagship CENet (bf16, seed 0) and ``videos`` distinct videos of
   synthetic inputs staged on ``device`` as chunks of ``chunk`` (chunk c
-  from seed 1 + c), one caption each."""
+  from seed 1 + c), one caption each.  With a ``tp``
+  (``parallel.TensorParallel``) the model is this rank's shards of the
+  same model (``flagship.flagship_model``)."""
   if videos % chunk:
     raise ValueError(f"{videos} videos do not divide into chunks of {chunk}: "
                      "a truncated remainder would overstate throughput")
   model = flagship.flagship_model(device=device, compute_dtype=torch.bfloat16,
-                                  seed=0, tiny=tiny)
+                                  seed=0, tiny=tiny, tp=tp)
   dims = flagship.flagship_arch(tiny=tiny)["expert_dims"]
   vocab = dict(vocab=TINY_VOCAB) if tiny else {}
   staged = [flagship.batch_to_torch(

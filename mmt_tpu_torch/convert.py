@@ -8,6 +8,11 @@ running_mean/running_var.  It is the flagship subset of
 scripts/convert_checkpoint.py:export_state_dict (no pooler, no
 position_ids buffer: the port's CENet has neither), and raises on any
 leaf it cannot place.
+
+``shard_state_dict`` cuts a whole state dict (from it or from a
+single-device model) to one tensor-parallel rank's shards, in the layout
+a ``CENet(tp=)`` reports in its ``shard_dims``; ``gather_state_dict``
+puts the ranks' shards back together, for checks.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _BERT_SUB = {"query": "attention.self.query", "key": "attention.self.key",
              "value": "attention.self.value",
@@ -94,3 +100,38 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping):
     sd[f"{base}.running_{m[2]}"] = arr
     sd[f"{base}.num_batches_tracked"] = np.asarray(0, np.int64)
   return {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor], tp,
+                     dims: Mapping[str, int]):
+  """A whole state dict -> this rank's (``tp``, a
+  ``parallel.TensorParallel``): each parameter named in ``dims`` (name ->
+  the dim it is split on, a ``CENet(tp=tp)``'s ``shard_dims``) sliced
+  along its dim and made contiguous; the rest as it is.  Loads into that
+  ``CENet`` with ``strict=True``."""
+  out = {}
+  for name, t in state_dict.items():
+    if name in dims:
+      n = t.shape[dims[name]] // tp.size
+      t = t.narrow(dims[name], tp.rank * n, n).contiguous()
+    out[name] = t
+  return out
+
+
+def gather_state_dict(state_dict: Mapping[str, torch.Tensor], tp,
+                      dims: Mapping[str, int]):
+  """The ranks' shards (``dims``: name -> the dim it is split on, as
+  ``shard_state_dict`` takes them) put back together on every rank, as
+  CPU tensors; the other entries copied to the CPU as they are.  A
+  collective: every rank of ``tp`` calls it.  Gathers through CPU copies
+  (gloo has no all_gather of CUDA tensors); a check, not a path of the
+  model."""
+  out = {}
+  for name, t in state_dict.items():
+    t = t.detach().cpu()
+    if name in dims:
+      parts = [torch.empty_like(t) for _ in range(tp.size)]
+      dist.all_gather(parts, t.contiguous(), group=tp.group)
+      t = torch.cat(parts, dims[name])
+    out[name] = t
+  return out

@@ -1,14 +1,26 @@
-// Fused FFN sub-block for Hopper (sm_90a), eval and train forward:
+// Fused FFN sub-block for Hopper (sm_90a): the eval block, the train
+// forward and their tensor-parallel shard-local halves:
 //
 //   eval  (B1):  out = LayerNorm(x + GELU_erf(x W1^T + b1) W2^T + b2)
 //   train (B2):  z   = (GELU_erf(x W1^T + b1) W2^T + b2) * drop + x
 //                out = LayerNorm(z), and also writes inter = x W1^T + b1
 //                and z, both rounded to the compute type, for B3
+//   partial (B6):        out = GELU_erf(x W1s^T + b1s) W2s^T   (fp32)
+//   train partial (B7):  the same, and also writes inter = x W1s^T + b1s
+//                        rounded to the compute type
 //
 // B1 replaces the TPU kernel mmt_tpu/ops/ffn.py:_ffn_kernel (launched by
 // _pallas_ffn_2d through ffn_block); B2 replaces _ffn_train_fwd_kernel
-// (launched by _pallas_ffn_train_fwd through ffn_block_train).  One
-// template (kTrain) gives both.  Same numerics as the TPU kernels: x is
+// (launched by _pallas_ffn_train_fwd through ffn_block_train); B6
+// replaces _ffn_partial_kernel (_pallas_ffn_partial_2d) and B7
+// _ffn_train_fwd_partial_kernel (_pallas_ffn_train_fwd_partial), the
+// halves that run on a tensor-parallel rank's column shard W1s [I/mp, H],
+// b1s [I/mp] and row shard W2s [H, I/mp].  The partials are unreduced:
+// the caller all-reduces them over the ranks and adds b2, the mask, the
+// residual and the LayerNorm (mmt_tpu_torch/ops/ffn.py).  One template
+// (Mode) gives all four: the partial modes are the same kernel with the
+// epilogue off, the accumulator fragments stored straight to out.  Same
+// numerics as the TPU kernels: x is
 // rounded to the compute type for the first product, bias and erf-GELU
 // run in fp32 on the unrounded product, the GELU output is rounded to the
 // compute type for the second product, both products accumulate in fp32,
@@ -31,7 +43,10 @@
 // work).  The text tower gives only 94 blocks for 132 SMs at eval (60 at
 // the b32 train step).  B2 must write inter for the backward ([R, I] in
 // the compute type: 43 MB at the b32 video shape), one 16 x 16 tile per
-// warp and chunk straight from the fp32 scratch.
+// warp and chunk straight from the fp32 scratch.  With two ranks the
+// partials do half the work on half the weights (I/mp = 1536: 17 GFLOP
+// at the video eval shape, bound 0.035 ms of bf16 tensor-core time) and
+// stay L2-streaming bound in the same way; B7 writes half of B2's inter.
 //
 // bf16 compute uses WMMA 16x16x16 bf16 fragments with fp32 accumulation.
 // fp32 compute uses plain FMA (no TF32), so the card can check the kernel
@@ -52,6 +67,9 @@ namespace {
 
 using namespace mmt_ffn;
 using namespace nvcuda;
+
+// What one instantiation computes: B1, B2, B6 or B7 (see the top).
+enum class Mode { kEval, kTrain, kPartial, kTrainPartial };
 
 // Shared memory: x tile [TR, H + PAD] and GELU chunk [TR, IC + PAD] in the
 // compute type, then an fp32 scratch [TR, max(H, IC) + 4] that holds the
@@ -121,8 +139,10 @@ __device__ __forceinline__ void layer_norm_epilogue(
   }
 }
 
-// Kernel parameters: drop, inter and z are read or written only by the
-// train forward (kTrain); the eval block gets null pointers.
+// Kernel parameters: b2, gamma, beta and drop are read, and z written,
+// only by the modes with the epilogue (B1: b2, gamma, beta; B2: all);
+// inter is written only by the train modes.  The others get null
+// pointers.
 #define FFN_PARAMS(TC)                                                    \
   const float* __restrict__ x, const TC* __restrict__ w1,                 \
       const float* __restrict__ b1, const TC* __restrict__ w2,            \
@@ -131,10 +151,25 @@ __device__ __forceinline__ void layer_norm_epilogue(
       float* __restrict__ out, TC* __restrict__ inter, TC* __restrict__ z, \
       int R, int H, int I, float eps
 
+// Rows [row0, row0 + TR) of the [TR, lds] fp32 scratch to out [R, H],
+// rows past R left out: the partial modes' store of a ragged tile.
+__device__ __forceinline__ void store_rows(const float* ss, int lds,
+                                           float* __restrict__ out, int row0,
+                                           int R, int H) {
+  for (int e = threadIdx.x; e < TR * H; e += THREADS) {
+    const int r = e / H, c = e % H;
+    if (row0 + r < R) out[size_t(row0 + r) * H + c] = ss[r * lds + c];
+  }
+}
+
 // bf16 compute: WMMA fragments, [TR, H] accumulator in registers.
-template <bool kTrain>
+template <Mode kMode>
 __global__ void __launch_bounds__(THREADS)
 ffn_block_bf16_kernel(FFN_PARAMS(bf16)) {
+  constexpr bool kInter =
+      kMode == Mode::kTrain || kMode == Mode::kTrainPartial;
+  constexpr bool kPartial =
+      kMode == Mode::kPartial || kMode == Mode::kTrainPartial;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(H, sizeof(bf16));
   bf16* xs = reinterpret_cast<bf16*>(smem);
@@ -174,7 +209,7 @@ ffn_block_bf16_kernel(FFN_PARAMS(bf16)) {
       float v = 0.0f;
       if (col < I) {
         const float u = ss[r * L.lds + c] + b1[col + cc];
-        if (kTrain && row0 + r < R) {
+        if (kInter && row0 + r < R) {
           inter[size_t(row0 + r) * I + col + cc] = __float2bfloat16(u);
         }
         v = gelu_erf(u);
@@ -200,6 +235,17 @@ ffn_block_bf16_kernel(FFN_PARAMS(bf16)) {
     __syncthreads();  // is and ss are rewritten by the next chunk
   }
 
+  if (kPartial && row0 + TR <= R) {  // block-uniform: a whole tile of rows
+#pragma unroll
+    for (int f = 0; f < MAXF; ++f) {
+      const int n = warp + WARPS * f;
+      if (n < ntiles) {
+        wmma::store_matrix_sync(out + size_t(row0) * H + n * 16, acc[f], H,
+                                wmma::mem_row_major);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) {
     const int n = warp + WARPS * f;
@@ -208,15 +254,23 @@ ffn_block_bf16_kernel(FFN_PARAMS(bf16)) {
     }
   }
   __syncthreads();
-  layer_norm_epilogue<kTrain>(x, b2, drop, gamma, beta, out, z, ss, L.lds,
-                              row0, R, H, eps);
+  if constexpr (kPartial) {
+    store_rows(ss, L.lds, out, row0, R, H);
+  } else {
+    layer_norm_epilogue<kMode == Mode::kTrain>(x, b2, drop, gamma, beta, out,
+                                               z, ss, L.lds, row0, R, H, eps);
+  }
 }
 
 // fp32 compute: plain FMA, [TR, H] accumulator in registers (thread t owns
 // columns t, t + 256, ...).
-template <bool kTrain>
+template <Mode kMode>
 __global__ void __launch_bounds__(THREADS)
 ffn_block_f32_kernel(FFN_PARAMS(float)) {
+  constexpr bool kInter =
+      kMode == Mode::kTrain || kMode == Mode::kTrainPartial;
+  constexpr bool kPartial =
+      kMode == Mode::kPartial || kMode == Mode::kTrainPartial;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(H, sizeof(float));
   float* xs = reinterpret_cast<float*>(smem);
@@ -253,7 +307,7 @@ ffn_block_f32_kernel(FFN_PARAMS(float)) {
       float v = 0.0f;
       if (col < I) {
         const float uu = u[r] + b1[col];
-        if (kTrain && row0 + rh + r < R) {
+        if (kInter && row0 + rh + r < R) {
           inter[size_t(row0 + rh + r) * I + col] = uu;
         }
         v = gelu_erf(uu);
@@ -282,12 +336,20 @@ ffn_block_f32_kernel(FFN_PARAMS(float)) {
     const int h = t + THREADS * j;
     if (h < H) {
 #pragma unroll
-      for (int r = 0; r < TR; ++r) ss[r * L.lds + h] = acc[j][r];
+      for (int r = 0; r < TR; ++r) {
+        if constexpr (kPartial) {
+          if (row0 + r < R) out[size_t(row0 + r) * H + h] = acc[j][r];
+        } else {
+          ss[r * L.lds + h] = acc[j][r];
+        }
+      }
     }
   }
-  __syncthreads();
-  layer_norm_epilogue<kTrain>(x, b2, drop, gamma, beta, out, z, ss, L.lds,
-                              row0, R, H, eps);
+  if constexpr (!kPartial) {
+    __syncthreads();
+    layer_norm_epilogue<kMode == Mode::kTrain>(x, b2, drop, gamma, beta, out,
+                                               z, ss, L.lds, row0, R, H, eps);
+  }
 }
 
 template <typename TC>
@@ -308,7 +370,7 @@ int launch(void (*fn)(FFN_PARAMS(TC)), const float* x, const void* w1,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTrain>
+template <Mode kMode>
 int dispatch(const float* x, const void* w1, const float* b1, const void* w2,
              const float* b2, const float* gamma, const float* beta,
              const float* drop, float* out, void* inter, void* z, int R,
@@ -318,11 +380,11 @@ int dispatch(const float* x, const void* w1, const float* b1, const void* w2,
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (compute_dtype == 1) {
-    return launch<bf16>(&ffn_block_bf16_kernel<kTrain>, x, w1, b1, w2, b2,
+    return launch<bf16>(&ffn_block_bf16_kernel<kMode>, x, w1, b1, w2, b2,
                         gamma, beta, drop, out, inter, z, R, H, I, eps,
                         stream);
   }
-  return launch<float>(&ffn_block_f32_kernel<kTrain>, x, w1, b1, w2, b2,
+  return launch<float>(&ffn_block_f32_kernel<kMode>, x, w1, b1, w2, b2,
                        gamma, beta, drop, out, inter, z, R, H, I, eps,
                        stream);
 }
@@ -336,7 +398,7 @@ extern "C" int mmt_ffn_block(const float* x, const void* w1, const float* b1,
                              const float* gamma, const float* beta, float* out,
                              int R, int H, int I, float eps, int compute_dtype,
                              void* stream_ptr) {
-  return dispatch<false>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
+  return dispatch<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
                          nullptr, nullptr, R, H, I, eps, compute_dtype,
                          stream_ptr);
 }
@@ -350,8 +412,34 @@ extern "C" int mmt_ffn_train_fwd(const float* x, const float* drop,
                                  float* out, void* inter, void* z, int R,
                                  int H, int I, float eps, int compute_dtype,
                                  void* stream_ptr) {
-  return dispatch<true>(x, w1, b1, w2, b2, gamma, beta, drop, out, inter, z,
-                        R, H, I, eps, compute_dtype, stream_ptr);
+  return dispatch<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop, out,
+                               inter, z, R, H, I, eps, compute_dtype,
+                               stream_ptr);
+}
+
+// Tensor-parallel partial (B6): x [R, H] float32, the shards w1 [I, H]
+// and w2 [H, I] in the compute type (I is the rank's I/mp), b1 [I]
+// float32; writes the unreduced float32 partial out [R, H].
+extern "C" int mmt_ffn_partial(const float* x, const void* w1,
+                               const float* b1, const void* w2, float* out,
+                               int R, int H, int I, int compute_dtype,
+                               void* stream_ptr) {
+  return dispatch<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr, nullptr,
+                                  nullptr, out, nullptr, nullptr, R, H, I,
+                                  0.0f, compute_dtype, stream_ptr);
+}
+
+// Tensor-parallel train partial (B7): as mmt_ffn_partial, plus inter
+// [R, I] in the compute type.
+extern "C" int mmt_ffn_train_fwd_partial(const float* x, const void* w1,
+                                         const float* b1, const void* w2,
+                                         float* out, void* inter, int R,
+                                         int H, int I, int compute_dtype,
+                                         void* stream_ptr) {
+  return dispatch<Mode::kTrainPartial>(x, w1, b1, w2, nullptr, nullptr,
+                                       nullptr, nullptr, out, inter, nullptr,
+                                       R, H, I, 0.0f, compute_dtype,
+                                       stream_ptr);
 }
 
 extern "C" const char* mmt_error_string(int code) {

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mmt_tpu_torch import convert
 from mmt_tpu_torch.experts import compute_dims
 from mmt_tpu_torch.models.cenet import CENet
 
@@ -46,13 +47,24 @@ def flagship_arch(tiny=False):
 
 
 def flagship_model(*, device, compute_dtype=torch.bfloat16, seed=0,
-                   tiny=False, train=False):
+                   tiny=False, train=False, tp=None):
   """The flagship CENet on ``device`` with random weights from ``seed``,
-  in eval mode (``train=True``: in train mode, for ``train.step``)."""
+  in eval mode (``train=True``: in train mode, for ``train.step``).
+
+  With a ``tp`` (``parallel.TensorParallel``) the whole model is made
+  from the seed and this rank keeps its shards: the single-device model,
+  split.
+  """
   arch = flagship_arch(tiny=tiny)
   model = CENet(**arch, compute_dtype=compute_dtype, device=device)
   gen = torch.Generator(device=device).manual_seed(seed)
-  return model.init_weights(gen).train(train)
+  model.init_weights(gen)
+  if tp is not None:
+    full = model.state_dict()
+    model = CENet(**arch, compute_dtype=compute_dtype, device=device, tp=tp)
+    model.load_state_dict(convert.shard_state_dict(full, tp,
+                                                   model.shard_dims))
+  return model.train(train)
 
 
 def make_batch(expert_dims, batch_size, *, max_expert_tokens=30,

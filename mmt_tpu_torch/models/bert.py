@@ -15,6 +15,18 @@ video tower, ...), so the reference's checkpoints load by name.
 
 Parameters are fp32; matmul operands are rounded to ``compute_dtype``
 (bf16 on the card) with fp32 accumulation, as the JAX package computes.
+
+With a ``tp`` (``parallel.TensorParallel``) each layer holds this rank's
+shards in the Megatron layout of ``parallel.mesh``: q/k/v column-parallel
+(heads / size local heads, behind Megatron's f), the attention's output
+projection row-parallel (an fp32 partial, g, then the bias), and the FFN
+through ``ffn_block_tp`` / ``ffn_block_train(tp=...)``.  Attention stays
+replicated when the head count does not divide by the size, the FFN when
+the intermediate size does not (the JAX package's ``heads_ok``); the
+layer's ``shard_dims`` says which parameters it splits.  Every rank draws each dropout mask at
+its full size, in the single-device order, and keeps its heads' slice of
+the attention-probability mask, so the ranks stay the single-device
+model split.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from mmt_tpu_torch.config import BertParams
 from mmt_tpu_torch.ops import attention as attention_ops
 from mmt_tpu_torch.ops import ffn as ffn_ops
 from mmt_tpu_torch.ops.dropout import dropout, dropout_mask
+from mmt_tpu_torch.parallel import mesh as tp_lib
 
 
 class Linear(nn.Linear):
@@ -81,29 +94,55 @@ class TransformerLayer(nn.Module):
   """Post-LN encoder block: attention -> add&norm -> fused FFN block."""
 
   def __init__(self, cfg: BertParams, ln_name: str, *, compute_dtype,
-               device=None):
+               device=None, tp=None):
     super().__init__()
     if cfg.hidden_act != "gelu":
       raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
     h, i = cfg.hidden_size, cfg.intermediate_size
     self.cfg, self.ln_name, self.compute_dtype = cfg, ln_name, compute_dtype
+    mp = tp.size if tp is not None else 1
+    self.tp = tp if mp > 1 else None
+    self.attn_tp = self.tp is not None and cfg.num_attention_heads % mp == 0
+    self.ffn_tp = self.tp is not None and i % mp == 0
+    ha = h // mp if self.attn_tp else h      # this rank's q/k/v width
+    il = i // mp if self.ffn_tp else i       # this rank's FFN width
     ln = lambda: nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device)
     self.attention = _container(
-        self=_container(query=Linear(h, h, device=device),
-                        key=Linear(h, h, device=device),
-                        value=Linear(h, h, device=device)),
-        output=_container(dense=Linear(h, h, device=device),
+        self=_container(query=Linear(h, ha, device=device),
+                        key=Linear(h, ha, device=device),
+                        value=Linear(h, ha, device=device)),
+        output=_container(dense=Linear(ha, h, device=device),
                           **{ln_name: ln()}))
-    self.intermediate = _container(dense=Linear(h, i, device=device))
-    self.output = _container(dense=Linear(i, h, device=device),
+    self.intermediate = _container(dense=Linear(h, il, device=device))
+    self.output = _container(dense=Linear(il, h, device=device),
                              **{ln_name: ln()})
 
+  @property
+  def shard_dims(self):
+    """{parameter name: the dim it is split on} of this layer's
+    tensor-parallel shards (column-parallel weights and biases on dim 0,
+    row-parallel weights on dim 1); the rest is replicated."""
+    dims = {}
+    if self.attn_tp:
+      for n in ("query", "key", "value"):
+        dims[f"attention.self.{n}.weight"] = 0
+        dims[f"attention.self.{n}.bias"] = 0
+      dims["attention.output.dense.weight"] = 1
+    if self.ffn_tp:
+      dims.update({"intermediate.dense.weight": 0,
+                   "intermediate.dense.bias": 0, "output.dense.weight": 1})
+    return dims
+
   def forward(self, hidden, attn_bias, *, train=False, generator=None):
-    cfg, cd = self.cfg, self.compute_dtype
+    cfg, cd, tp = self.cfg, self.compute_dtype, self.tp
     p_hidden = cfg.hidden_dropout_prob if train else 0.0
     b, s, h = hidden.shape
-    n_heads = cfg.num_attention_heads
+    n_heads, head_range = cfg.num_attention_heads, None
     hc = hidden.to(cd)
+    if self.attn_tp:
+      n_heads //= tp.size
+      head_range = (tp.rank * n_heads, cfg.num_attention_heads)
+      hc = tp_lib.copy_to_tp(hc, tp)
 
     def heads(lin):
       w, bias = lin.cast(cd)
@@ -113,10 +152,15 @@ class TransformerLayer(nn.Module):
     ctx = attention_ops.attention_bhsd(
         heads(sa.query), heads(sa.key), heads(sa.value), attn_bias=attn_bias,
         dropout_p=cfg.attention_probs_dropout_prob if train else 0.0,
-        generator=generator)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h).to(cd)
+        generator=generator, heads=head_range)
+    ctx = ctx.transpose(1, 2).reshape(b, s, -1).to(cd)
     wo, bo = self.attention.output.dense.cast(cd)
-    attn_out = dropout(F.linear(ctx, wo, bo), p_hidden, generator)
+    if self.attn_tp:
+      attn_out = (tp_lib.reduce_from_tp(ctx.float() @ wo.float().T, tp)
+                  + bo.float()).to(cd)
+    else:
+      attn_out = F.linear(ctx, wo, bo)
+    attn_out = dropout(attn_out, p_hidden, generator)
     attn_ln = getattr(self.attention.output, self.ln_name)
     hidden = ffn_ops.layer_norm(attn_out.float() + hidden,
                                 attn_ln.weight, attn_ln.bias,
@@ -124,17 +168,30 @@ class TransformerLayer(nn.Module):
 
     inter, out = self.intermediate.dense, self.output.dense
     ffn_ln = getattr(self.output, self.ln_name)
+    ffn_tp = tp if self.ffn_tp else None
     if train:
       drop = dropout_mask(hidden.shape, p_hidden, generator, hidden.device)
       return ffn_ops.ffn_block_train(
           hidden, drop, inter.weight, inter.bias, out.weight, out.bias,
           ffn_ln.weight, ffn_ln.bias, eps=cfg.layer_norm_eps,
-          compute_dtype=cd)
+          compute_dtype=cd, tp=ffn_tp)
     w1, _ = inter.cast(cd)
     w2, _ = out.cast(cd)
-    return ffn_ops.ffn_block(hidden, w1, inter.bias, w2, out.bias,
-                             ffn_ln.weight, ffn_ln.bias,
-                             eps=cfg.layer_norm_eps, compute_dtype=cd)
+    args = (hidden, w1, inter.bias, w2, out.bias, ffn_ln.weight, ffn_ln.bias)
+    if ffn_tp is not None:
+      return ffn_ops.ffn_block_tp(*args, eps=cfg.layer_norm_eps, tp=ffn_tp,
+                                  compute_dtype=cd)
+    return ffn_ops.ffn_block(*args, eps=cfg.layer_norm_eps, compute_dtype=cd)
+
+
+def shard_dims(module: nn.Module):
+  """{parameter name: the dim it is split on} of the tensor-parallel
+  shards of every ``TransformerLayer`` in ``module`` (the names are
+  ``module``'s own); the parameters left out are replicated."""
+  return {f"{prefix}.{name}": dim
+          for prefix, layer in module.named_modules()
+          if isinstance(layer, TransformerLayer)
+          for name, dim in layer.shard_dims.items()}
 
 
 def _encode(bert, x, attention_mask, train, generator):
@@ -148,11 +205,11 @@ def _encode(bert, x, attention_mask, train, generator):
 class TransformerEncoder(nn.Module):
 
   def __init__(self, cfg: BertParams, ln_name: str, *, compute_dtype,
-               device=None):
+               device=None, tp=None):
     super().__init__()
     self.layer = nn.ModuleList(
         TransformerLayer(cfg, ln_name, compute_dtype=compute_dtype,
-                         device=device)
+                         device=device, tp=tp)
         for _ in range(cfg.num_hidden_layers))
 
   def forward(self, hidden, attn_bias, *, train=False, generator=None):
@@ -166,7 +223,8 @@ class FeatureBert(nn.Module):
   (no word table), then LayerNorm.  Reference names: ``embeddings.
   {position_embeddings, token_type_embeddings, layer_norm}``."""
 
-  def __init__(self, cfg: BertParams, *, compute_dtype, device=None):
+  def __init__(self, cfg: BertParams, *, compute_dtype, device=None,
+               tp=None):
     super().__init__()
     h = cfg.hidden_size
     self.cfg, self.compute_dtype = cfg, compute_dtype
@@ -178,7 +236,7 @@ class FeatureBert(nn.Module):
         layer_norm=nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device))
     self.encoder = TransformerEncoder(cfg, "layer_norm",
                                       compute_dtype=compute_dtype,
-                                      device=device)
+                                      device=device, tp=tp)
 
   def forward(self, features, attention_mask, token_type_ids, position_ids,
               *, train=False, generator=None):
@@ -196,7 +254,8 @@ class TextBert(nn.Module):
   Reference (HF) names: ``embeddings.{word_embeddings,
   position_embeddings, token_type_embeddings, LayerNorm}``."""
 
-  def __init__(self, cfg: BertParams, *, compute_dtype, device=None):
+  def __init__(self, cfg: BertParams, *, compute_dtype, device=None,
+               tp=None):
     super().__init__()
     h = cfg.hidden_size
     self.cfg, self.compute_dtype = cfg, compute_dtype
@@ -209,7 +268,7 @@ class TextBert(nn.Module):
         LayerNorm=nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device))
     self.encoder = TransformerEncoder(cfg, "LayerNorm",
                                       compute_dtype=compute_dtype,
-                                      device=device)
+                                      device=device, tp=tp)
 
   def forward(self, input_ids, attention_mask, token_type_ids, position_ids,
               *, train=False, generator=None):

@@ -23,7 +23,8 @@ from torch import nn
 
 from mmt_tpu_torch.config import BertParams, TEXT_BERT_BASE_CASED
 from mmt_tpu_torch.models import components as C
-from mmt_tpu_torch.models.bert import FeatureBert, TextBert, init_normal_
+from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
+                                       shard_dims)
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.ops.dropout import dropout
 
@@ -36,14 +37,21 @@ FLAGSHIP_SWITCHES = dict(
 
 class CENet(nn.Module):
   """Cross-modal video/text retrieval network, built on ``device`` (the
-  card unless the caller asks for the CPU)."""
+  card unless the caller asks for the CPU).
+
+  With a ``tp`` (``parallel.TensorParallel``) the encoder layers of both
+  towers hold this rank's tensor-parallel shards (models/bert.py); all
+  else (embeddings, LayerNorms, GEU heads, BatchNorm, MoE heads) is
+  replicated and computes the same on every rank.  ``shard_dims`` maps
+  each split parameter to the dim it is split on.
+  """
 
   def __init__(self, expert_dims: Mapping[str, Mapping[str, int]],
                vid_bert_params: Mapping[str, Any],
                txt_bert_params: Optional[Mapping[str, Any]] = None,
                text_bert_geometry: Optional[Mapping[str, Any]] = None,
                same_dim: int = 512, compute_dtype=torch.float32,
-               device="cuda", **switches):
+               device="cuda", tp=None, **switches):
     super().__init__()
     for name, value in switches.items():
       if name not in FLAGSHIP_SWITCHES:
@@ -69,9 +77,9 @@ class CENet(nn.Module):
           f"same_dim ({same_dim}) for the feature-additive embeddings")
 
     self.txt_bert = TextBert(txt_cfg, compute_dtype=compute_dtype,
-                             device=device)
+                             device=device, tp=tp)
     self.vid_bert = FeatureBert(self.vid_cfg, compute_dtype=compute_dtype,
-                                device=device)
+                                device=device, tp=tp)
     text_dim = txt_cfg.hidden_size
     self.text_GU = nn.ModuleDict({
         m: C.GatedEmbeddingUnit(text_dim, same_dim, device=device)
@@ -84,6 +92,9 @@ class CENet(nn.Module):
     # Dropout on the caption embedding before the MoE weight heads.
     self.moe_txt_dropout = float(
         (txt_bert_params or {}).get("hidden_dropout_prob", 0.1))
+    # {name: dim} of the parameters split over the tensor-parallel ranks
+    # (for convert.shard_state_dict / gather_state_dict); empty without tp.
+    self.shard_dims = shard_dims(self)
 
   def init_weights(self, generator: torch.Generator):
     """Random weights from ``generator`` (BERT towers N(0, 0.02)-style,

@@ -16,7 +16,8 @@ import torch
 from mmt_tpu_torch.ops.dropout import dropout
 
 
-def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None):
+def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None,
+                   heads=None):
   """q/k/v [B, H, S, dh] -> fp32 ctx [B, H, S, dh].
 
   attn_bias: [B, 1, 1, S] additive bias.  Products of compute-dtype
@@ -24,10 +25,13 @@ def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None):
   ``preferred_element_type=float32`` does.  ``dropout_p`` > 0 (train
   mode) drops probabilities with a mask from ``generator``, as JAX does:
   where(keep, probs / (1-p), 0) in fp32, before the cast to the value
-  dtype.
+  dtype.  ``heads=(first, total)``: these H are heads [first, first + H)
+  of ``total`` (a tensor-parallel rank's), and the dropout mask is drawn
+  for all ``total`` and sliced (``dropout``'s ``part``).
   """
   scores = qh.float() @ kh.float().transpose(-1, -2)
   scores = scores / math.sqrt(qh.shape[-1]) + attn_bias.float()
   probs = torch.softmax(scores, dim=-1)
-  probs = dropout(probs, dropout_p, generator).to(vh.dtype)
+  part = None if heads is None else (1, *heads)
+  probs = dropout(probs, dropout_p, generator, part=part).to(vh.dtype)
   return probs.float() @ vh.float()

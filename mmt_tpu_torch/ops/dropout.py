@@ -28,10 +28,23 @@ def dropout_mask(shape, p, generator, device):
   return keep.float() / (1.0 - p)
 
 
-def dropout(x, p, generator):
+def dropout(x, p, generator, *, part=None):
   """flax ``nn.Dropout`` semantics: where(keep, x / (1-p), 0) in x's
-  dtype; x itself at p = 0 (no draw)."""
+  dtype; x itself at p = 0 (no draw).
+
+  ``part=(dim, start, full)``: x is the slice [start, start +
+  x.shape[dim]) along ``dim`` of a tensor with ``full`` entries there (a
+  tensor-parallel rank's attention heads).  The mask is drawn at the
+  whole tensor's shape, as for the whole tensor, and sliced: every rank
+  consumes the generator alike and keeps what one device would."""
   if p == 0.0:
     return x
-  keep = _keep(x.shape, p, generator, x.device)
+  if part is None:
+    keep = _keep(x.shape, p, generator, x.device)
+  else:
+    dim, start, full = part
+    shape = list(x.shape)
+    shape[dim] = full
+    keep = _keep(shape, p, generator, x.device).narrow(dim, start,
+                                                        x.shape[dim])
   return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -1,11 +1,13 @@
 """Fused transformer FFN sub-block: LN(x + GELU_erf(x W1^T + b1) W2^T + b2).
 
 Port of mmt_tpu/ops/ffn.py (``ffn_block``, ``ffn_block_train``,
-``layer_norm``).  On the card each block is a hand-written CUDA kernel
-that keeps the [R, I] intermediate out of device memory: the eval block
-(B1) and the train forward (B2, with the pre-scaled dropout mask on
-ffn_out before the residual) in csrc/ffn_block.cu, the train backward
-(B3) in csrc/ffn_train_bwd.cu.  The ``*_plain`` functions are the same
+``layer_norm`` and their tensor-parallel partition bodies).  On the card
+each block is a hand-written CUDA kernel that keeps the [R, I]
+intermediate out of device memory: the eval block (B1) and the train
+forward (B2, with the pre-scaled dropout mask on ffn_out before the
+residual) and their tensor-parallel partials (B6, B7) in
+csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.
+The ``*_plain`` functions are the same
 arithmetic in plain PyTorch.  All mirror the TPU kernels' numerics (not
 the XLA references', which keep bias and GELU in the compute type):
 operands rounded to the compute dtype, fp32 accumulation, fp32 bias and
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from mmt_tpu_torch import _build, ops
+from mmt_tpu_torch.parallel import mesh as tp_lib
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -255,18 +258,34 @@ class FFNBlockTrain(torch.autograd.Function):
   the compute dtype inside, so their gradients come back in fp32.  The
   choice between kernels and plain versions is made once, in the forward,
   and the backward follows it.  The mask gets no gradient.
+
+  With a ``tp`` (``parallel.TensorParallel``) the weights are this rank's
+  shards (w1 [I/mp, H], b1 [I/mp], w2 [H, I/mp]): the forward is B7, the
+  fp32 all-reduce of its partial, + b2, * drop, + x and the LayerNorm;
+  the backward B3 with add_dz=False, then dx = all-reduce(partial dx) +
+  dz (dz rounded to the compute dtype, as the JAX package adds it).  dW1,
+  db1 and dW2 are then this rank's shards; db2, dgamma, dbeta and dx are
+  the same on every rank.
   """
 
   @staticmethod
-  def forward(ctx, x, drop, w1, b1, w2, b2, gamma, beta, eps, compute_dtype):
+  def forward(ctx, x, drop, w1, b1, w2, b2, gamma, beta, eps, compute_dtype,
+              tp):
     cd = compute_dtype
     w1c, w2c = w1.to(cd).contiguous(), w2.to(cd).contiguous()
     use_kernel = ops.use_kernel(x)
-    fwd = ffn_train_fwd_cuda if use_kernel else ffn_train_fwd_plain
-    out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,
-                        compute_dtype=cd)
+    if tp is None:
+      fwd = ffn_train_fwd_cuda if use_kernel else ffn_train_fwd_plain
+      out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,
+                          compute_dtype=cd)
+    else:
+      fwd = (ffn_train_fwd_partial_cuda if use_kernel
+             else ffn_train_fwd_partial_plain)
+      yp, inter = fwd(x, w1c, b1, w2c, compute_dtype=cd)
+      z = (tp.all_reduce(yp) + b2.float()) * drop.float() + x.float()
+      out, z = layer_norm(z, gamma, beta, eps=eps), z.to(cd)
     ctx.save_for_backward(x, drop, w1c, w2c, gamma, inter, z)
-    ctx.eps, ctx.cd, ctx.use_kernel = eps, cd, use_kernel
+    ctx.eps, ctx.cd, ctx.use_kernel, ctx.tp = eps, cd, use_kernel, tp
     return out
 
   @staticmethod
@@ -275,23 +294,108 @@ class FFNBlockTrain(torch.autograd.Function):
     dy = dy.float().contiguous()
     bwd = ffn_train_bwd_cuda if ctx.use_kernel else ffn_train_bwd_plain
     dx, dz, dinter = bwd(dy, z, inter, drop, w1c, w2c, gamma, eps=ctx.eps,
-                         compute_dtype=ctx.cd)
+                         compute_dtype=ctx.cd, add_dz=ctx.tp is None)
+    if ctx.tp is not None:
+      dx = ctx.tp.all_reduce(dx) + dz.float()
     grads = ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter,
                                    eps=ctx.eps, compute_dtype=ctx.cd)
-    return (dx, None, *grads, None, None)
+    return (dx, None, *grads, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism.  On a rank of a tensor-parallel group the FFN weights
+# are its shards (models/bert.py): w1 [I/mp, H] and b1 [I/mp] column-
+# parallel, w2 [H, I/mp] row-parallel.  The second product is then a partial
+# sum over the inner dim, so the partial kernels (B6 eval, B7 train
+# forward) stop before b2 and write the unreduced fp32 partial; the blocks
+# all-reduce it in fp32 and finish b2, the mask, the residual and the
+# LayerNorm in PyTorch (mmt_tpu/ops/ffn.py:_tp_lower, _tp_fwd, _tp_bwd).
+# The train backward is B3 with add_dz=False.
+# ---------------------------------------------------------------------------
+
+
+def ffn_train_fwd_partial_plain(x, w1, b1, w2, *, compute_dtype):
+  """Plain version of B7: x [R, H] -> (the unreduced fp32 partial
+  GELU(x w1^T + b1) w2^T [R, H], inter = x w1^T + b1 cd [R, I])."""
+  cd = compute_dtype
+  u = x.to(cd).float() @ w1.to(cd).float().T + b1.float()
+  return gelu_erf(u).to(cd).float() @ w2.to(cd).float().T, u.to(cd)
+
+
+def ffn_partial_plain(x, w1, b1, w2, *, compute_dtype):
+  """Plain version of B6: x [R, H] -> the unreduced fp32 partial [R, H]."""
+  return ffn_train_fwd_partial_plain(x, w1, b1, w2,
+                                     compute_dtype=compute_dtype)[0]
+
+
+def ffn_partial_cuda(x, w1, b1, w2, *, compute_dtype):
+  """Launch B6 (csrc/ffn_block.cu, partial); same contract as
+  ``ffn_partial_plain``, with w1/w2 in the compute dtype."""
+  r, h, i = _weight_shapes(x, w1)
+  dev = _check_operands(
+      "ffn_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
+      cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
+  out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  _launch(_build.load_library(), "mmt_ffn_partial", dev, x.data_ptr(),
+          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(), r, h,
+          i, _DTYPE_CODES[compute_dtype])
+  ffn_partial_cuda.launches += 1
+  return out
+
+
+ffn_partial_cuda.launches = 0
+
+
+def ffn_train_fwd_partial_cuda(x, w1, b1, w2, *, compute_dtype):
+  """Launch B7 (csrc/ffn_block.cu, train partial); same contract as
+  ``ffn_train_fwd_partial_plain``, with w1/w2 in the compute dtype."""
+  r, h, i = _weight_shapes(x, w1)
+  dev = _check_operands(
+      "ffn_train_fwd_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
+      cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
+  out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  inter = torch.empty((r, i), dtype=compute_dtype, device=dev)
+  _launch(_build.load_library(), "mmt_ffn_train_fwd_partial", dev,
+          x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+          out.data_ptr(), inter.data_ptr(), r, h, i,
+          _DTYPE_CODES[compute_dtype])
+  ffn_train_fwd_partial_cuda.launches += 1
+  return out, inter
+
+
+ffn_train_fwd_partial_cuda.launches = 0
+
+
+def ffn_block_tp(x, w1, b1, w2, b2, gamma, beta, *, eps, tp,
+                 compute_dtype=torch.bfloat16):
+  """Tensor-parallel FFN sub-block over [..., H] on this rank's shards
+  (``tp`` a ``parallel.TensorParallel``); returns fp32 [..., H], the same
+  on every rank.  B6 (same dispatch rule as ``ffn_block``), the fp32
+  all-reduce of its partial, then + b2 + x and the LayerNorm."""
+  lead, h = x.shape[:-1], x.shape[-1]
+  x2 = x.reshape(-1, h)
+  fn = ffn_partial_cuda if ops.use_kernel(x) else ffn_partial_plain
+  y = tp_lib.reduce_from_tp(fn(x2, w1, b1, w2, compute_dtype=compute_dtype),
+                            tp)
+  out = layer_norm(y + b2.float() + x2.float(), gamma, beta, eps=eps)
+  return out.reshape(*lead, h)
 
 
 def ffn_block_train(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, tp=None):
   """Train-time FFN sub-block over [..., H] with the pre-scaled dropout
   mask ``drop`` (same shape as x, fp32); returns fp32 [..., H].
 
   Same dispatch rule as ``ffn_block``: a CUDA tensor launches B2 and, in
   the backward, B3 (each raises on what it does not take); a CPU tensor
-  takes the plain versions.  w1/w2 are the fp32 master weights.
+  takes the plain versions.  w1/w2 are the fp32 master weights.  With a
+  ``tp`` (``parallel.TensorParallel``) they are this rank's shards and
+  the forward launches B7 instead of B2.
   """
   lead, h = x.shape[:-1], x.shape[-1]
-  out = FFNBlockTrain.apply(x.reshape(-1, h).contiguous(),
-                            drop.reshape(-1, h).float().contiguous(), w1, b1,
-                            w2, b2, gamma, beta, eps, compute_dtype)
+  out = FFNBlockTrain.apply(
+      x.reshape(-1, h).contiguous(), drop.reshape(-1, h).float().contiguous(),
+      w1, b1, w2, b2, gamma, beta, eps, compute_dtype, tp)
   return out.reshape(*lead, h)

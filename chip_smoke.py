@@ -13,7 +13,11 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    row count; similarity: 1000 x 1000 with M = 7, D = 512, plus a ragged
    37 x 53 case with all-zero weight rows), with the max abs error and
    both times.  Tolerances: FFN fp32 atol 1e-4; FFN bf16 atol 3e-2 and
-   mean abs error <= 2e-3; similarity atol 1e-5.
+   mean abs error <= 2e-3; similarity atol 1e-5.  The similarity also
+   through every tile shape it is built for, whose outputs must be
+   bitwise equal (and an unknown tile id refused); with K = 3,586 (no
+   multiple of 4 or of the slice depth) at 1e-5; and timed at the train
+   step's 32 x 32.
 3. Rank-kernel phase: the fused similarity-and-rank kernel (B5) against
    its plain version, each case in the t2v and the v2t orientation: (a)
    50,000 x 50,000 unit-norm random embeddings (M = 7, D = 512) with
@@ -21,8 +25,12 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    caption slots, one video with every slot masked and 24 padding
    videos; (c) exact arithmetic with duplicated rows.  Tolerance: every
    rank within 1, on fewer than 1e-3 of the queries, the same inf
-   positions; (c) equal counts with a tie counted.  Kernel, plain and
-   fp32 torch.mm (numerator only) times and the bound of each.
+   positions; (c) equal counts with a tie counted.  In (b) and (c)
+   the counts must also equal, as integers and in every tile shape, the
+   counts taken from the similarity kernel's own matrix (B5 compares
+   bitwise B4's values); and one call with K = 3,586 against both.
+   Kernel, plain and fp32 torch.mm (numerator only) times and the bound
+   of each.
 4. Train-kernel phase: the FFN train forward (B2) and backward (B3,
    add_dz on and off) against their plain versions at the b32 train
    shapes (video 6,976 x 512, text 960 x 768, ragged 1,013 x 768, I =
@@ -171,34 +179,41 @@ def ffn_phase(torch, ffn, dev, gen):
         raise RuntimeError(f"ffn_block bf16 error {max_err}/{mean_err} "
                            "exceeds 3e-2 (max) / 2e-3 (mean)")
       res["max_abs_err"] = max(res["max_abs_err"], max_err)
+      b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + (got,))
+      print(f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
       if (r, h) == (10900, 512):
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + (got,))
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
   return res
 
 
-def sim_phase(torch, similarity, dev, gen):
+def sim_inputs(torch, q, v, m, d, dev, gen, zero_rows=False):
+  """t [q, m * d], v [v, m * d] weight-scaled unit-norm rows and their
+  weights tw [q, m], vw [v, m]."""
+  te = torch.randn(q, m, d, generator=gen, device=dev)
+  ve = torch.randn(v, m, d, generator=gen, device=dev)
+  te, ve = te / te.norm(dim=-1, keepdim=True), ve / ve.norm(dim=-1,
+                                                          keepdim=True)
+  tw = torch.rand(q, m, generator=gen, device=dev)
+  vw = torch.rand(v, m, generator=gen, device=dev)
+  tw, vw = tw / tw.sum(-1, keepdim=True), vw / vw.sum(-1, keepdim=True)
+  if zero_rows:
+    tw[3] = 0.0
+    vw[5] = 0.0
+    vw[7] = 0.0
+  return ((te * tw[:, :, None]).reshape(q, m * d),
+          (ve * vw[:, :, None]).reshape(v, m * d), tw, vw)
+
+
+def sim_phase(torch, similarity, dev, gen, card):
   """Similarity kernel vs plain version; returns the kernel's line
   entries: the worst error, and the 1000 x 1000 times, bound and
   library time (the fp32 ``torch.mm`` of the numerator alone, which
   computes less than the kernel)."""
   res = {"max_abs_err": 0.0}
+  tiles = range(len(similarity.TILES))
   for q, v, m, d, zero_rows in ((1000, 1000, 7, 512, False),
                                 (37, 53, 7, 512, True)):
-    te = torch.randn(q, m, d, generator=gen, device=dev)
-    ve = torch.randn(v, m, d, generator=gen, device=dev)
-    te, ve = te / te.norm(dim=-1, keepdim=True), ve / ve.norm(dim=-1,
-                                                            keepdim=True)
-    tw = torch.rand(q, m, generator=gen, device=dev)
-    vw = torch.rand(v, m, generator=gen, device=dev)
-    tw, vw = tw / tw.sum(-1, keepdim=True), vw / vw.sum(-1, keepdim=True)
-    if zero_rows:
-      tw[3] = 0.0
-      vw[5] = 0.0
-      vw[7] = 0.0
-    t = (te * tw[:, :, None]).reshape(q, m * d)
-    vv = (ve * vw[:, :, None]).reshape(v, m * d)
+    t, vv, tw, vw = sim_inputs(torch, q, v, m, d, dev, gen, zero_rows)
     got = similarity.sim_cuda(t, vv, tw, vw)
     want = similarity.sim_plain(t, vv, tw, vw)
     torch.cuda.synchronize()
@@ -211,6 +226,16 @@ def sim_phase(torch, similarity, dev, gen):
     if not bool(torch.isfinite(got).all()) or max_err > 1e-5:
       raise RuntimeError(f"moe_similarity error {max_err} > 1e-5")
     res["max_abs_err"] = max(res["max_abs_err"], max_err)
+    # Every tile shape computes the same fmaf chains: the same bits.
+    same = [torch.equal(got, similarity.sim_cuda(t, vv, tw, vw, tile=i))
+            for i in tiles]
+    by_tile = {f"{r}x{c}": round(time_ms(
+        torch, lambda i=i: similarity.sim_cuda(t, vv, tw, vw, tile=i)), 4)
+               for i, (r, c) in enumerate(similarity.TILES)}
+    print(f"  tile shapes {similarity.TILES}: outputs bitwise equal {same}; "
+          f"kernel_ms by tile {by_tile}", flush=True)
+    if not all(same):
+      raise RuntimeError("moe_similarity: a tile shape changed the values")
     if q == 1000:
       lib_ms = time_ms(torch, lambda: torch.mm(t, vv.T))
       b_ms, b_by = bound(2 * q * v * m * (d + 1), H100_FP32,
@@ -218,7 +243,39 @@ def sim_phase(torch, similarity, dev, gen):
       res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                  bound_ms=b_ms, bound_by=b_by)
       print(f"  library (torch.mm numerator) {lib_ms:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by})", flush=True)
+            f"{b_ms:.4f} ms ({b_by}) card: {card}", flush=True)
+  try:
+    similarity.sim_cuda(t, vv, tw, vw, tile=len(similarity.TILES))
+  except RuntimeError as e:
+    print(f"  unknown tile id refused: {e}", flush=True)
+  else:
+    raise RuntimeError("moe_similarity accepted an unknown tile id")
+
+  # K = 3,586: no multiple of 4 or of the slice depth (the zero-filled tail).
+  # These cases draw from a generator of their own: the phases after this
+  # one keep the inputs they had before the cases were added.
+  gen = torch.Generator(device=dev).manual_seed(2)
+  t, vv, tw, vw = sim_inputs(torch, 130, 260, 2, 1793, dev, gen)
+  want = similarity.sim_plain(t, vv, tw, vw)
+  for i in tiles:
+    err = float((similarity.sim_cuda(t, vv, tw, vw, tile=i) - want)
+                .abs().max())
+    print(f"moe_similarity Q=130 V=260 K={t.shape[1]} tile "
+          f"{similarity.TILES[i]}: max_abs_err={err:.3e}", flush=True)
+    if not err <= 1e-5:
+      raise RuntimeError(f"moe_similarity K % 4 != 0 error {err} > 1e-5")
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+
+  # The train step's shape: one block.
+  t, vv, tw, vw = sim_inputs(torch, 32, 32, 7, 512, dev, gen)
+  ms = time_ms(torch, lambda: similarity.sim_cuda(t, vv, tw, vw))
+  plain_ms = time_ms(torch, lambda: similarity.sim_plain(t, vv, tw, vw))
+  lib_ms = time_ms(torch, lambda: torch.mm(t, vv.T))
+  b_ms, b_by = bound(2 * 32 * 32 * 7 * 513, H100_FP32,
+                     (t, vv, tw, vw, similarity.sim_cuda(t, vv, tw, vw)))
+  print(f"moe_similarity Q=32 V=32 M=7 D=512: kernel_ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+        f"card: {card}", flush=True)
   return res
 
 
@@ -590,7 +647,36 @@ def counts_bound(torch, args):
   return bound(2 * q * c * (k + m), H100_FP32, tuple(args) + (out,))
 
 
-def rank_kernel_phase(torch, ranking, dev, gen, card):
+def matrix_counts(torch, similarity, args, tile=None):
+  """The (closer, tied) counts of one fused-counts call, taken from the
+  similarity kernel's own [Q, C] matrix."""
+  queries, cands, qw, cw, gt, gtcol, colbias = args
+  sims = similarity.sim_cuda(queries, cands, qw, cw, tile=tile) + colbias[None]
+  col = torch.arange(cands.shape[0], device=cands.device)
+  valid = col[None, :] != gtcol[:, None]
+  return ((valid & (sims > gt[:, None])).sum(1).float(),
+          (valid & (sims == gt[:, None])).sum(1).float())
+
+
+def check_counts_equal_matrix(torch, ranking, similarity, what, args, got):
+  """B5 compares bitwise B4's values: its counts, in every tile shape,
+  equal those of B4's matrix as integers."""
+  want = matrix_counts(torch, similarity, args)
+  same = [all(torch.equal(g, w) for g, w in zip(got, want))]
+  for i in range(len(similarity.TILES)):
+    out = ranking.fused_counts_cuda(*args, tile=i)
+    same.append(all(torch.equal(g, w) for g, w in zip(out, want)))
+    same.append(all(torch.equal(g, w) for g, w in zip(
+        matrix_counts(torch, similarity, args, tile=i), want)))
+  print(f"  {what}: counts equal those of the similarity kernel's matrix "
+        f"(as called, then each tile shape of B5 and of B4): {same}",
+        flush=True)
+  if not all(same):
+    raise RuntimeError(f"{what}: fused counts differ from the counts of "
+                       "the similarity kernel's matrix")
+
+
+def rank_kernel_phase(torch, ranking, similarity, dev, gen, card):
   """B5 against its plain version on the card, each case in both
   orientations; returns the worst rank disagreement."""
   worst_all = 0.0
@@ -627,6 +713,10 @@ def rank_kernel_phase(torch, ranking, dev, gen, card):
         if not equal or not max_tied > 0:
           raise RuntimeError("exact case: kernel and plain counts differ or "
                              "no tie was counted")
+      if case in ("b", "c"):
+        for n_call, (a, out) in enumerate(logs["kernel"]):
+          check_counts_equal_matrix(torch, ranking, similarity,
+                                    f"{what} call {n_call}", a, out)
       if case == "b" and orient == "v2t":
         if not (torch.isinf(ranks["kernel"][0])
                 and torch.isinf(ranks["plain"][0])):
@@ -644,6 +734,33 @@ def rank_kernel_phase(torch, ranking, dev, gen, card):
             f"bound_ms={b_ms:.4f} ({b_by}) card: {card}", flush=True)
     del te, ve, tw, vw
     torch.cuda.empty_cache()
+
+  # K = 3,586 (no multiple of 4 or of the slice depth), ragged Q and C and
+  # dead candidates: against the plain version with each query's GT value
+  # computed directly, as the ranks do; then with GT values read from the
+  # similarity kernel's matrix, so that ties exist, against its counts.
+  gen = torch.Generator(device=dev).manual_seed(3)   # see sim_phase
+  q, c = 300, 500
+  t, cc, tw, cw = sim_inputs(torch, q, c, 2, 1793, dev, gen)
+  gtcol = torch.randint(0, c, (q,), generator=gen, device=dev)
+  colbias = torch.zeros(c, device=dev)
+  colbias[::7] = -ranking.MISSING_VAL
+  what = f"fused_ranks {q} x {c} K={t.shape[1]}"
+  args = (t, cc, tw, cw, ranking._gt_sims(t, cc, tw, cw, gtcol), gtcol,
+          colbias)
+  got, want = (fn(*args) for fn in (ranking.fused_counts_cuda,
+                                    ranking.fused_counts_plain))
+  worst_all = max(worst_all, check_rank_rule(
+      torch, f"{what} kernel vs plain", got[0] + got[1] / 2,
+      want[0] + want[1] / 2))
+  other = torch.randint(0, c, (q, 1), generator=gen, device=dev)
+  args = (t, cc, tw, cw,
+          similarity.sim_cuda(t, cc, tw, cw).gather(1, other)[:, 0], gtcol,
+          colbias)
+  got = ranking.fused_counts_cuda(*args)
+  check_counts_equal_matrix(torch, ranking, similarity, what, args, got)
+  if not float(got[1].sum()) > 0:
+    raise RuntimeError(f"{what}: no tie was counted")
   return worst_all
 
 
@@ -1163,16 +1280,18 @@ def main():
   print(f"build: {lib_path.name} in {time.perf_counter() - tic:.1f} s",
         flush=True)
   for line in (lib_path.parent / "build.log").read_text().splitlines():
-    if "registers" in line or "spill" in line:
-      print(f"  ptxas: {line.strip()}")
+    if "Compiling entry function" in line:
+      print(f"  ptxas: {line.split(chr(39))[1]}")
+    elif "registers" in line or "spill" in line:
+      print(f"  ptxas:   {line.strip()}")
   clock.done("build")
 
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev).manual_seed(0)
   entries = {"ffn_block": ffn_phase(torch, ffn, dev, gen),
-             "moe_similarity": sim_phase(torch, similarity, dev, gen)}
+             "moe_similarity": sim_phase(torch, similarity, dev, gen, card)}
   clock.done("kernel")
-  rank_err = rank_kernel_phase(torch, ranking, dev, gen, card)
+  rank_err = rank_kernel_phase(torch, ranking, similarity, dev, gen, card)
   clock.done("rank-kernel")
   entries.update(train_kernel_phase(torch, ffn, dropout, dev, gen, card))
   clock.done("train-kernel")

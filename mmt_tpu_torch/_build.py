@@ -45,10 +45,11 @@ _SIGNATURES = {
     # compute_dtype, add_dz, stream
     "mmt_ffn_train_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I,
                                       _P],
-    # t, v, tw, vw, out, Q, V, K, M, stream
-    "mmt_moe_similarity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # t, c, tw, cw, gt, gtcol, colbias, closer, tied, Q, C, K, M, stream
-    "mmt_fused_ranks": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # t, v, tw, vw, out, tt, vt, Q, V, K, M, ldt, ldv, tile, stream
+    "mmt_moe_similarity": [_P] * 7 + [_I] * 7 + [_P],
+    # t, c, tw, cw, gt, gtcol, colbias, closer, tied, tt, ct, Q, C, K, M,
+    # ldt, ldc, tile, stream
+    "mmt_fused_ranks": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 _lib = None

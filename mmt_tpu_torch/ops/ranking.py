@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mmt_tpu_torch import _build, ops
+from mmt_tpu_torch.ops.similarity import k_major_scratch, pick_tile
 
 MISSING_VAL = 1e8
 EPS_ZERO_GUARD = 1e-5
@@ -97,9 +98,11 @@ def _require(cond, msg):
     raise ValueError(f"fused_ranks kernel: {msg}")
 
 
-def fused_counts_cuda(queries, cands, qw, cw, gt, gtcol, colbias):
+def fused_counts_cuda(queries, cands, qw, cw, gt, gtcol, colbias, tile=None):
   """Launch csrc/fused_ranks.cu; same contract as ``fused_counts_plain``
-  (gtcol of any integer type, passed to the kernel as int32)."""
+  (gtcol of any integer type, passed to the kernel as int32).  While it
+  runs, a second copy of queries and cands (k-major) is held.  ``tile`` (an
+  id of ``similarity.TILES``) overrides ``pick_tile``: for checks."""
   _require(not gtcol.is_floating_point() and not gtcol.is_complex(),
            "gtcol must be an integer tensor")
   gtcol = gtcol.to(torch.int32)
@@ -120,11 +123,17 @@ def fused_counts_cuda(queries, cands, qw, cw, gt, gtcol, colbias):
   _require(all(a.is_contiguous() for a in args), "operands must be contiguous")
   closer = torch.zeros(nq, dtype=torch.int32, device=queries.device)
   tied = torch.zeros(nq, dtype=torch.int32, device=queries.device)
+  if tile is None:
+    props = torch.cuda.get_device_properties(queries.device)
+    tile = pick_tile(nq, nc, props.multi_processor_count)
   lib = _build.load_library()
   with torch.cuda.device(queries.device):
+    qt, ct = k_major_scratch(queries), k_major_scratch(cands)
     code = lib.mmt_fused_ranks(
         *(a.data_ptr() for a in args), closer.data_ptr(), tied.data_ptr(),
-        nq, nc, k, m, torch.cuda.current_stream(queries.device).cuda_stream)
+        qt.data_ptr(), ct.data_ptr(), nq, nc, k, m, qt.shape[1], ct.shape[1],
+        tile,
+        torch.cuda.current_stream(queries.device).cuda_stream)
   _build.check(lib, "mmt_fused_ranks", code)
   fused_counts_cuda.launches += 1
   return closer.float(), tied.float()

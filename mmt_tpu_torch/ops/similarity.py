@@ -10,11 +10,13 @@ and video v:
 The weight pre-scaling and the flattening to [., M * D] happen here, in
 torch, as in the JAX wrapper; the product, the denominator, the guard and
 the divide are one CUDA kernel on the card (csrc/moe_similarity.cu), in
-fp32 throughout.  ``sim_plain`` is its plain PyTorch version.  Under
-autograd ``MoESimilarity`` wraps the kernel contract (t, v, tw, vw): the
-kernel (or plain version) forward, and the closed-form backward of
-mmt_tpu/ops/similarity.py:_fused_bwd in plain torch (it was einsums, not
-Pallas, on the TPU).  The pre-scaling stays outside, under autograd.
+fp32 throughout, in a block-tile shape that ``pick_tile`` chooses per call
+(every shape gives the same bits).  ``sim_plain`` is its plain PyTorch
+version.  Under autograd ``MoESimilarity`` wraps the kernel contract (t,
+v, tw, vw): the kernel (or plain version) forward, and the closed-form
+backward of mmt_tpu/ops/similarity.py:_fused_bwd in plain torch (it was
+einsums, not Pallas, on the TPU).  The pre-scaling stays outside, under
+autograd.
 """
 
 from __future__ import annotations
@@ -36,13 +38,47 @@ def sim_plain(t, v, tw, vw):
   return numer / denom
 
 
+# Block tiles (rows, columns) the similarity and rank kernels are built
+# for; a tile's id is its index here and in the C entry points.  Both run
+# 128 threads: 8 x 8 of the 128 x 64 tile per thread, 8 x 4 of the 64 x 64.
+TILES = ((128, 64), (64, 64))
+# Blocks of the 128 x 64 tile per SM from which it is the faster one.
+FULL_CARD = 20
+
+
+def pick_tile(q: int, v: int, sms: int) -> int:
+  """Id of the tile for a [q, v] matrix on a card with ``sms`` SMs.
+
+  The 128 x 64 tile does the fewest shared loads per FMA and wins once
+  the card is full of blocks either way: by 1-8% for the similarity from
+  5,000 x 5,000 to 14,000 x 14,000 (24 and 183 of its blocks per SM), by
+  22% for the ranks at 20,000 x 20,000.  Below that a warp's own latency
+  counts (each thread walks all of K, whatever the grid), and the 64 x 64
+  tile's four times as many warps of half the work each hide more of it:
+  3-30% faster up to 4,000 x 4,000 (15 blocks per SM), 44% at 32 x 32.
+  Measured on an H100; the threshold lies between.
+  """
+  rows, cols = TILES[0]
+  blocks = -(-q // rows) * -(-v // cols)
+  return 0 if blocks >= FULL_CARD * sms else 1
+
+
+def k_major_scratch(x):
+  """Uninitialised [K, N rounded up to a multiple of 4] for the k-major
+  copy of the [N, K] operand x, which the kernels' entry points fill and
+  read: a tile's k rows are then contiguous, 16-byte-aligned runs."""
+  n, k = x.shape
+  return x.new_empty((k, -(-n // 4) * 4))
+
+
 def _require(cond, msg):
   if not cond:
     raise ValueError(f"moe_similarity kernel: {msg}")
 
 
-def sim_cuda(t, v, tw, vw):
-  """Launch csrc/moe_similarity.cu; same contract as ``sim_plain``."""
+def sim_cuda(t, v, tw, vw, tile=None):
+  """Launch csrc/moe_similarity.cu; same contract as ``sim_plain``.
+  ``tile`` (an id of ``TILES``) overrides ``pick_tile``: for checks."""
   args = (t, v, tw, vw)
   _require(all(a.is_cuda and a.device == t.device for a in args),
            "every operand must lie on the same CUDA device")
@@ -57,11 +93,16 @@ def sim_cuda(t, v, tw, vw):
   _require(0 < m <= 32, f"needs 0 < M <= 32, got {m}")
   _require(all(a.is_contiguous() for a in args), "operands must be contiguous")
   out = torch.empty((q, nv), dtype=torch.float32, device=t.device)
+  if tile is None:
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    tile = pick_tile(q, nv, sms)
   lib = _build.load_library()
   with torch.cuda.device(t.device):
+    tt, vt = k_major_scratch(t), k_major_scratch(v)
     code = lib.mmt_moe_similarity(
         t.data_ptr(), v.data_ptr(), tw.data_ptr(), vw.data_ptr(),
-        out.data_ptr(), q, nv, k, m,
+        out.data_ptr(), tt.data_ptr(), vt.data_ptr(), q, nv, k, m,
+        tt.shape[1], vt.shape[1], tile,
         torch.cuda.current_stream(t.device).cuda_stream)
   _build.check(lib, "mmt_moe_similarity", code)
   sim_cuda.launches += 1

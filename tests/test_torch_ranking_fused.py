@@ -299,9 +299,61 @@ def test_fused_counts_cuda_takes_only_cuda_tensors():
   assert ranking.fused_counts_cuda.launches == before
   qs, qw = ranking._scaled_flat(text, tw)
   vs, vw_ = ranking._scaled_flat(vid, vw)
-  with pytest.raises(ValueError, match="CUDA"):
-    ranking.fused_counts_cuda(qs, vs, qw, vw_, torch.zeros(6),
-                              torch.arange(6), torch.zeros(6))
+  for tile in (None, 0, 1, 99):   # no tile makes it take the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+      ranking.fused_counts_cuda(qs, vs, qw, vw_, torch.zeros(6),
+                                torch.arange(6), torch.zeros(6), tile=tile)
+  assert ranking.fused_counts_cuda.launches == before
+
+
+@pytest.mark.parametrize("orientation", ["t2v", "v2t"])
+def test_fused_counts_equal_counts_of_the_sims_matrix(orientation):
+  """The counts the fused path returns are the counts of the similarity
+  matrix itself (sim_plain + colbias, > and == against the same gt, the
+  GT column left out), on exact-arithmetic inputs with ties, masked
+  caption slots and padding videos; and they are the JAX _rank_kernel's
+  (interpret mode).  On the card the same check holds bitwise between the
+  two CUDA kernels, which share one tile code."""
+  rng = np.random.RandomState(2)
+  caps, nv, m, d, pad = 2, 14, 3, 16, 2
+  q = nv * caps
+  text = (rng.randint(-2, 3, (q, m, d)) / 2).astype(np.float32)
+  vid = (rng.randint(-2, 3, (nv, m, d)) / 2).astype(np.float32)
+  vid[7] = vid[2]                   # ties for the captions of video 2
+  text[11] = text[4]                # a duplicate caption: a tie in v2t
+  tw, vw = np.ones((q, m), np.float32), np.ones((nv, m), np.float32)
+  masks = np.ones((nv, caps), np.float32)
+  masks[3, 1] = 0.0
+  vid[-pad:], vw[-pad:], masks[-pad:] = 0.0, 0.0, 0.0   # padding videos
+  text[-pad * caps:], tw[-pad * caps:] = 0.0, 0.0
+  t, v, twt, vwt = _torch(text, vid, tw, vw)
+  ts, tws = ranking._scaled_flat(t, twt)
+  vs, vws = ranking._scaled_flat(v, vwt)
+  if orientation == "t2v":
+    args = [ts, vs, tws, vws]
+    gtcol = torch.arange(q) // caps
+    colbias = torch.zeros(nv)
+    colbias[-pad:] = -ranking.MISSING_VAL
+  else:
+    args = [vs, ts, vws, tws]
+    gtcol = torch.arange(nv) * caps + 1
+    colbias = torch.where(torch.from_numpy(masks).reshape(-1).bool(), 0.0,
+                          -ranking.MISSING_VAL)
+  gt = ranking._gt_sims(*args, gtcol)
+  args += [gt, gtcol, colbias]
+
+  closer, tied = ranking.fused_counts_plain(*args)
+  sims = similarity.sim_plain(*args[:4]) + colbias[None, :]
+  valid = torch.arange(sims.shape[1])[None, :] != gtcol[:, None]
+  torch.testing.assert_close(
+      closer, (valid & (sims > gt[:, None])).sum(1).float(), rtol=0, atol=0)
+  torch.testing.assert_close(
+      tied, (valid & (sims == gt[:, None])).sum(1).float(), rtol=0, atol=0)
+  assert tied.sum() > 0
+  want = jax_ranking._fused_counts(
+      *(jnp.asarray(a.numpy()) for a in args), interpret=True)
+  np.testing.assert_array_equal(closer.numpy(), np.asarray(want[0]))
+  np.testing.assert_array_equal(tied.numpy(), np.asarray(want[1]))
 
 
 def test_bench_streaming_eval_runs_tiny_on_cpu(monkeypatch, capsys):

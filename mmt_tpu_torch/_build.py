@@ -22,7 +22,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu",
            "fused_ranks.cu")
-HEADERS = ("ffn_common.cuh", "sim_tile.cuh")
+HEADERS = ("ffn_common.cuh", "ffn_gemm.cuh", "sim_tile.cuh")
 BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,15 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w1, b1, w2, b2, gamma, beta, out, R, H, I, eps, compute_dtype,
-    # stream
-    "mmt_ffn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      ctypes.c_float, _I, _P],
+    # x, w1, b1, w2, b2, gamma, beta, out, xb, g, R, H, I, eps,
+    # compute_dtype, tile, stream
+    "mmt_ffn_block": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I, _P],
     # x, drop, w1, b1, w2, b2, gamma, beta, out, inter, z, R, H, I, eps,
     # compute_dtype, stream
     "mmt_ffn_train_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _I, _P],
-    # x, w1, b1, w2, out, R, H, I, compute_dtype, stream
-    "mmt_ffn_partial": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # x, w1, b1, w2, out, xb, g, R, H, I, compute_dtype, tile, stream
+    "mmt_ffn_partial": [_P] * 7 + [_I] * 5 + [_P],
     # x, w1, b1, w2, out, inter, R, H, I, compute_dtype, stream
     "mmt_ffn_train_fwd_partial": [_P] * 6 + [_I, _I, _I, _I, _P],
     # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, R, H, I, eps,

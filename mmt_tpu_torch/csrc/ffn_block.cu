@@ -54,6 +54,31 @@
 // products are "NT" with K contiguous, and no call needs a transpose.
 // Ragged row counts are masked: rows past R are staged as zeros and never
 // stored.
+//
+// The bf16 eval block (B1) and its partial (B6) take another route where
+// H and I are multiples of 128 (every configuration under configs/eccv20/:
+// H = 512 / 768, I = 3072, I/mp = 1536 / 768): two TMA + wgmma GEMMs with
+// fused epilogues (ffn_gemm.cuh) and two row passes,
+//
+//   xb = bf16(x)                                     cast pass
+//   g  = bf16(GELU_erf(xb W1^T + b1))                GEMM 1, [R, I]
+//   B6: out = g W2^T                                 GEMM 2
+//   B1: out = g W2^T + b2 + x, then LayerNorm(out)   GEMM 2, row pass
+//
+// with the same rounding points as above (the intermediate goes through
+// memory already rounded to bf16, as the WMMA kernel rounds it in shared
+// memory).  What bounds it: the two products, 4 R H I FLOP (69 GFLOP at
+// the video shape: 0.069 ms of tensor-core time at 989 TFLOP/s), against
+// which the bf16 intermediate adds 2 x 67 MB of traffic at the video
+// shape (~0.04 ms at 3.35 TB/s, partly in L2) and the row passes ~60 MB.
+// The weights are read from L2 once per 128 (or 64) rows instead of once
+// per 16.  The LayerNorm is a row pass and not GEMM 2's epilogue: a block
+// owns 128 of the H = 512 / 768 columns, and a block of all H columns
+// would hold a [64, 768] fp32 accumulator, 384 registers a thread of one
+// warpgroup.  Other widths, and fp32, keep the WMMA / FMA kernels.  The
+// caller chooses the route (ops/ffn.py:gemm_route): a tile id >= 0 takes
+// this one, whose launcher refuses a shape or type it does not take; -1
+// the WMMA / FMA kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +87,7 @@
 #include <cstddef>
 
 #include "ffn_common.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
@@ -389,15 +415,176 @@ int dispatch(const float* x, const void* w1, const float* b1, const void* w2,
                        stream);
 }
 
+// ---- the bf16 eval route: cast, two GEMMs, row pass ----------------------
+
+// x fp32 -> bf16, round to nearest even; n4 groups of 4 values.
+__global__ void __launch_bounds__(256)
+ffn_cast_bf16_kernel(const float4* __restrict__ x,
+                     __nv_bfloat162* __restrict__ xb, size_t n4) {
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * blockDim.x) {
+    const float4 v = x[i];
+    xb[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+    xb[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+// GEMM 1's epilogue: g = bf16(GELU_erf(acc + b1)), [R, ld].
+struct GeluEpilogue {
+  const float* b1;
+  bf16* g;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + c);
+    *reinterpret_cast<__nv_bfloat162*>(g + size_t(r) * ld + c) =
+        __floats2bfloat162_rn(gelu_erf(v0 + b.x), gelu_erf(v1 + b.y));
+  }
+};
+
+// GEMM 2's epilogue for B6: the unreduced partial, fp32.
+struct PartialEpilogue {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    *reinterpret_cast<float2*>(out + size_t(r) * ld + c) = make_float2(v0, v1);
+  }
+};
+
+// GEMM 2's epilogue for B1: y = acc + b2 + x in fp32, stored to out for
+// the row pass.
+struct ResidualEpilogue {
+  const float* b2;
+  const float* x;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const size_t at = size_t(r) * ld + c;
+    const float2 b = *reinterpret_cast<const float2*>(b2 + c);
+    const float2 xv = *reinterpret_cast<const float2*>(x + at);
+    *reinterpret_cast<float2*>(out + at) =
+        make_float2(v0 + b.x + xv.x, v1 + b.y + xv.y);
+  }
+};
+
+// LayerNorm of the rows of y [R, H] in place (fast variance, as
+// layer_norm_epilogue), one warp per row, H % 128 == 0 and H <= MAX_H.
+__global__ void __launch_bounds__(256)
+ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, int R, int H, float eps) {
+  constexpr int kMaxV = MAX_H / 128;  // float4s a lane
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= R) return;
+  float4* yr = reinterpret_cast<float4*>(y + size_t(row) * H);
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(beta);
+  const int nv = H / 128;
+  float4 v[kMaxV];
+  float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxV; ++j) {
+    if (j < nv) {
+      v[j] = yr[j * 32 + lane];
+      s += v[j].x + v[j].y + v[j].z + v[j].w;
+      s2 += v[j].x * v[j].x + v[j].y * v[j].y + v[j].z * v[j].z +
+            v[j].w * v[j].w;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  const float mean = s / H;
+  const float var = fmaxf(s2 / H - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int j = 0; j < kMaxV; ++j) {
+    if (j < nv) {
+      const float4 g = g4[j * 32 + lane], b = b4[j * 32 + lane];
+      yr[j * 32 + lane] = make_float4((v[j].x - mean) * rstd * g.x + b.x,
+                                      (v[j].y - mean) * rstd * g.y + b.y,
+                                      (v[j].z - mean) * rstd * g.z + b.z,
+                                      (v[j].w - mean) * rstd * g.w + b.w);
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// B1 (kPartial false) or B6 on the GEMM route: xb [R, H] and g [R, I] are
+// bf16 scratch from the caller; ``tile`` an id of mmt_gemm::kTileRows.
+// Takes bf16 with H and I multiples of 128 and H <= MAX_H (the row pass),
+// else cudaErrorInvalidValue.
+template <bool kPartial>
+int eval_gemm_route(const float* x, const void* w1, const float* b1,
+                    const void* w2, const float* b2, const float* gamma,
+                    const float* beta, float* out, void* xb, void* g, int R,
+                    int H, int I, float eps, int compute_dtype, int tile,
+                    cudaStream_t stream) {
+  if (compute_dtype != 1 || H % mmt_gemm::BN || I % mmt_gemm::BN ||
+      H > MAX_H) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[] = {x, w1, b1, w2, out, xb, g};
+  for (const void* p : ptrs) {
+    if (p == nullptr || !aligned16(p)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (!kPartial && (!aligned16(b2) || !aligned16(gamma) || !aligned16(beta))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R <= 0 || tile < 0 || tile >= mmt_gemm::kNumTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t n4 = size_t(R) * H / 4;
+  const int cast_blocks = int(n4 / 256 + 1 < 1056 ? n4 / 256 + 1 : 1056);
+  ffn_cast_bf16_kernel<<<cast_blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), static_cast<__nv_bfloat162*>(xb),
+      n4);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  bf16* gb = static_cast<bf16*>(g);
+  err = mmt_gemm::tn_gemm(static_cast<const bf16*>(xb),
+                          static_cast<const bf16*>(w1), R, I, H, tile,
+                          GeluEpilogue{b1, gb, I}, stream);
+  if (err) return err;
+  if constexpr (kPartial) {
+    return mmt_gemm::tn_gemm(gb, static_cast<const bf16*>(w2), R, H, I, tile,
+                             PartialEpilogue{out, H}, stream);
+  } else {
+    err = mmt_gemm::tn_gemm(gb, static_cast<const bf16*>(w2), R, H, I, tile,
+                            ResidualEpilogue{b2, x, out, H}, stream);
+    if (err) return err;
+    ffn_ln_rows_kernel<<<(R + 7) / 8, 256, 0, stream>>>(out, gamma, beta, R,
+                                                        H, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 }  // namespace
 
 // compute_dtype (shared with mmt_tpu_torch/ops/ffn.py): 0 = float32,
-// 1 = bfloat16.  x, biases, gamma, beta and out are float32.
+// 1 = bfloat16.  x, biases, gamma, beta and out are float32.  ``tile`` >= 0
+// takes the GEMM route with that block tile (an unknown id, or a shape or
+// type the route does not take, is refused), xb [R, H] and g [R, I] bf16
+// scratch; -1 the WMMA or FMA kernel, xb and g unused.
 extern "C" int mmt_ffn_block(const float* x, const void* w1, const float* b1,
                              const void* w2, const float* b2,
                              const float* gamma, const float* beta, float* out,
-                             int R, int H, int I, float eps, int compute_dtype,
-                             void* stream_ptr) {
+                             void* xb, void* g, int R, int H, int I, float eps,
+                             int compute_dtype, int tile, void* stream_ptr) {
+  if (tile >= 0) {
+    return eval_gemm_route<false>(x, w1, b1, w2, b2, gamma, beta, out, xb, g,
+                                  R, H, I, eps, compute_dtype, tile,
+                                  static_cast<cudaStream_t>(stream_ptr));
+  }
+  if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
                          nullptr, nullptr, R, H, I, eps, compute_dtype,
                          stream_ptr);
@@ -419,11 +606,18 @@ extern "C" int mmt_ffn_train_fwd(const float* x, const float* drop,
 
 // Tensor-parallel partial (B6): x [R, H] float32, the shards w1 [I, H]
 // and w2 [H, I] in the compute type (I is the rank's I/mp), b1 [I]
-// float32; writes the unreduced float32 partial out [R, H].
+// float32; writes the unreduced float32 partial out [R, H].  xb, g and
+// tile as for mmt_ffn_block.
 extern "C" int mmt_ffn_partial(const float* x, const void* w1,
                                const float* b1, const void* w2, float* out,
-                               int R, int H, int I, int compute_dtype,
-                               void* stream_ptr) {
+                               void* xb, void* g, int R, int H, int I,
+                               int compute_dtype, int tile, void* stream_ptr) {
+  if (tile >= 0) {
+    return eval_gemm_route<true>(x, w1, b1, w2, nullptr, nullptr, nullptr,
+                                 out, xb, g, R, H, I, 0.0f, compute_dtype,
+                                 tile, static_cast<cudaStream_t>(stream_ptr));
+  }
+  if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr, nullptr,
                                   nullptr, out, nullptr, nullptr, R, H, I,
                                   0.0f, compute_dtype, stream_ptr);

@@ -2,12 +2,16 @@
 
 Port of mmt_tpu/ops/ffn.py (``ffn_block``, ``ffn_block_train``,
 ``layer_norm`` and their tensor-parallel partition bodies).  On the card
-each block is a hand-written CUDA kernel that keeps the [R, I]
-intermediate out of device memory: the eval block (B1) and the train
+each block is hand-written CUDA: the eval block (B1) and the train
 forward (B2, with the pre-scaled dropout mask on ffn_out before the
 residual) and their tensor-parallel partials (B6, B7) in
-csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.
-The ``*_plain`` functions are the same
+csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.  In
+bf16 at the flagship's widths B1 and B6 run as two TMA + wgmma GEMMs with
+fused epilogues (csrc/ffn_gemm.cuh; ``gemm_route``, ``pick_gemm_tile``);
+otherwise one kernel keeps the [R, I] intermediate out of device memory.
+Under autograd the eval blocks' backward is the vjp of ``ffn_block_ref``,
+the port of the JAX package's XLA reference, recomputed (as
+mmt_tpu/ops/ffn.py:_fused_ffn_fn's).  The ``*_plain`` functions are the same
 arithmetic in plain PyTorch.  All mirror the TPU kernels' numerics (not
 the XLA references', which keep bias and GELU in the compute type):
 operands rounded to the compute dtype, fp32 accumulation, fp32 bias and
@@ -64,36 +68,79 @@ def ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
   return layer_norm(y, gamma, beta, eps=eps)
 
 
-def _check_operands(kernel, *, f32, cd, rows, h, i, compute_dtype):
+def ffn_block_ref(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
+  """Port of mmt_tpu/ops/ffn.py:xla_ffn_block, the XLA reference whose vjp
+  is the eval block's backward there: products, biases and GELU in the
+  compute dtype, then the fp32 residual and LayerNorm."""
+  cd = compute_dtype
+  inter = gelu_erf(x.to(cd) @ w1.to(cd).T + b1.to(cd))
+  y = (inter @ w2.to(cd).T + b2.to(cd)).float() + x.float()
+  return layer_norm(y, gamma, beta, eps=eps)
+
+
+# Row tiles of the GEMM route (csrc/ffn_gemm.cuh: kTileRows); a tile's id
+# is its index here and in the C entry points.  Every tile issues the same
+# wgmma chain over K for an output element, so all give the same bits.
+GEMM_TILES = (128, 64)
+GEMM_COLS = 128    # csrc/ffn_gemm.cuh: BN, the columns of a block tile
+MAX_H = 1024       # csrc/ffn_common.cuh: MAX_H, the widest row the kernels take
+
+
+def gemm_route(h, i, compute_dtype) -> bool:
+  """True if the eval block (B1) and its partial (B6) take the TMA +
+  wgmma GEMM route at widths H, I: bf16, H and I multiples of GEMM_COLS.
+  Else the WMMA kernel (bf16) or the FMA kernel (fp32) of
+  csrc/ffn_block.cu.  The one place the route is chosen: the wrappers pass
+  the C entry points a tile id on it and -1 off it."""
+  return (compute_dtype == torch.bfloat16 and h % GEMM_COLS == 0
+          and i % GEMM_COLS == 0 and h <= MAX_H)
+
+
+def pick_gemm_tile(rows, h, sms) -> int:
+  """Id of the GEMM route's row tile for ``rows`` rows of width ``h`` on
+  a card with ``sms`` SMs: 128 rows while the second GEMM, the smaller
+  grid ([rows, H] in tiles of 128 columns), has a tile for every SM, else
+  64 rows (the text tower's 1,500 x 768: 72 tiles of 128 rows, 144 of
+  64)."""
+  return 0 if -(-rows // GEMM_TILES[0]) * (h // 128) >= sms else 1
+
+
+def _check_operands(kernel, *, f32, cd, rows, h, i, compute_dtype,
+                    tma=False):
   """Raise ValueError unless the operands are what the kernel takes:
   ``f32`` / ``cd`` map names to (tensor, shape) in float32 / the compute
-  dtype, ``cd`` including the weights w1 [I, H] and w2 [H, I].  Returns
-  the operands' device."""
+  dtype, ``cd`` including the weights w1 [I, H] and w2 [H, I]; with
+  ``tma`` (the GEMM route) every operand 16-byte aligned.  Returns the
+  operands' device."""
   def require(cond, msg):
+    # msg formats lazily: a check that passes costs no formatting.
     if not cond:
-      raise ValueError(f"{kernel} kernel: {msg}")
+      raise ValueError(f"{kernel} kernel: {msg()}")
 
   named = {**f32, **cd}
   dev = next(iter(named.values()))[0].device
   require(all(t.is_cuda and t.device == dev for t, _ in named.values()),
-          "every operand must lie on the same CUDA device")
+          lambda: "every operand must lie on the same CUDA device")
   require(compute_dtype in _DTYPE_CODES,
-          f"compute dtype {compute_dtype} not supported")
+          lambda: f"compute dtype {compute_dtype} not supported")
   for name, (t, _) in f32.items():
-    require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    require(t.dtype == torch.float32,
+            lambda: f"{name} must be float32, got {t.dtype}")
   for name, (t, _) in cd.items():
     require(t.dtype == compute_dtype,
-            f"{name} must be {compute_dtype}, got {t.dtype}")
+            lambda: f"{name} must be {compute_dtype}, got {t.dtype}")
   for name, (t, shape) in named.items():
-    require(tuple(t.shape) == shape,
-            f"{name} must have shape {shape}, got {tuple(t.shape)}")
-  require(rows > 0 and h % 16 == 0 and 0 < h <= 1024 and i % 16 == 0
-          and i > 0, f"needs R > 0, H % 16 == 0, H <= 1024 and I % 16 == 0 "
-          f"(R={rows}, H={h}, I={i})")
+    require(t.shape == shape,
+            lambda: f"{name} must have shape {shape}, got {tuple(t.shape)}")
+  require(rows > 0 and h % 16 == 0 and 0 < h <= MAX_H and i % 16 == 0
+          and i > 0, lambda: f"needs R > 0, H % 16 == 0, H <= {MAX_H} and I % "
+          f"16 == 0 (R={rows}, H={h}, I={i})")
   require(all(t.is_contiguous() for t, _ in named.values()),
-          "operands must be contiguous")
+          lambda: "operands must be contiguous")
   require(all(cd[w][0].data_ptr() % 32 == 0 for w in ("w1", "w2")),
-          "weights must be 32-byte aligned")
+          lambda: "weights must be 32-byte aligned")
+  require(not tma or all(t.data_ptr() % 16 == 0 for t, _ in named.values()),
+          lambda: "operands must be 16-byte aligned (TMA and vector loads)")
   return dev
 
 
@@ -110,19 +157,44 @@ def _launch(lib, name, dev, *args):
   _build.check(lib, name, code)
 
 
-def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
-  """Launch csrc/ffn_block.cu on x [R, H] (CUDA); returns fp32 [R, H]."""
+_SMS = {}   # SM count by device index
+
+
+def _gemm_scratch(rows, h, i, compute_dtype, tile, dev):
+  """(scratch, the addresses of xb [R, H] and g [R, I] in it, tile id) of
+  a GEMM-route call: one bf16 allocation holds both (xb's R H values are
+  a multiple of 128, so g starts 256-byte aligned).  Off the route (None,
+  None, None, -1).  ``tile`` None picks it."""
+  if not gemm_route(h, i, compute_dtype):
+    return None, None, None, -1
+  if tile is None:
+    if dev.index not in _SMS:
+      _SMS[dev.index] = torch.cuda.get_device_properties(
+          dev).multi_processor_count
+    tile = pick_gemm_tile(rows, h, _SMS[dev.index])
+  buf = torch.empty(rows * (h + i), dtype=torch.bfloat16, device=dev)
+  return buf, buf.data_ptr(), buf.data_ptr() + 2 * rows * h, tile
+
+
+def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype,
+                   tile=None):
+  """Launch csrc/ffn_block.cu on x [R, H] (CUDA); returns fp32 [R, H].
+  ``tile`` (an id of ``GEMM_TILES``) overrides ``pick_gemm_tile`` on the
+  GEMM route: for checks."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_block", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      tma=gemm_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,)), b2=(b2, (h,)),
                gamma=(gamma, (h,)), beta=(beta, (h,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  # scratch (xb and g) stays referenced until the launch is queued.
+  scratch, xb, g, tile = _gemm_scratch(r, h, i, compute_dtype, tile, dev)
   _launch(_build.load_library(), "mmt_ffn_block", dev,
           x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
           b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-          r, h, i, float(eps), _DTYPE_CODES[compute_dtype])
+          xb, g, r, h, i, float(eps), _DTYPE_CODES[compute_dtype], tile)
   ffn_block_cuda.launches += 1
   return out
 
@@ -130,18 +202,53 @@ def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype):
 ffn_block_cuda.launches = 0
 
 
+class _RefVjp(torch.autograd.Function):
+  """A kernel's forward with, as its backward, the vjp of a reference
+  recomputed from the saved inputs (mmt_tpu/ops/ffn.py:_fused_ffn_fn's
+  ``bwd`` is jax.vjp of the XLA reference).  Takes the kernel, the
+  reference, their keyword arguments, then the tensors."""
+
+  @staticmethod
+  def forward(ctx, kernel, ref, kw, *args):
+    ctx.ref, ctx.kw = ref, kw
+    ctx.save_for_backward(*args)
+    return kernel(*args, **kw)
+
+  @staticmethod
+  def backward(ctx, dout):
+    need = ctx.needs_input_grad[3:]
+    with torch.enable_grad():
+      args = [a.detach().requires_grad_(n)
+              for a, n in zip(ctx.saved_tensors, need)]
+      grads = iter(torch.autograd.grad(
+          ctx.ref(*args, **ctx.kw), [a for a in args if a.requires_grad],
+          dout))
+    return (None, None, None, *(next(grads) if n else None for n in need))
+
+
+def _eval_dispatch(x, kernel, plain, ref, args, kw):
+  """The plain version for a CPU ``x``; else the kernel, and under
+  autograd (an operand requiring grad) inside ``_RefVjp`` with ``ref``,
+  so that the graph reaches the operands."""
+  if not ops.use_kernel(x):
+    return plain(*args, **kw)
+  if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    return _RefVjp.apply(kernel, ref, kw, *args)
+  return kernel(*args, **kw)
+
+
 def ffn_block(x, w1, b1, w2, b2, gamma, beta, *, eps,
               compute_dtype=torch.bfloat16):
   """Fused FFN sub-block over [..., H] input; returns fp32 [..., H].
 
   A CUDA tensor launches the kernel (which raises on what it does not
-  take); a CPU tensor takes the plain version.
+  take), differentiable through ``ffn_block_ref``'s vjp; a CPU tensor
+  takes the plain version.
   """
   lead, h = x.shape[:-1], x.shape[-1]
-  x2 = x.reshape(-1, h)
-  fn = ffn_block_cuda if ops.use_kernel(x) else ffn_block_plain
-  out = fn(x2, w1, b1, w2, b2, gamma, beta, eps=eps,
-           compute_dtype=compute_dtype)
+  out = _eval_dispatch(x, ffn_block_cuda, ffn_block_plain, ffn_block_ref,
+                       (x.reshape(-1, h), w1, b1, w2, b2, gamma, beta),
+                       dict(eps=eps, compute_dtype=compute_dtype))
   return out.reshape(*lead, h)
 
 
@@ -328,18 +435,29 @@ def ffn_partial_plain(x, w1, b1, w2, *, compute_dtype):
                                      compute_dtype=compute_dtype)[0]
 
 
-def ffn_partial_cuda(x, w1, b1, w2, *, compute_dtype):
+def ffn_partial_ref(x, w1, b1, w2, *, compute_dtype):
+  """``ffn_block_ref`` on this rank's shards up to its second product,
+  returned in fp32: the backward of B6, as the JAX package's is the vjp of
+  its sharded XLA reference."""
+  cd = compute_dtype
+  return (gelu_erf(x.to(cd) @ w1.to(cd).T + b1.to(cd)) @ w2.to(cd).T).float()
+
+
+def ffn_partial_cuda(x, w1, b1, w2, *, compute_dtype, tile=None):
   """Launch B6 (csrc/ffn_block.cu, partial); same contract as
-  ``ffn_partial_plain``, with w1/w2 in the compute dtype."""
+  ``ffn_partial_plain``, with w1/w2 in the compute dtype; ``tile`` as for
+  ``ffn_block_cuda``."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      tma=gemm_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)
+  scratch, xb, g, tile = _gemm_scratch(r, h, i, compute_dtype, tile, dev)
   _launch(_build.load_library(), "mmt_ffn_partial", dev, x.data_ptr(),
-          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(), r, h,
-          i, _DTYPE_CODES[compute_dtype])
+          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(), xb, g,
+          r, h, i, _DTYPE_CODES[compute_dtype], tile)
   ffn_partial_cuda.launches += 1
   return out
 
@@ -376,9 +494,10 @@ def ffn_block_tp(x, w1, b1, w2, b2, gamma, beta, *, eps, tp,
   all-reduce of its partial, then + b2 + x and the LayerNorm."""
   lead, h = x.shape[:-1], x.shape[-1]
   x2 = x.reshape(-1, h)
-  fn = ffn_partial_cuda if ops.use_kernel(x) else ffn_partial_plain
-  y = tp_lib.reduce_from_tp(fn(x2, w1, b1, w2, compute_dtype=compute_dtype),
-                            tp)
+  part = _eval_dispatch(x, ffn_partial_cuda, ffn_partial_plain,
+                        ffn_partial_ref, (x2, w1, b1, w2),
+                        dict(compute_dtype=compute_dtype))
+  y = tp_lib.reduce_from_tp(part, tp)
   out = layer_norm(y + b2.float() + x2.float(), gamma, beta, eps=eps)
   return out.reshape(*lead, h)
 

@@ -19,6 +19,7 @@ limit.  Exits 1 if an output differs or no CUDA device is there.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -26,17 +27,17 @@ import sys
 import tempfile
 
 
-def time_ms(torch, fn, reps):
-  fn()
-  torch.cuda.synchronize()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(reps):
-    fn()
-  end.record()
-  torch.cuda.synchronize()
-  return start.elapsed_time(end) / reps
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def timing():
+  """chip_smoke.py of this checkout, whose ``time_ms`` (CUDA events) and
+  ``device_ms`` (torch.profiler) time every tree alike."""
+  spec = importlib.util.spec_from_file_location(
+      "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
 
 
 def child(out_path):
@@ -45,6 +46,7 @@ def child(out_path):
   torch.backends.cuda.matmul.allow_tf32 = False
   from mmt_tpu_torch.ops import ranking, similarity
 
+  time_ms = timing().time_ms
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev).manual_seed(0)
 

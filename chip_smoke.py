@@ -53,7 +53,11 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    Tolerances: fp32 atol 1e-4 on every output; bf16 fp32 outputs max 3e-2
    and mean 2e-3; bf16 compute-dtype outputs within 2 bf16 ulps of the
    plain version's (the ulp of the larger of the two magnitudes) plus an
-   absolute floor for values near zero (CD_ATOL below).
+   absolute floor for values near zero (CD_ATOL below).  In bf16 these
+   widths take the TMA + wgmma GEMM route: its outputs also against the
+   WMMA kernel's (``tile=-1``) by the same rules, every row tile bitwise
+   equal, and beside the event and plain times its ``device_ms``, the
+   WMMA kernel's event and device times, ``host_ms`` and ``gemms_ms``.
 5. Reference phase: a tiny fp32 CENet on the card (kernels) against the
    same weights on the CPU (plain versions), sims atol 1e-4.
 6. Slice phase (then a profile phase): the full-width flagship CENet
@@ -88,14 +92,20 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    within 2e-2 relative L2, every parameter's within 0.2, see STEP_*_TOL
    below); 20 steps on one batch must give finite losses and move the
    BatchNorm running statistics.  Then the step time on both paths, b32
-   and b128, median of 20 after 3 warm-ups, taken in turns.
+   and b128, median of 20 after 3 warm-ups, taken in turns.  The train
+   profile phase then runs 3 kernel-path steps at b32 and at b128 under
+   torch.profiler: device time, the device's idle share of the wall, the
+   device activities, B2's and B3's kernels in situ (exactly 16 launches
+   of each a step) against their device time alone times the launches,
+   and the top device operations.
 9. Partial-kernel phase: the tensor-parallel halves B6 (eval, video
    10,900 x 512 and text 1,500 x 768 rows, and 1,013 x 192 off the GEMM
    route) and B7 (train forward, video
    6,976 x 512 and text 960 x 768 rows), each also at a ragged 1,013 x
    768, and B3 with add_dz off on B7's residuals, all at I/mp = 1536,
-   bf16 and fp32, against their plain versions (B6 in bf16 also with
-   ``gemms_ms`` and every row tile bitwise equal, as phase 2).  A
+   bf16 and fp32, against their plain versions (B6 and B3 in bf16 also
+   with their device time and every row tile bitwise equal, as phases 2
+   and 4; B6 with ``gemms_ms``, B3 against its WMMA kernel).  A
    partial is not normalised, so the rules of phase 4 hold on its fp32
    outputs divided by the plain version's largest magnitude; the
    compute-dtype outputs keep phase 4's ulp rule.
@@ -125,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import json
 import statistics
+import subprocess
 import sys
 import time
 
@@ -147,12 +158,22 @@ def time_ms(torch, fn, reps=20):
   return start.elapsed_time(end) / reps
 
 
+def device_events(prof):
+  """The device activities (kernels and copies) of a torch.profiler run,
+  by name, without the GPU user annotations (spans such as
+  ``Optimizer.step#Adam.step`` that enclose kernels counted already), as
+  torch.profiler's own tables count device time."""
+  from torch.autograd import DeviceType
+
+  return [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def device_ms(torch, fn, reps=20):
   """Mean device time of one call: its kernels' own time under
   torch.profiler over ``reps`` calls after a warm-up.  Unlike
   ``time_ms`` it leaves out the gaps in which the device waits for the
   host, which set the event time of calls that take under ~0.1 ms."""
-  from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
   fn()
@@ -162,8 +183,42 @@ def device_ms(torch, fn, reps=20):
     for _ in range(reps):
       fn()
     torch.cuda.synchronize()
-  return sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA) / 1e3 / reps
+  return sum(e.self_device_time_total
+             for e in device_events(prof)) / 1e3 / reps
+
+
+class CardSampler:
+  """While open, nvidia-smi samples the card's SM clock (MHz) and power
+  draw (W) every 20 ms; ``summary()`` after.  The card lowers its clock
+  under load when it reaches its power limit, which a kernel timed alone
+  for a few milliseconds does not show."""
+
+  def __enter__(self):
+    self.proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    return self
+
+  def __exit__(self, *exc):
+    self.proc.terminate()
+    out = self.proc.communicate(timeout=30)[0]
+    self.samples = []
+    for line in out.splitlines():
+      try:
+        clock, power = (float(v) for v in line.split(","))
+      except ValueError:
+        continue
+      self.samples.append((clock, power))
+
+  def summary(self):
+    if not self.samples:
+      return "SM clock and power draw: no samples"
+    clocks, powers = zip(*self.samples)
+    return (f"SM clock median {statistics.median(clocks):.0f} MHz (min "
+            f"{min(clocks):.0f}, max {max(clocks):.0f}), power draw median "
+            f"{statistics.median(powers):.1f} W (max {max(powers):.1f}) over "
+            f"{len(self.samples)} samples")
 
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 tensor
@@ -195,11 +250,17 @@ def gemms_ms(torch, x, w1, w2):
   return time_ms(torch, lambda: (torch.mm(xb, w1.T), torch.mm(g, w2.T)))
 
 
+def as_tuple(out):
+  return out if isinstance(out, tuple) else (out,)
+
+
 def check_tiles_equal(torch, ffn, what, kernel, args, kw):
   """Every row tile of the GEMM route gives the same bits (the same
-  wgmma chain over K); prints each tile's time.  Raises otherwise."""
-  outs = [kernel(*args, **kw, tile=t) for t in range(len(ffn.GEMM_TILES))]
-  same = [torch.equal(outs[0], o) for o in outs]
+  wgmma chain over K) in every output; prints each tile's time.  Raises
+  otherwise."""
+  outs = [as_tuple(kernel(*args, **kw, tile=t))
+          for t in range(len(ffn.GEMM_TILES))]
+  same = [all(map(torch.equal, outs[0], o)) for o in outs]
   by_tile = {rows: round(time_ms(torch, lambda t=t: kernel(*args, **kw,
                                                            tile=t)), 4)
              for t, rows in enumerate(ffn.GEMM_TILES)}
@@ -255,17 +316,22 @@ def ffn_grad_check(torch, ops, ffn, x, w1, b1, w2, b2, gamma, beta):
                        f"{got_rel}")
 
 
-def host_ms(torch, fn, reps=50):
-  """Host time of one call: the wall of queuing ``reps`` calls, without
-  waiting for the device (the queue is deep enough not to block)."""
+def host_ms(torch, fn, reps=50, rounds=5):
+  """Host time of one call, as text: the median over ``rounds`` of the
+  wall of queuing ``reps`` calls without waiting for the device (the
+  queue is deep enough not to block), and the rounds' range (the host is
+  shared, so one round can read half again as long as the next)."""
   fn()
   torch.cuda.synchronize()
-  tic = time.perf_counter()
-  for _ in range(reps):
-    fn()
-  ms = (time.perf_counter() - tic) * 1e3 / reps
-  torch.cuda.synchronize()
-  return ms
+  per_round = []
+  for _ in range(rounds):
+    tic = time.perf_counter()
+    for _ in range(reps):
+      fn()
+    per_round.append((time.perf_counter() - tic) * 1e3 / reps)
+    torch.cuda.synchronize()
+  return (f"{statistics.median(per_round):.4f} (rounds {min(per_round):.4f}"
+          f"-{max(per_round):.4f})")
 
 
 def ffn_phase(torch, ops, ffn, dev, gen, card):
@@ -323,7 +389,7 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
         check_tiles_equal(torch, ffn, f"ffn_block R={r} H={h}",
                           ffn.ffn_block_cuda, args, kw)
         call_ms = host_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw))
-        print(f"  host_ms={call_ms:.4f} (the wrapper's host time a call: "
+        print(f"  host_ms={call_ms} (the wrapper's host time a call: "
               "checks, scratch, tensor maps, 4 launches)", flush=True)
       if (r, h) == (10900, 512):
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -476,69 +542,103 @@ def check_outputs(torch, what, cd, got, want, cd_names):
   return worst
 
 
+def train_inputs(torch, dropout, r, h, cd, dev, gen):
+  """B2's operands (x, drop, w1, b1, w2, b2, gamma, beta) at R x H with
+  I = TRAIN_I and the cotangent dy [R, H], drawn from ``gen``."""
+  i = TRAIN_I
+  rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
+  x = rand(r, h)
+  drop = dropout.dropout_mask((r, h), TRAIN_P, gen, dev)
+  w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
+  b1, b2 = rand(i) * 0.02, rand(h) * 0.02
+  gamma, beta = 1.0 + 0.1 * rand(h), 0.1 * rand(h)
+  return (x, drop, w1, b1, w2, b2, gamma, beta), rand(r, h)
+
+
+TRAIN_OUTS = {"ffn_train_fwd": (("out", "inter", "z"), ("inter", "z")),
+              "ffn_train_bwd": (("dx", "dz", "dinter"), ("dz", "dinter"))}
+
+
+def check_train_kernel(torch, ffn, what, kname, cd, args, kw, i=TRAIN_I,
+                       check=check_outputs):
+  """B2 or B3 (``kname``) on these operands (width I) against its plain
+  version by ``check``'s rules and, on the GEMM route, against the WMMA
+  kernel (``tile=-1``) by the same rules, with every row tile bitwise
+  equal.  Returns the kernel's outputs and what ``check`` returns."""
+  kernel, plain = (getattr(ffn, f"{kname}_cuda"),
+                   getattr(ffn, f"{kname}_plain"))
+  names, cd_names = TRAIN_OUTS[kname]
+  got = kernel(*args, **kw)
+  outs = lambda t: dict(zip(names, t))
+  err = check(torch, f"{what} vs plain", cd, outs(got),
+              outs(plain(*args, **kw)), cd_names)
+  if ffn.gemm_route(args[0].shape[1], i, cd):
+    check(torch, f"{what} vs WMMA kernel", cd, outs(got),
+          outs(kernel(*args, **kw, tile=-1)), cd_names)
+    check_tiles_equal(torch, ffn, what, kernel, args, kw)
+  return got, err
+
+
 def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
-  """B2 and B3 against their plain versions at the b32 train shapes;
-  returns each kernel's line entries: the worst bf16 error, and the video
-  bf16 times and bound (no single PyTorch call computes either)."""
+  """B2 and B3 (add_dz on and off) against their plain versions at the
+  b32 train shapes, and on the GEMM route (bf16) also against the WMMA
+  kernel (``tile=-1``), timed against both.  Returns each kernel's line
+  entries (the worst bf16 error, and the video bf16 times and bound: no
+  single PyTorch call computes either) and the device ms of one bf16 call
+  of each by shape, for the train profile."""
   res = {name: {"max_abs_err": 0.0, "library_ms": None}
          for name in ("ffn_train_fwd", "ffn_train_bwd")}
+  alone = {}
+  i = TRAIN_I
   for cd in (torch.bfloat16, torch.float32):
     for r, h in TRAIN_SHAPES:
-      i = TRAIN_I
-      rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
-      x = rand(r, h)
-      drop = dropout.dropout_mask((r, h), TRAIN_P, gen, dev)
-      w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
-      b1, b2 = rand(i) * 0.02, rand(h) * 0.02
-      gamma, beta = 1.0 + 0.1 * rand(h), 0.1 * rand(h)
-      dy = rand(r, h)
+      fargs, dy = train_inputs(torch, dropout, r, h, cd, dev, gen)
+      _, drop, w1, _, w2, _, gamma, _ = fargs
       kw = dict(eps=1e-12, compute_dtype=cd)
-      name = str(cd).replace("torch.", "")
-      tag = f"R={r} H={h} I={i} {name}"
-
-      fargs = (x, drop, w1, b1, w2, b2, gamma, beta)
-      got = fwd_out = ffn.ffn_train_fwd_cuda(*fargs, **kw)
-      want = ffn.ffn_train_fwd_plain(*fargs, **kw)
-      torch.cuda.synchronize()
-      err_f = check_outputs(torch, f"ffn_train_fwd {tag}", cd,
-                            dict(zip(("out", "inter", "z"), got)),
-                            dict(zip(("out", "inter", "z"), want)),
-                            ("inter", "z"))
-      _, inter, z = want
+      tag = f"R={r} H={h} I={i} {str(cd).replace('torch.', '')}"
+      route = ffn.gemm_route(h, i, cd)
+      fwd_out, err_f = check_train_kernel(
+          torch, ffn, f"ffn_train_fwd {tag}", "ffn_train_fwd", cd, fargs, kw)
+      _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
       bargs = (dy, z, inter, drop, w1, w2, gamma)
       err_b = 0.0
       for add_dz in (True, False):
-        bkw = dict(kw, add_dz=add_dz)
-        got = ffn.ffn_train_bwd_cuda(*bargs, **bkw)
-        want = ffn.ffn_train_bwd_plain(*bargs, **bkw)
-        torch.cuda.synchronize()
-        err_b = max(err_b, check_outputs(
-            torch, f"ffn_train_bwd {tag} add_dz={add_dz}", cd,
-            dict(zip(("dx", "dz", "dinter"), got)),
-            dict(zip(("dx", "dz", "dinter"), want)), ("dz", "dinter")))
-      bkw = dict(kw, add_dz=True)
-      times = {
-          "ffn_train_fwd": (
-              time_ms(torch, lambda: ffn.ffn_train_fwd_cuda(*fargs, **kw)),
-              time_ms(torch, lambda: ffn.ffn_train_fwd_plain(*fargs, **kw))),
-          "ffn_train_bwd": (
-              time_ms(torch, lambda: ffn.ffn_train_bwd_cuda(*bargs, **bkw)),
-              time_ms(torch, lambda: ffn.ffn_train_bwd_plain(*bargs,
-                                                             **bkw)))}
+        got, err = check_train_kernel(
+            torch, ffn, f"ffn_train_bwd {tag} add_dz={add_dz}",
+            "ffn_train_bwd", cd, bargs, dict(kw, add_dz=add_dz))
+        err_b = max(err_b, err)
+        if add_dz:
+          bwd_out = got
       # Both do the two products of the block, 4 R H I FLOP.
-      tensors = {"ffn_train_fwd": fargs + tuple(fwd_out),
-                 "ffn_train_bwd": bargs + tuple(got)}
+      calls = {"ffn_train_fwd": (fargs, kw, fwd_out),
+               "ffn_train_bwd": (bargs, dict(kw, add_dz=True), bwd_out)}
+      yard = gemms_ms(torch, fargs[0], w1, w2) if route else None
       for kname, err in (("ffn_train_fwd", err_f), ("ffn_train_bwd", err_b)):
-        ms, plain_ms = times[kname]
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16, tensors[kname])
-        print(f"{kname} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) card: {card}", flush=True)
+        args, kkw, out = calls[kname]
+        kernel, plain = (getattr(ffn, f"{kname}_cuda"),
+                         getattr(ffn, f"{kname}_plain"))
+        ms = time_ms(torch, lambda: kernel(*args, **kkw))
+        plain_ms = time_ms(torch, lambda: plain(*args, **kkw))
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + tuple(out))
+        line = (f"{kname} {tag} ({'gemm' if route else 'wmma/fma'} route): "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                f"{b_ms:.4f} ({b_by})")
+        if route:
+          dev_ms = device_ms(torch, lambda: kernel(*args, **kkw))
+          wmma = lambda: kernel(*args, **kkw, tile=-1)
+          line += (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
+                   f"TFLOP/s) wmma_ms={time_ms(torch, wmma):.4f} "
+                   f"wmma_device_ms={device_ms(torch, wmma):.4f} host_ms="
+                   f"{host_ms(torch, lambda: kernel(*args, **kkw))} "
+                   f"gemms_ms={yard:.4f} (two bf16 torch.mm alone)")
+          alone.setdefault((r, h), {})[kname] = dev_ms
+        print(f"{line} card: {card}", flush=True)
         if cd == torch.bfloat16:
           res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], err)
           if (r, h) == TRAIN_SHAPES[0]:
             res[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by)
-  return res
+  return res, alone
 
 
 def reference_phase(torch, flagship, evaluate, dev):
@@ -562,7 +662,7 @@ def reference_phase(torch, flagship, evaluate, dev):
     raise RuntimeError(f"card vs CPU sims differ by {err} > 1e-4")
 
 
-TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 5e-5, 20
+TRAIN_BATCH, TRAIN_BIG_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 128, 5e-5, 20
 # Kernel path vs plain path, one b32 step from the same state and seed.
 # The only difference is bf16 rounding: the kernels and the plain versions
 # round an element of an intermediate to the neighbouring bf16 value now
@@ -612,8 +712,10 @@ def check_step(torch, what, loss, loss_ref, grads, grads_ref):
 def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   """The b32 train step of the full-width flagship (bf16): launch counts,
   kernel path vs plain path, 20 steps, then step times at b32 and b128.
-  Returns the launch counts of the counted step, and its loss and
-  gradients (on the CPU) for the tensor-parallel phase."""
+  Returns the launch counts of the counted step, its loss and gradients
+  (on the CPU) for the tensor-parallel phase, and ``step(batch_size,
+  seed)``, one more kernel-path step of the timed run, for the train
+  profile."""
   from mmt_tpu_torch.train import losses, optim, step
 
   arch = flagship.flagship_arch()
@@ -685,8 +787,8 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
 
   # 4. Step time, kernel and plain paths in turns.
   times = {}
-  for batch_size in (TRAIN_BATCH, 128):
-    b = batch if batch_size == TRAIN_BATCH else make(batch_size, 202)
+  batches = {TRAIN_BATCH: batch, TRAIN_BIG_BATCH: make(TRAIN_BIG_BATCH, 202)}
+  for batch_size, b in batches.items():
     runs = {False: [], True: []}
     for i in range(3 + TRAIN_STEPS):
       for plain in (False, True):
@@ -706,7 +808,112 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
     print(f"train step b{batch_size} runs kernel_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[False]]} plain_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[True]]}", flush=True)
-  return launches, loss_k, grads_k
+  return (launches, loss_k, grads_k,
+          lambda batch_size, seed: run(opt, batches[batch_size], seed))
+
+
+# Kernels of B2 and B3 on the GEMM route, as the profiler names them (the
+# template GEMMs by their epilogues); the train step launches no B1, whose
+# cast and GEMM 1 epilogue would share B2's names.
+TRAIN_KERNELS = {
+    "ffn_train_fwd": ("ffn_cast_bf16_kernel", "GeluInterEpilogue",
+                      "DropResidualEpilogue", "ffn_ln_rows_kernel"),
+    "ffn_train_bwd": ("ffn_transpose_bf16_kernel", "ffn_ln_bwd_rows_kernel",
+                      "DgeluEpilogue", "AccumulateEpilogue")}
+TRAIN_PROFILE_STEPS = 3
+VIDEO_TOKENS, TEXT_TOKENS = 218, 30   # rows per sample of each tower's FFN
+
+
+def train_alone_ms(torch, ffn, dropout, shape, dev, gen):
+  """{kernel: (device ms, CUDA-event ms)} of one bf16 B2 and one B3 call
+  at ``shape`` (rows, H)."""
+  fargs, dy = train_inputs(torch, dropout, *shape, torch.bfloat16, dev, gen)
+  kw = dict(eps=1e-12, compute_dtype=torch.bfloat16)
+  _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
+  bargs = (dy, z, inter, fargs[1], fargs[2], fargs[4], fargs[6])
+  calls = {"ffn_train_fwd": lambda: ffn.ffn_train_fwd_cuda(*fargs, **kw),
+           "ffn_train_bwd": lambda: ffn.ffn_train_bwd_cuda(*bargs, **kw)}
+  return {k: (device_ms(torch, fn), time_ms(torch, fn))
+          for k, fn in calls.items()}
+
+
+def train_profile_phase(torch, ffn, dropout, step, alone, dev, gen, card):
+  """TRAIN_PROFILE_STEPS kernel-path steps at b32 and at b128 under
+  torch.profiler, the card's SM clock and power sampled meanwhile: device
+  time and the device's idle share of the wall, the device activities,
+  B2's and B3's kernels in situ a call against their device time alone
+  (phase 4's at b32; at b128's shapes measured right after the window,
+  clock sampled too) times the launches, and the top device operations."""
+  from torch.profiler import ProfilerActivity, profile
+
+  counted = {k: getattr(ffn, f"{k}_cuda") for k in TRAIN_KERNELS}
+  for batch_size in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+    video = (batch_size * VIDEO_TOKENS, 512)
+    text = (batch_size * TEXT_TOKENS, 768)
+    step(batch_size, 6000)                     # warm-up
+    torch.cuda.synchronize()
+    for fn in counted.values():
+      fn.launches = 0
+    with CardSampler() as card_in, profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+      tic = time.perf_counter()
+      for s in range(TRAIN_PROFILE_STEPS):
+        step(batch_size, 6001 + s)
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - tic) * 1e3
+    launches = {k: fn.launches for k, fn in counted.items()}
+    dev_us = lambda e: e.self_device_time_total
+    on_dev = sorted(device_events(prof), key=dev_us, reverse=True)
+    total_ms = sum(map(dev_us, on_dev)) / 1e3
+    if not total_ms > 0:
+      raise RuntimeError("the profiler recorded no device time")
+    events = {}   # CUDA-event ms alone, where measured here
+    with CardSampler() as card_alone:
+      for shape in (video, text):
+        if shape not in alone:
+          both = train_alone_ms(torch, ffn, dropout, shape, dev, gen)
+          alone[shape] = {k: d for k, (d, _) in both.items()}
+          events[shape] = {k: e for k, (_, e) in both.items()}
+    n = TRAIN_PROFILE_STEPS
+    print(f"train profile b{batch_size}: {n} kernel-path steps, wall "
+          f"{wall_ms:.3f} ms (under the profiler), device time {total_ms:.3f} "
+          f"ms ({total_ms / n:.3f} a step) in "
+          f"{sum(e.count for e in on_dev)} device activities, device idle "
+          f"share {1 - total_ms / wall_ms:.4f}; {card_in.summary()} card: "
+          f"{card}", flush=True)
+    for kname, names in TRAIN_KERNELS.items():
+      mine = [e for e in on_dev if any(k in e.key for k in names)]
+      in_ms = sum(map(dev_us, mine)) / 1e3
+      calls = launches[kname]
+      want = FFN_LAYERS * n
+      # Per step 4 video and 12 text blocks.
+      alone_ms = n * (4 * alone[video][kname] + 12 * alone[text][kname])
+      print(f"train profile b{batch_size}: {kname} in situ {in_ms:.3f} ms "
+            f"({in_ms / total_ms:.2%} of device time; {calls} launches, "
+            f"{sum(e.count for e in mine)} kernels; {in_ms / calls:.4f} ms a "
+            f"call) against device time alone x launches {alone_ms:.3f} ms "
+            f"(in situ / alone {in_ms / alone_ms:.4f}; alone: video "
+            f"{alone[video][kname]:.4f}, text {alone[text][kname]:.4f} ms a "
+            f"call)", flush=True)
+      if events:
+        # Calls of 0.1 ms and more: their event time is the device's.
+        ev_ms = n * (4 * events[video][kname] + 12 * events[text][kname])
+        print(f"  {kname} alone by CUDA events: video "
+              f"{events[video][kname]:.4f}, text {events[text][kname]:.4f} "
+              f"ms a call; in situ / alone {in_ms / ev_ms:.4f}", flush=True)
+      for e in mine:
+        print(f"  {kname} kernel {dev_us(e) / 1e3:.3f} ms x{e.count} "
+              f"{e.key[:110]}", flush=True)
+      if calls != want:
+        raise RuntimeError(f"profiled steps launched {kname} {calls} times, "
+                           f"not {want}")
+    if batch_size != TRAIN_BATCH:
+      print(f"train profile b{batch_size}: while timing B2 and B3 alone "
+            f"{card_alone.summary()}", flush=True)
+    for e in on_dev[:PROFILE_TOP]:
+      print(f"  top device op {dev_us(e) / 1e3:.3f} ms "
+            f"({dev_us(e) / 1e3 / total_ms:.2%}) x{e.count} {e.key[:110]}",
+            flush=True)
 
 
 # Rank-kernel cases: (name, videos, captions per video).  (a) 50k x 50k
@@ -1209,19 +1416,23 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
         bargs = (rand(r, h), z, want["inter"], drop, w1, w2,
                  1.0 + 0.1 * rand(h))
         bkw = dict(eps=1e-12, compute_dtype=cd, add_dz=False)
-        names_b = ("dx", "dz", "dinter")
-        got_b = dict(zip(names_b, ffn.ffn_train_bwd_cuda(*bargs, **bkw)))
-        want_b = dict(zip(names_b, ffn.ffn_train_bwd_plain(*bargs, **bkw)))
-        torch.cuda.synchronize()
-        check_partial(torch, f"ffn_train_bwd add_dz=False {tag}", cd, got_b,
-                      want_b, ("dz", "dinter"))
-        ms = time_ms(torch, lambda: ffn.ffn_train_bwd_cuda(*bargs, **bkw))
+        got_b, _ = check_train_kernel(
+            torch, ffn, f"ffn_train_bwd add_dz=False {tag}", "ffn_train_bwd",
+            cd, bargs, bkw, i, check_partial)
+        kernel = lambda tile=None: ffn.ffn_train_bwd_cuda(*bargs, **bkw,
+                                                          tile=tile)
+        ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch,
                            lambda: ffn.ffn_train_bwd_plain(*bargs, **bkw))
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16,
-                           bargs + tuple(got_b.values()))
+        b_ms, b_by = bound(4 * r * h * i, H100_BF16, bargs + tuple(got_b))
+        extra = ""
+        if ffn.gemm_route(h, i, cd):
+          dev_ms, wmma = device_ms(torch, kernel), lambda: kernel(-1)
+          extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
+                   f"TFLOP/s) wmma_ms={time_ms(torch, wmma):.4f} "
+                   f"wmma_device_ms={device_ms(torch, wmma):.4f}")
         print(f"ffn_train_bwd add_dz=False {tag}: kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}){extra} "
               f"card: {card}", flush=True)
   return res
 
@@ -1463,7 +1674,6 @@ def profile_phase(torch, evaluate, ffn, model, batches, alone, card):
   kernel-phase time alone times its launches, the device activities
   (kernels and copies) launched, and the device's idle share of the
   wall (one stream, so kernel times add)."""
-  from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
   evaluate.retrieval_eval(model, batches)        # warm-up
@@ -1478,8 +1688,7 @@ def profile_phase(torch, evaluate, ffn, model, batches, alone, card):
   b1_launches = ffn.ffn_block_cuda.launches
   events = prof.key_averages()
   dev_us = lambda e: e.self_device_time_total
-  dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-               key=dev_us, reverse=True)
+  dev = sorted(device_events(prof), key=dev_us, reverse=True)
   total_ms = sum(map(dev_us, dev)) / 1e3
   n_dev = sum(e.count for e in dev)
   host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
@@ -1578,7 +1787,9 @@ def main():
   clock.done("kernel")
   rank_err = rank_kernel_phase(torch, ranking, similarity, dev, gen, card)
   clock.done("rank-kernel")
-  entries.update(train_kernel_phase(torch, ffn, dropout, dev, gen, card))
+  train_entries, train_alone = train_kernel_phase(torch, ffn, dropout, dev,
+                                                  gen, card)
+  entries.update(train_entries)
   clock.done("train-kernel")
   entries.update(partial_kernel_phase(torch, ffn, dropout, dev, gen, card))
   clock.done("partial-kernel")
@@ -1662,10 +1873,13 @@ def main():
   torch.cuda.empty_cache()
   clock.done("at-scale")
 
-  train_launches, *step_ref = train_step_phase(torch, flagship, ops, ffn,
-                                               similarity, dev, card)
-  torch.cuda.empty_cache()
+  train_launches, *step_ref, step = train_step_phase(
+      torch, flagship, ops, ffn, similarity, dev, card)
   clock.done("train-step")
+  train_profile_phase(torch, ffn, dropout, step, train_alone, dev, gen, card)
+  del step
+  torch.cuda.empty_cache()
+  clock.done("train-profile")
   tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
   del sims, step_ref
   clock.done("tp")

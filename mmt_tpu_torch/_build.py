@@ -33,17 +33,18 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, gamma, beta, out, xb, g, R, H, I, eps,
     # compute_dtype, tile, stream
     "mmt_ffn_block": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I, _P],
-    # x, drop, w1, b1, w2, b2, gamma, beta, out, inter, z, R, H, I, eps,
-    # compute_dtype, stream
-    "mmt_ffn_train_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    # x, drop, w1, b1, w2, b2, gamma, beta, out, inter, z, xb, g, R, H, I,
+    # eps, compute_dtype, tile, stream
+    "mmt_ffn_train_fwd": [_P] * 13 + [_I, _I, _I, ctypes.c_float, _I, _I,
+                                      _P],
     # x, w1, b1, w2, out, xb, g, R, H, I, compute_dtype, tile, stream
     "mmt_ffn_partial": [_P] * 7 + [_I] * 5 + [_P],
     # x, w1, b1, w2, out, inter, R, H, I, compute_dtype, stream
     "mmt_ffn_train_fwd_partial": [_P] * 6 + [_I, _I, _I, _I, _P],
-    # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, R, H, I, eps,
-    # compute_dtype, add_dz, stream
-    "mmt_ffn_train_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _I,
-                                      _P],
+    # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, dffn, w1t, w2t,
+    # R, H, I, eps, compute_dtype, add_dz, tile, stream
+    "mmt_ffn_train_bwd": [_P] * 13 + [_I, _I, _I, ctypes.c_float, _I, _I,
+                                      _I, _P],
     # t, v, tw, vw, out, tt, vt, Q, V, K, M, ldt, ldv, tile, stream
     "mmt_moe_similarity": [_P] * 7 + [_I] * 7 + [_P],
     # t, c, tw, cw, gt, gtcol, colbias, closer, tied, tt, ct, Q, C, K, M,

@@ -55,30 +55,36 @@
 // Ragged row counts are masked: rows past R are staged as zeros and never
 // stored.
 //
-// The bf16 eval block (B1) and its partial (B6) take another route where
-// H and I are multiples of 128 (every configuration under configs/eccv20/:
-// H = 512 / 768, I = 3072, I/mp = 1536 / 768): two TMA + wgmma GEMMs with
-// fused epilogues (ffn_gemm.cuh) and two row passes,
+// The bf16 eval block (B1), its partial (B6) and the train forward (B2)
+// take another route where H and I are multiples of 128 (every
+// configuration under configs/eccv20/: H = 512 / 768, I = 3072, I/mp =
+// 1536 / 768): two TMA + wgmma GEMMs with fused epilogues (ffn_gemm.cuh)
+// and two row passes,
 //
 //   xb = bf16(x)                                     cast pass
-//   g  = bf16(GELU_erf(xb W1^T + b1))                GEMM 1, [R, I]
+//   u  = xb W1^T + b1                                GEMM 1, [R, I]
+//   g  = bf16(GELU_erf(u)); B2 also inter = bf16(u)    (its epilogue)
 //   B6: out = g W2^T                                 GEMM 2
 //   B1: out = g W2^T + b2 + x, then LayerNorm(out)   GEMM 2, row pass
+//   B2: out = (g W2^T + b2) * drop + x, then z = bf16(out) and
+//       LayerNorm(out)                               GEMM 2, row pass
 //
 // with the same rounding points as above (the intermediate goes through
 // memory already rounded to bf16, as the WMMA kernel rounds it in shared
-// memory).  What bounds it: the two products, 4 R H I FLOP (69 GFLOP at
-// the video shape: 0.069 ms of tensor-core time at 989 TFLOP/s), against
-// which the bf16 intermediate adds 2 x 67 MB of traffic at the video
-// shape (~0.04 ms at 3.35 TB/s, partly in L2) and the row passes ~60 MB.
-// The weights are read from L2 once per 128 (or 64) rows instead of once
-// per 16.  The LayerNorm is a row pass and not GEMM 2's epilogue: a block
-// owns 128 of the H = 512 / 768 columns, and a block of all H columns
-// would hold a [64, 768] fp32 accumulator, 384 registers a thread of one
-// warpgroup.  Other widths, and fp32, keep the WMMA / FMA kernels.  The
-// caller chooses the route (ops/ffn.py:gemm_route): a tile id >= 0 takes
-// this one, whose launcher refuses a shape or type it does not take; -1
-// the WMMA / FMA kernel.
+// memory; the GELU is taken of the unrounded u).  What bounds it: the two
+// products, 4 R H I FLOP (69 GFLOP at the video eval shape: 0.069 ms of
+// tensor-core time at 989 TFLOP/s; 44 GFLOP at B2's b32 video shape),
+// against which the bf16 intermediate adds 2 x 67 MB of traffic at the
+// video eval shape (~0.04 ms at 3.35 TB/s, partly in L2; B2 also writes
+// inter, 43 MB at b32) and the row passes ~60 MB.  The weights are read
+// from L2 once per 128 (or 64) rows instead of once per 16.  The
+// LayerNorm is a row pass and not GEMM 2's epilogue: a block owns 128 of
+// the H = 512 / 768 columns, and a block of all H columns would hold a
+// [64, 768] fp32 accumulator, 384 registers a thread of one warpgroup.
+// Other widths, fp32, and B7 keep the WMMA / FMA kernels.  The caller
+// chooses the route (ops/ffn.py:gemm_route): a tile id >= 0 takes this
+// one, whose launcher refuses a shape or type it does not take; -1 the
+// WMMA / FMA kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -415,7 +421,7 @@ int dispatch(const float* x, const void* w1, const float* b1, const void* w2,
                        stream);
 }
 
-// ---- the bf16 eval route: cast, two GEMMs, row pass ----------------------
+// ---- the bf16 GEMM route: cast, two GEMMs, row pass ---------------------
 
 // x fp32 -> bf16, round to nearest even; n4 groups of 4 values.
 __global__ void __launch_bounds__(256)
@@ -429,7 +435,7 @@ ffn_cast_bf16_kernel(const float4* __restrict__ x,
   }
 }
 
-// GEMM 1's epilogue: g = bf16(GELU_erf(acc + b1)), [R, ld].
+// GEMM 1's epilogue for B1 and B6: g = bf16(GELU_erf(acc + b1)), [R, ld].
 struct GeluEpilogue {
   const float* b1;
   bf16* g;
@@ -442,13 +448,22 @@ struct GeluEpilogue {
   }
 };
 
-// GEMM 2's epilogue for B6: the unreduced partial, fp32.
-struct PartialEpilogue {
-  float* out;
+// GEMM 1's epilogue for B2: u = acc + b1 in fp32, stored as inter =
+// bf16(u) for the backward, and g = bf16(GELU_erf(u)) of the unrounded u.
+struct GeluInterEpilogue {
+  const float* b1;
+  bf16* inter;
+  bf16* g;
   int ld;
   __device__ __forceinline__ void operator()(int r, int c, float v0,
                                              float v1) const {
-    *reinterpret_cast<float2*>(out + size_t(r) * ld + c) = make_float2(v0, v1);
+    const size_t at = size_t(r) * ld + c;
+    const float2 b = *reinterpret_cast<const float2*>(b1 + c);
+    const float u0 = v0 + b.x, u1 = v1 + b.y;
+    *reinterpret_cast<__nv_bfloat162*>(inter + at) =
+        __floats2bfloat162_rn(u0, u1);
+    *reinterpret_cast<__nv_bfloat162*>(g + at) =
+        __floats2bfloat162_rn(gelu_erf(u0), gelu_erf(u1));
   }
 };
 
@@ -469,11 +484,33 @@ struct ResidualEpilogue {
   }
 };
 
+// GEMM 2's epilogue for B2: z = (acc + b2) * drop + x in fp32, stored to
+// out for the row pass.
+struct DropResidualEpilogue {
+  const float* b2;
+  const float* drop;
+  const float* x;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const size_t at = size_t(r) * ld + c;
+    const float2 b = *reinterpret_cast<const float2*>(b2 + c);
+    const float2 d = *reinterpret_cast<const float2*>(drop + at);
+    const float2 xv = *reinterpret_cast<const float2*>(x + at);
+    *reinterpret_cast<float2*>(out + at) =
+        make_float2((v0 + b.x) * d.x + xv.x, (v1 + b.y) * d.y + xv.y);
+  }
+};
+
 // LayerNorm of the rows of y [R, H] in place (fast variance, as
 // layer_norm_epilogue), one warp per row, H % 128 == 0 and H <= MAX_H.
+// kWriteZ (B2) also stores the rows before the norm as z [R, H] in bf16.
+template <bool kWriteZ>
 __global__ void __launch_bounds__(256)
 ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, int R, int H, float eps) {
+                   const float* __restrict__ beta, bf16* __restrict__ z,
+                   int R, int H, float eps) {
   constexpr int kMaxV = MAX_H / 128;  // float4s a lane
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= R) return;
@@ -487,6 +524,9 @@ ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
   for (int j = 0; j < kMaxV; ++j) {
     if (j < nv) {
       v[j] = yr[j * 32 + lane];
+      if constexpr (kWriteZ) {
+        store_bf16x4(z + size_t(row) * H + (j * 32 + lane) * 4, v[j]);
+      }
       s += v[j].x + v[j].y + v[j].z + v[j].w;
       s2 += v[j].x * v[j].x + v[j].y * v[j].y + v[j].z * v[j].z +
             v[j].w * v[j].w;
@@ -512,35 +552,33 @@ ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
   }
 }
 
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// B1 (kPartial false) or B6 on the GEMM route: xb [R, H] and g [R, I] are
-// bf16 scratch from the caller; ``tile`` an id of mmt_gemm::kTileRows.
-// Takes bf16 with H and I multiples of 128 and H <= MAX_H (the row pass),
+// B1, B6 or B2 on the GEMM route: xb [R, H] and g [R, I] are bf16
+// scratch from the caller; ``tile`` an id of mmt_gemm::kTileRows.  Takes
+// bf16 with H and I multiples of 128 and H <= MAX_H (the row pass), and
+// every pointer its mode reads or writes non-null and 16-byte aligned,
 // else cudaErrorInvalidValue.
-template <bool kPartial>
-int eval_gemm_route(const float* x, const void* w1, const float* b1,
-                    const void* w2, const float* b2, const float* gamma,
-                    const float* beta, float* out, void* xb, void* g, int R,
-                    int H, int I, float eps, int compute_dtype, int tile,
-                    cudaStream_t stream) {
-  if (compute_dtype != 1 || H % mmt_gemm::BN || I % mmt_gemm::BN ||
-      H > MAX_H) {
+template <Mode kMode>
+int launch_route(const float* x, const void* w1, const float* b1,
+                 const void* w2, const float* b2, const float* gamma,
+                 const float* beta, const float* drop, float* out, void* inter,
+                 void* z, void* xb, void* g, int R, int H, int I, float eps,
+                 int compute_dtype, int tile, cudaStream_t stream) {
+  static_assert(kMode != Mode::kTrainPartial, "B7 keeps the WMMA kernel");
+  constexpr bool kPartial = kMode == Mode::kPartial;
+  constexpr bool kTrain = kMode == Mode::kTrain;
+  if (compute_dtype != 1 || H <= 0 || I <= 0 || H % mmt_gemm::BN ||
+      I % mmt_gemm::BN || H > MAX_H || R <= 0 || tile < 0 ||
+      tile >= mmt_gemm::kNumTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* ptrs[] = {x, w1, b1, w2, out, xb, g};
+  const void* ptrs[] = {x,    w1,   b1,    w2,   out,  xb,   g,
+                        kPartial ? x : b2,  kPartial ? x : gamma,
+                        kPartial ? x : beta, kTrain ? drop : x,
+                        kTrain ? inter : x, kTrain ? z : x};
   for (const void* p : ptrs) {
     if (p == nullptr || !aligned16(p)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-  }
-  if (!kPartial && (!aligned16(b2) || !aligned16(gamma) || !aligned16(beta))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (R <= 0 || tile < 0 || tile >= mmt_gemm::kNumTiles) {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t n4 = size_t(R) * H / 4;
   const int cast_blocks = int(n4 / 256 + 1 < 1056 ? n4 / 256 + 1 : 1056);
@@ -549,20 +587,34 @@ int eval_gemm_route(const float* x, const void* w1, const float* b1,
       n4);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  const bf16* xbb = static_cast<const bf16*>(xb);
+  const bf16* w1b = static_cast<const bf16*>(w1);
+  const bf16* w2b = static_cast<const bf16*>(w2);
   bf16* gb = static_cast<bf16*>(g);
-  err = mmt_gemm::tn_gemm(static_cast<const bf16*>(xb),
-                          static_cast<const bf16*>(w1), R, I, H, tile,
-                          GeluEpilogue{b1, gb, I}, stream);
+  if constexpr (kTrain) {
+    err = mmt_gemm::tn_gemm(
+        xbb, w1b, R, I, H, tile,
+        GeluInterEpilogue{b1, static_cast<bf16*>(inter), gb, I}, stream);
+  } else {
+    err = mmt_gemm::tn_gemm(xbb, w1b, R, I, H, tile,
+                            GeluEpilogue{b1, gb, I}, stream);
+  }
   if (err) return err;
   if constexpr (kPartial) {
-    return mmt_gemm::tn_gemm(gb, static_cast<const bf16*>(w2), R, H, I, tile,
-                             PartialEpilogue{out, H}, stream);
+    return mmt_gemm::tn_gemm(gb, w2b, R, H, I, tile,
+                             mmt_gemm::PartialEpilogue{out, H}, stream);
   } else {
-    err = mmt_gemm::tn_gemm(gb, static_cast<const bf16*>(w2), R, H, I, tile,
-                            ResidualEpilogue{b2, x, out, H}, stream);
+    if constexpr (kTrain) {
+      err = mmt_gemm::tn_gemm(gb, w2b, R, H, I, tile,
+                              DropResidualEpilogue{b2, drop, x, out, H},
+                              stream);
+    } else {
+      err = mmt_gemm::tn_gemm(gb, w2b, R, H, I, tile,
+                              ResidualEpilogue{b2, x, out, H}, stream);
+    }
     if (err) return err;
-    ffn_ln_rows_kernel<<<(R + 7) / 8, 256, 0, stream>>>(out, gamma, beta, R,
-                                                        H, eps);
+    ffn_ln_rows_kernel<kTrain><<<(R + 7) / 8, 256, 0, stream>>>(
+        out, gamma, beta, static_cast<bf16*>(z), R, H, eps);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -580,9 +632,10 @@ extern "C" int mmt_ffn_block(const float* x, const void* w1, const float* b1,
                              void* xb, void* g, int R, int H, int I, float eps,
                              int compute_dtype, int tile, void* stream_ptr) {
   if (tile >= 0) {
-    return eval_gemm_route<false>(x, w1, b1, w2, b2, gamma, beta, out, xb, g,
-                                  R, H, I, eps, compute_dtype, tile,
-                                  static_cast<cudaStream_t>(stream_ptr));
+    return launch_route<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr,
+                                     out, nullptr, nullptr, xb, g, R, H, I, eps,
+                                     compute_dtype, tile,
+                                     static_cast<cudaStream_t>(stream_ptr));
   }
   if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
@@ -596,9 +649,17 @@ extern "C" int mmt_ffn_train_fwd(const float* x, const float* drop,
                                  const void* w1, const float* b1,
                                  const void* w2, const float* b2,
                                  const float* gamma, const float* beta,
-                                 float* out, void* inter, void* z, int R,
-                                 int H, int I, float eps, int compute_dtype,
+                                 float* out, void* inter, void* z, void* xb,
+                                 void* g, int R, int H, int I, float eps,
+                                 int compute_dtype, int tile,
                                  void* stream_ptr) {
+  if (tile >= 0) {
+    return launch_route<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop,
+                                      out, inter, z, xb, g, R, H, I, eps,
+                                      compute_dtype, tile,
+                                      static_cast<cudaStream_t>(stream_ptr));
+  }
+  if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop, out,
                                inter, z, R, H, I, eps, compute_dtype,
                                stream_ptr);
@@ -613,9 +674,11 @@ extern "C" int mmt_ffn_partial(const float* x, const void* w1,
                                void* xb, void* g, int R, int H, int I,
                                int compute_dtype, int tile, void* stream_ptr) {
   if (tile >= 0) {
-    return eval_gemm_route<true>(x, w1, b1, w2, nullptr, nullptr, nullptr,
-                                 out, xb, g, R, H, I, 0.0f, compute_dtype,
-                                 tile, static_cast<cudaStream_t>(stream_ptr));
+    return launch_route<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr,
+                                        nullptr, nullptr, out, nullptr, nullptr,
+                                        xb, g, R, H, I, 0.0f, compute_dtype,
+                                        tile,
+                                        static_cast<cudaStream_t>(stream_ptr));
   }
   if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr, nullptr,

@@ -1,13 +1,16 @@
 // TN GEMM for Hopper (sm_90a) with a fused epilogue, the building block
-// of the bf16 eval FFN block (B1) and its tensor-parallel partial (B6) in
-// ffn_block.cu:
+// of the bf16 FFN kernels on their GEMM route: the eval block (B1), its
+// tensor-parallel partial (B6) and the train forward (B2) in
+// ffn_block.cu, the train backward (B3) in ffn_train_bwd.cu:
 //
 //   C[M, N] = A[M, K] B[N, K]^T,  A and B bf16 with K contiguous,
 //   accumulated in fp32, each pair of neighbouring C values handed to
 //   epi(row, col, c[row, col], c[row, col + 1]) and never stored here.
 //
 // nn.Linear's [out, in] weights are [N, K] with K contiguous, so both
-// products of the FFN block are this shape without a transpose.
+// products of the forward are this shape without a transpose; the
+// backward's products read the weights transposed (ffn_train_bwd.cu makes
+// the copies).
 //
 // Design.  One block owns a BM x 128 tile of C (BM = 128 or 64, the id
 // of kTileRows, chosen per call by the caller).  Its K loop runs over
@@ -257,6 +260,17 @@ __global__ void __launch_bounds__(Shape<BM>::kThreads, 2)
     if (row + 8 < M) epi(row + 8, col + 8 * j, d[4 * j + 2], d[4 * j + 3]);
   }
 }
+
+// The epilogue that stores C in fp32, [M, ld]: B6's unreduced partial and
+// B3's dx without dz (its tensor-parallel partial).
+struct PartialEpilogue {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    *reinterpret_cast<float2*>(out + size_t(r) * ld + c) = make_float2(v0, v1);
+  }
+};
 
 // ---- host side -------------------------------------------------------------
 

@@ -25,7 +25,7 @@
 // walks I in chunks of 128: the chunk of dinter is made in shared memory
 // and consumed at once, and dx accumulates over the chunks in WMMA
 // register fragments; every block streams both weight matrices from L2,
-// which bounds this first version.  The text tower at b32 gives only 60
+// which bounds this WMMA kernel.  The text tower at b32 gives it only 60
 // blocks (960 rows) for 132 SMs.
 //
 // Layout: weights in nn.Linear's layout, w1 [I, H] and w2 [H, I].  Both
@@ -33,6 +33,25 @@
 // K = H, N = I; dinter W1: K = I, N = H), so the WMMA B fragments are
 // row_major, where the forward's are col_major.  bf16 compute uses WMMA
 // 16x16x16 bf16 fragments; fp32 compute uses plain FMA (no TF32).
+//
+// In bf16 with H and I multiples of 128 (every configuration under
+// configs/eccv20/) B3 takes the GEMM route of ffn_gemm.cuh instead, in
+// four launches with the same rounding points:
+//
+//   w1t = W1^T [H, I], w2t = W2^T [I, H]    one transpose launch
+//   dz, dffn = bf16(dz * drop), dx = dz     LayerNorm-backward row pass
+//   dinter = bf16((dffn w2t^T) * gelu'(inter))   GEMM A, K = H
+//   dx = dinter w1t^T + dx                  GEMM B, K = I
+//
+// The TN template reads B as [N, K] with K contiguous, so the weights are
+// transposed into scratch once per call (3 MB each in bf16 at the
+// flagship widths) rather than giving the template a second B layout.
+// GEMM B with add_dz = 0 stores the product alone (the partial).  dinter
+// goes through device memory as an output already, so the split costs
+// only dffn ([R, H] bf16) and dx's fp32 round trip.  The weights are read
+// from L2 once per 128 (or 64) rows instead of once per 16, and the text
+// shape (960 rows) gives 90 blocks of 64 rows in GEMM B and 360 in GEMM
+// A, against the WMMA kernel's 60.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +60,7 @@
 #include <cstddef>
 
 #include "ffn_common.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
@@ -318,22 +338,211 @@ int launch(void (*fn)(BWD_PARAMS(TC)), const float* dy, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the bf16 GEMM route: transposes, row pass, two GEMMs ---------------
+
+// w1 [I, H] -> w1t [H, I] (blockIdx.z 0) and w2 [H, I] -> w2t [I, H]
+// (blockIdx.z 1) in one launch, as raw 16-bit words, a 32 x 32 tile a
+// block through shared memory (row stride 34: 17 words, so a column read
+// hits 32 banks).  H and I multiples of 32; blockIdx.x walks the (H / 32)
+// (I / 32) tiles.
+__global__ void __launch_bounds__(256)
+ffn_transpose_bf16_kernel(const uint16_t* __restrict__ w1,
+                          const uint16_t* __restrict__ w2,
+                          uint16_t* __restrict__ w1t,
+                          uint16_t* __restrict__ w2t, int H, int I) {
+  __shared__ uint16_t tile[32][34];
+  const bool second = blockIdx.z == 1;
+  const uint16_t* src = second ? w2 : w1;
+  uint16_t* dst = second ? w2t : w1t;
+  const int rows = second ? H : I, cols = second ? I : H;  // src [rows, cols]
+  const int tiles_c = cols / 32;
+  const int r0 = (blockIdx.x / tiles_c) * 32, c0 = (blockIdx.x % tiles_c) * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int k = ty; k < 32; k += 8) {
+    tile[k][tx] = src[size_t(r0 + k) * cols + c0 + tx];
+  }
+  __syncthreads();
+  for (int k = ty; k < 32; k += 8) {
+    dst[size_t(c0 + k) * rows + r0 + tx] = tile[tx][k];
+  }
+}
+
+// LayerNorm backward of dy at z, one warp per row, with ln_backward's
+// arithmetic (fast variance, fp32): stores dz and dffn = dz * drop in
+// bf16, both rounded from the unrounded fp32 dz, and that fp32 dz to dx
+// unless dx is null.  H % 128 == 0 and H <= MAX_H.
+__global__ void __launch_bounds__(256)
+ffn_ln_bwd_rows_kernel(const float* __restrict__ dy, const bf16* __restrict__ z,
+                       const float* __restrict__ drop,
+                       const float* __restrict__ gamma, bf16* __restrict__ dz,
+                       bf16* __restrict__ dffn, float* __restrict__ dx, int R,
+                       int H, float eps) {
+  constexpr int kMaxV = MAX_H / 128;  // groups of 4 columns a lane
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= R) return;
+  const size_t base = size_t(row) * H;
+  const int nv = H / 128;
+  float4 zh[kMaxV], dg[kMaxV];  // z, then zhat; dy * gamma
+  float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxV; ++j) {
+    if (j < nv) {
+      const float4 v = load_bf16x4(z + base + (j * 32 + lane) * 4);
+      zh[j] = v;
+      s += v.x + v.y + v.z + v.w;
+      s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  const float mean = s / H;
+  const float var = fmaxf(s2 / H - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + eps);
+  float sg = 0.0f, sgz = 0.0f;  // sums of dy*gamma and dy*gamma*zhat
+#pragma unroll
+  for (int j = 0; j < kMaxV; ++j) {
+    if (j < nv) {
+      const int c = (j * 32 + lane) * 4;
+      const float4 d = *reinterpret_cast<const float4*>(dy + base + c);
+      const float4 g = *reinterpret_cast<const float4*>(gamma + c);
+      dg[j] = make_float4(d.x * g.x, d.y * g.y, d.z * g.z, d.w * g.w);
+      zh[j] = make_float4((zh[j].x - mean) * rstd, (zh[j].y - mean) * rstd,
+                          (zh[j].z - mean) * rstd, (zh[j].w - mean) * rstd);
+      sg += dg[j].x + dg[j].y + dg[j].z + dg[j].w;
+      sgz += dg[j].x * zh[j].x + dg[j].y * zh[j].y + dg[j].z * zh[j].z +
+             dg[j].w * zh[j].w;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    sgz += __shfl_xor_sync(0xffffffffu, sgz, off);
+  }
+  const float mg = sg / H, mgz = sgz / H;
+#pragma unroll
+  for (int j = 0; j < kMaxV; ++j) {
+    if (j < nv) {
+      const int c = (j * 32 + lane) * 4;
+      const float4 d = make_float4(rstd * (dg[j].x - mg - zh[j].x * mgz),
+                                   rstd * (dg[j].y - mg - zh[j].y * mgz),
+                                   rstd * (dg[j].z - mg - zh[j].z * mgz),
+                                   rstd * (dg[j].w - mg - zh[j].w * mgz));
+      const float4 m = *reinterpret_cast<const float4*>(drop + base + c);
+      store_bf16x4(dz + base + c, d);
+      store_bf16x4(dffn + base + c,
+                   make_float4(d.x * m.x, d.y * m.y, d.z * m.z, d.w * m.w));
+      if (dx != nullptr) *reinterpret_cast<float4*>(dx + base + c) = d;
+    }
+  }
+}
+
+// GEMM A's epilogue: dinter = bf16(acc * (Phi(u) + u phi(u))) at
+// u = inter, [R, ld]; stored, and GEMM B's A operand.
+struct DgeluEpilogue {
+  const bf16* inter;
+  bf16* dinter;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const size_t at = size_t(r) * ld + c;
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(inter + at));
+    *reinterpret_cast<__nv_bfloat162*>(dinter + at) = __floats2bfloat162_rn(
+        v0 * gelu_erf_grad(u.x), v1 * gelu_erf_grad(u.y));
+  }
+};
+
+// GEMM B's epilogue with add_dz: dx = acc + dx, where dx holds the fp32
+// dz of the row pass.
+struct AccumulateEpilogue {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    float2* p = reinterpret_cast<float2*>(out + size_t(r) * ld + c);
+    const float2 d = *p;
+    *p = make_float2(v0 + d.x, v1 + d.y);
+  }
+};
+
+// B3 on the GEMM route: dffn [R, H], w1t [H, I] and w2t [I, H] are bf16
+// scratch from the caller; ``tile`` an id of mmt_gemm::kTileRows.  Takes
+// bf16 with H and I multiples of 128 and H <= MAX_H (the row pass), and
+// every pointer non-null and 16-byte aligned, else cudaErrorInvalidValue.
+int launch_bwd_route(const float* dy, const void* z, const void* inter,
+                     const float* drop, const void* w1, const void* w2,
+                     const float* gamma, float* dx, void* dz, void* dinter,
+                     void* dffn, void* w1t, void* w2t, int R, int H, int I,
+                     float eps, int compute_dtype, int add_dz, int tile,
+                     cudaStream_t stream) {
+  if (compute_dtype != 1 || H <= 0 || I <= 0 || H % mmt_gemm::BN ||
+      I % mmt_gemm::BN || H > MAX_H || R <= 0 || tile < 0 ||
+      tile >= mmt_gemm::kNumTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[] = {dy, z,  inter,  drop, w1,   w2,  gamma,
+                        dx, dz, dinter, dffn, w1t, w2t};
+  for (const void* p : ptrs) {
+    if (p == nullptr || !aligned16(p)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  bf16* w1tb = static_cast<bf16*>(w1t);
+  bf16* w2tb = static_cast<bf16*>(w2t);
+  bf16* dinterb = static_cast<bf16*>(dinter);
+  ffn_transpose_bf16_kernel<<<dim3((H / 32) * (I / 32), 1, 2), 256, 0,
+                              stream>>>(
+      static_cast<const uint16_t*>(w1), static_cast<const uint16_t*>(w2),
+      static_cast<uint16_t*>(w1t), static_cast<uint16_t*>(w2t), H, I);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  ffn_ln_bwd_rows_kernel<<<(R + 7) / 8, 256, 0, stream>>>(
+      dy, static_cast<const bf16*>(z), drop, gamma, static_cast<bf16*>(dz),
+      static_cast<bf16*>(dffn), add_dz ? dx : nullptr, R, H, eps);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = mmt_gemm::tn_gemm(static_cast<const bf16*>(dffn), w2tb, R, I, H,
+                          tile,
+                          DgeluEpilogue{static_cast<const bf16*>(inter),
+                                        dinterb, I},
+                          stream);
+  if (err) return err;
+  if (add_dz) {
+    return mmt_gemm::tn_gemm(dinterb, w1tb, R, H, I, tile,
+                             AccumulateEpilogue{dx, H}, stream);
+  }
+  return mmt_gemm::tn_gemm(dinterb, w1tb, R, H, I, tile,
+                           mmt_gemm::PartialEpilogue{dx, H}, stream);
+}
+
 }  // namespace
 
 // compute_dtype (shared with mmt_tpu_torch/ops/ffn.py): 0 = float32,
 // 1 = bfloat16.  dy, drop, gamma and dx are float32; z, inter, w1, w2, dz
-// and dinter are in the compute type.
+// and dinter are in the compute type.  ``tile`` >= 0 takes the GEMM route
+// with that block tile (an unknown id, or a shape or type the route does
+// not take, is refused), dffn [R, H], w1t [H, I] and w2t [I, H] bf16
+// scratch; -1 the WMMA or FMA kernel, the scratch unused.
 extern "C" int mmt_ffn_train_bwd(const float* dy, const void* z,
                                  const void* inter, const float* drop,
                                  const void* w1, const void* w2,
                                  const float* gamma, float* dx, void* dz,
-                                 void* dinter, int R, int H, int I, float eps,
-                                 int compute_dtype, int add_dz,
+                                 void* dinter, void* dffn, void* w1t,
+                                 void* w2t, int R, int H, int I, float eps,
+                                 int compute_dtype, int add_dz, int tile,
                                  void* stream_ptr) {
-  if (!shapes_ok(R, H, I, compute_dtype)) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (tile >= 0) {
+    return launch_bwd_route(dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter,
+                            dffn, w1t, w2t, R, H, I, eps, compute_dtype, add_dz,
+                            tile, stream);
+  }
+  if (tile != -1 || !shapes_ok(R, H, I, compute_dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (compute_dtype == 1) {
     return launch<bf16>(&ffn_train_bwd_bf16_kernel, dy, z, inter, drop, w1,
                         w2, gamma, dx, dz, dinter, R, H, I, eps, add_dz,

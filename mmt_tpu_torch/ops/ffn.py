@@ -6,9 +6,10 @@ each block is hand-written CUDA: the eval block (B1) and the train
 forward (B2, with the pre-scaled dropout mask on ffn_out before the
 residual) and their tensor-parallel partials (B6, B7) in
 csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.  In
-bf16 at the flagship's widths B1 and B6 run as two TMA + wgmma GEMMs with
-fused epilogues (csrc/ffn_gemm.cuh; ``gemm_route``, ``pick_gemm_tile``);
-otherwise one kernel keeps the [R, I] intermediate out of device memory.
+bf16 at the flagship's widths B1, B6, B2 and B3 run as two TMA + wgmma
+GEMMs with fused epilogues and row passes (csrc/ffn_gemm.cuh;
+``gemm_route``, ``pick_gemm_tile``); otherwise, and for B7, one kernel
+keeps the [R, I] intermediate out of device memory.
 Under autograd the eval blocks' backward is the vjp of ``ffn_block_ref``,
 the port of the JAX package's XLA reference, recomputed (as
 mmt_tpu/ops/ffn.py:_fused_ffn_fn's).  The ``*_plain`` functions are the same
@@ -87,21 +88,21 @@ MAX_H = 1024       # csrc/ffn_common.cuh: MAX_H, the widest row the kernels take
 
 
 def gemm_route(h, i, compute_dtype) -> bool:
-  """True if the eval block (B1) and its partial (B6) take the TMA +
-  wgmma GEMM route at widths H, I: bf16, H and I multiples of GEMM_COLS.
-  Else the WMMA kernel (bf16) or the FMA kernel (fp32) of
-  csrc/ffn_block.cu.  The one place the route is chosen: the wrappers pass
-  the C entry points a tile id on it and -1 off it."""
+  """True if the eval block (B1), its partial (B6), the train forward
+  (B2) and backward (B3) take the TMA + wgmma GEMM route at widths H, I:
+  bf16, H and I multiples of GEMM_COLS.  Else the WMMA kernel (bf16) or
+  the FMA kernel (fp32).  The one place the route is chosen: the wrappers
+  pass the C entry points a tile id on it and -1 off it."""
   return (compute_dtype == torch.bfloat16 and h % GEMM_COLS == 0
           and i % GEMM_COLS == 0 and h <= MAX_H)
 
 
 def pick_gemm_tile(rows, h, sms) -> int:
   """Id of the GEMM route's row tile for ``rows`` rows of width ``h`` on
-  a card with ``sms`` SMs: 128 rows while the second GEMM, the smaller
-  grid ([rows, H] in tiles of 128 columns), has a tile for every SM, else
-  64 rows (the text tower's 1,500 x 768: 72 tiles of 128 rows, 144 of
-  64)."""
+  a card with ``sms`` SMs, for every mode: 128 rows while the smaller of
+  the two GEMMs' grids ([rows, H] in tiles of 128 columns) has a tile for
+  every SM, else 64 rows (the text tower's 1,500 x 768 at eval: 72 tiles
+  of 128 rows, 144 of 64; its 960 x 768 at the b32 step: 48 and 90)."""
   return 0 if -(-rows // GEMM_TILES[0]) * (h // 128) >= sms else 1
 
 
@@ -160,20 +161,52 @@ def _launch(lib, name, dev, *args):
 _SMS = {}   # SM count by device index
 
 
-def _gemm_scratch(rows, h, i, compute_dtype, tile, dev):
-  """(scratch, the addresses of xb [R, H] and g [R, I] in it, tile id) of
-  a GEMM-route call: one bf16 allocation holds both (xb's R H values are
-  a multiple of 128, so g starts 256-byte aligned).  Off the route (None,
-  None, None, -1).  ``tile`` None picks it."""
-  if not gemm_route(h, i, compute_dtype):
-    return None, None, None, -1
+def _route_tile(rows, h, i, compute_dtype, tile, dev):
+  """The tile id a call passes C: -1 off the route, or when ``tile`` is -1
+  (the WMMA / FMA kernel at any shape, for checks); else ``tile``, picked
+  by ``pick_gemm_tile`` when None."""
+  if tile == -1 or not gemm_route(h, i, compute_dtype):
+    return -1
   if tile is None:
     if dev.index not in _SMS:
       _SMS[dev.index] = torch.cuda.get_device_properties(
           dev).multi_processor_count
     tile = pick_gemm_tile(rows, h, _SMS[dev.index])
-  buf = torch.empty(rows * (h + i), dtype=torch.bfloat16, device=dev)
-  return buf, buf.data_ptr(), buf.data_ptr() + 2 * rows * h, tile
+  return tile
+
+
+def _bf16_parts(dev, *sizes):
+  """One bf16 allocation of parts of ``sizes`` values, and each part's
+  address.  Every size on the route is a multiple of 128 values, so
+  every part starts 256-byte aligned."""
+  buf = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+  at = [buf.data_ptr()]
+  for n in sizes[:-1]:
+    at.append(at[-1] + 2 * n)
+  return buf, at
+
+
+def _gemm_scratch(rows, h, i, compute_dtype, tile, dev):
+  """(scratch, the addresses of xb [R, H] and g [R, I] in it, tile id) of
+  a GEMM-route call of B1, B6 or B2.  Off the route (None, None, None,
+  -1).  ``tile`` as for ``_route_tile``."""
+  tile = _route_tile(rows, h, i, compute_dtype, tile, dev)
+  if tile < 0:
+    return None, None, None, -1
+  buf, (xb, g) = _bf16_parts(dev, rows * h, rows * i)
+  return buf, xb, g, tile
+
+
+def _bwd_scratch(rows, h, i, compute_dtype, tile, dev):
+  """(scratch, the addresses of dffn [R, H], w1t [H, I] and w2t [I, H] in
+  it, tile id) of a GEMM-route call of B3: the LayerNorm backward's
+  rounded dffn and the weights transposed for the TN GEMMs.  Off the
+  route (None, None, None, None, -1)."""
+  tile = _route_tile(rows, h, i, compute_dtype, tile, dev)
+  if tile < 0:
+    return None, None, None, None, -1
+  buf, (dffn, w1t, w2t) = _bf16_parts(dev, rows * h, h * i, i * h)
+  return buf, dffn, w1t, w2t, tile
 
 
 def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype,
@@ -273,23 +306,26 @@ def ffn_train_fwd_plain(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
 
 
 def ffn_train_fwd_cuda(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
-                       compute_dtype):
+                       compute_dtype, tile=None):
   """Launch B2 (csrc/ffn_block.cu, train forward); same contract as
-  ``ffn_train_fwd_plain``, with w1/w2 in the compute dtype."""
+  ``ffn_train_fwd_plain``, with w1/w2 in the compute dtype.  ``tile`` as
+  for ``ffn_block_cuda``; -1 runs the WMMA kernel on the route too."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_train_fwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      tma=gemm_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), drop=(drop, (r, h)), b1=(b1, (i,)),
                b2=(b2, (h,)), gamma=(gamma, (h,)), beta=(beta, (h,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)
   inter = torch.empty((r, i), dtype=compute_dtype, device=dev)
   z = torch.empty((r, h), dtype=compute_dtype, device=dev)
+  scratch, xb, g, tile = _gemm_scratch(r, h, i, compute_dtype, tile, dev)
   _launch(_build.load_library(), "mmt_ffn_train_fwd", dev,
           x.data_ptr(), drop.data_ptr(), w1.data_ptr(), b1.data_ptr(),
           w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-          out.data_ptr(), inter.data_ptr(), z.data_ptr(), r, h, i,
-          float(eps), _DTYPE_CODES[compute_dtype])
+          out.data_ptr(), inter.data_ptr(), z.data_ptr(), xb, g, r, h, i,
+          float(eps), _DTYPE_CODES[compute_dtype], tile)
   ffn_train_fwd_cuda.launches += 1
   return out, inter, z
 
@@ -315,23 +351,27 @@ def ffn_train_bwd_plain(dy, z, inter, drop, w1, w2, gamma, *, eps,
 
 
 def ffn_train_bwd_cuda(dy, z, inter, drop, w1, w2, gamma, *, eps,
-                       compute_dtype, add_dz=True):
+                       compute_dtype, add_dz=True, tile=None):
   """Launch B3 (csrc/ffn_train_bwd.cu); same contract as
-  ``ffn_train_bwd_plain``, with w1/w2 in the compute dtype."""
+  ``ffn_train_bwd_plain``, with w1/w2 in the compute dtype.  ``tile`` as
+  for ``ffn_train_fwd_cuda``."""
   r, h, i = _weight_shapes(z, w1)
   dev = _check_operands(
       "ffn_train_bwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      tma=gemm_route(h, i, compute_dtype),
       f32=dict(dy=(dy, (r, h)), drop=(drop, (r, h)), gamma=(gamma, (h,))),
       cd=dict(z=(z, (r, h)), inter=(inter, (r, i)), w1=(w1, (i, h)),
               w2=(w2, (h, i))))
   dx = torch.empty((r, h), dtype=torch.float32, device=dev)
   dz = torch.empty((r, h), dtype=compute_dtype, device=dev)
   dinter = torch.empty((r, i), dtype=compute_dtype, device=dev)
+  scratch, dffn, w1t, w2t, tile = _bwd_scratch(r, h, i, compute_dtype, tile,
+                                               dev)
   _launch(_build.load_library(), "mmt_ffn_train_bwd", dev,
           dy.data_ptr(), z.data_ptr(), inter.data_ptr(), drop.data_ptr(),
           w1.data_ptr(), w2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-          dz.data_ptr(), dinter.data_ptr(), r, h, i, float(eps),
-          _DTYPE_CODES[compute_dtype], int(bool(add_dz)))
+          dz.data_ptr(), dinter.data_ptr(), dffn, w1t, w2t, r, h, i,
+          float(eps), _DTYPE_CODES[compute_dtype], int(bool(add_dz)), tile)
   ffn_train_bwd_cuda.launches += 1
   return dx, dz, dinter
 

@@ -177,6 +177,9 @@ def test_build_names_every_entry_point_with_its_arity():
   assert set(_build.HEADERS) == {p.name for p in _build.CSRC.glob("*.cuh")}
   found = _entry_points()
   assert "mmt_ffn_block" in found and "mmt_ffn_partial" in found
+  # The train entry points take the route's scratch and tile id too.
+  assert found["mmt_ffn_train_fwd"] == 20
+  assert found["mmt_ffn_train_bwd"] == 21
   assert found.pop("mmt_error_string") == 1
   assert set(found) == set(_build._SIGNATURES)
   for name, n in found.items():

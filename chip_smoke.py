@@ -103,9 +103,14 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    route) and B7 (train forward, video
    6,976 x 512 and text 960 x 768 rows), each also at a ragged 1,013 x
    768, and B3 with add_dz off on B7's residuals, all at I/mp = 1536,
-   bf16 and fp32, against their plain versions (B6 and B3 in bf16 also
-   with their device time and every row tile bitwise equal, as phases 2
-   and 4; B6 with ``gemms_ms``, B3 against its WMMA kernel).  A
+   bf16 and fp32, against their plain versions (B6, B7 and B3 in bf16
+   also with their device time, B6's and B7's also by kernel, and, at
+   the video and text shapes, every
+   row tile bitwise equal, as phases 2 and 4; B6 with ``gemms_ms``).  On
+   the GEMM route B7 and B3 also against their WMMA kernels
+   (``tile=-1``, the same rules; their event and device times), B7 with
+   ``host_ms``, and B7's partial bitwise equal to B6's on the same
+   inputs in every row tile.  A
    partial is not normalised, so the rules of phase 4 hold on its fp32
    outputs divided by the plain version's largest magnitude; the
    compute-dtype outputs keep phase 4's ulp rule.
@@ -169,11 +174,9 @@ def device_events(prof):
           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
-def device_ms(torch, fn, reps=20):
-  """Mean device time of one call: its kernels' own time under
-  torch.profiler over ``reps`` calls after a warm-up.  Unlike
-  ``time_ms`` it leaves out the gaps in which the device waits for the
-  host, which set the event time of calls that take under ~0.1 ms."""
+def device_split(torch, fn, reps=20):
+  """{device activity: mean device ms of it in one call} under
+  torch.profiler over ``reps`` calls after a warm-up."""
   from torch.profiler import ProfilerActivity, profile
 
   fn()
@@ -183,8 +186,24 @@ def device_ms(torch, fn, reps=20):
     for _ in range(reps):
       fn()
     torch.cuda.synchronize()
-  return sum(e.self_device_time_total
-             for e in device_events(prof)) / 1e3 / reps
+  return {e.key: e.self_device_time_total / 1e3 / reps
+          for e in device_events(prof)}
+
+
+def device_ms(torch, fn, reps=20):
+  """Mean device time of one call: its kernels' own time under
+  torch.profiler over ``reps`` calls after a warm-up.  Unlike
+  ``time_ms`` it leaves out the gaps in which the device waits for the
+  host, which set the event time of calls that take under ~0.1 ms."""
+  return sum(device_split(torch, fn, reps).values())
+
+
+def short_kernel_name(key):
+  """A device kernel's name without its return type, namespaces and
+  parameter list: ``ffn_tn_gemm_kernel<64, GeluInterEpilogue>``."""
+  for junk in ("void ", "(anonymous namespace)::", "mmt_gemm::"):
+    key = key.replace(junk, "")
+  return key.split("(")[0]
 
 
 class CardSampler:
@@ -1361,9 +1380,24 @@ def check_partial(torch, what, cd, got, want, cd_names):
   return max(float((got[n] - want[n]).abs().max()) for n in scale)
 
 
+def check_b7_is_b6(torch, ffn, what, args, kw):
+  """B7's partial is B6's, bit for bit, in every row tile of the GEMM
+  route: GEMM 1 computes g alike under both epilogues and GEMM 2 is the
+  same.  Raises otherwise."""
+  same = [torch.equal(ffn.ffn_train_fwd_partial_cuda(*args, **kw,
+                                                     tile=t)[0],
+                      ffn.ffn_partial_cuda(*args, **kw, tile=t))
+          for t in range(len(ffn.GEMM_TILES))]
+  print(f"  {what} out bitwise equal to ffn_partial's by row tile "
+        f"{ffn.GEMM_TILES}: {same}", flush=True)
+  if not all(same):
+    raise RuntimeError(f"{what}: B7's partial differs from B6's")
+
+
 def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
   """B6 and B7, and B3 with add_dz off on B7's residuals, against their
-  plain versions at the two-rank shapes (I/mp = 1536), bf16 and fp32.
+  plain versions at the two-rank shapes (I/mp = 1536), bf16 and fp32; on
+  the GEMM route B7 also against its WMMA kernel (``tile=-1``) and B6.
   Returns B6's and B7's line entries: the worst bf16 error, and the
   video-shape bf16 times and bound (no single PyTorch call computes
   either)."""
@@ -1375,16 +1409,15 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
       train = kname == "ffn_train_fwd_partial"
       kfn, pfn = getattr(ffn, f"{kname}_cuda"), getattr(ffn, f"{kname}_plain")
       names = ("out", "inter") if train else ("out",)
+      outs = lambda t: dict(zip(names, t if train else (t,)))
       for r, h in shapes:
         rand = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
         x = rand(r, h)
         w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
         args, kw = (x, w1, rand(i) * 0.02, w2), dict(compute_dtype=cd)
         tag = f"R={r} H={h} I={i} {str(cd).replace('torch.', '')}"
-        got, want = kfn(*args, **kw), pfn(*args, **kw)
-        if not train:
-          got, want = (got,), (want,)
-        got, want = dict(zip(names, got)), dict(zip(names, want))
+        route = ffn.gemm_route(h, i, cd)
+        got, want = outs(kfn(*args, **kw)), outs(pfn(*args, **kw))
         torch.cuda.synchronize()
         err = check_partial(torch, f"{kname} {tag}", cd, got, want,
                             ("inter",))
@@ -1392,22 +1425,36 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
         plain_ms = time_ms(torch, lambda: pfn(*args, **kw))
         b_ms, b_by = bound(4 * r * h * i, H100_BF16,
                            args + tuple(got.values()))
-        extra = ""
-        if not train and cd == torch.bfloat16:
-          dev_ms = device_ms(torch, lambda: kfn(*args, **kw))
+        extra, dev_ms = "", None
+        if cd == torch.bfloat16:
+          split = device_split(torch, lambda: kfn(*args, **kw))
+          dev_ms = sum(split.values())
           extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
-                   f"TFLOP/s) gemms_ms={gemms_ms(torch, x, w1, w2):.4f} (two "
-                   "bf16 torch.mm alone)")
-        print(f"{kname} {tag}: kernel_ms={ms:.4f} ({tflops(r, h, i, ms):.1f} "
-              f"TFLOP/s) plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}){extra} card: {card}", flush=True)
-        if (not train and ffn.gemm_route(h, i, cd) and r != 1013):
+                   "TFLOP/s) by kernel {" + ", ".join(
+                       f"{short_kernel_name(k)}: {v:.4f}"
+                       for k, v in split.items()) + "}")
+        if cd == torch.bfloat16 and not train:
+          extra += (f" gemms_ms={gemms_ms(torch, x, w1, w2):.4f} (two bf16 "
+                    "torch.mm alone)")
+        if route and train:
+          wmma = lambda: kfn(*args, **kw, tile=-1)
+          check_partial(torch, f"{kname} {tag} vs WMMA kernel", cd, got,
+                        outs(wmma()), ("inter",))
+          check_b7_is_b6(torch, ffn, f"{kname} {tag}", args, kw)
+          extra += (f" wmma_ms={time_ms(torch, wmma):.4f} wmma_device_ms="
+                    f"{device_ms(torch, wmma):.4f} host_ms="
+                    f"{host_ms(torch, lambda: kfn(*args, **kw))}")
+        print(f"{kname} {tag} ({'gemm' if route else 'wmma/fma'} route): "
+              f"kernel_ms={ms:.4f} ({tflops(r, h, i, ms):.1f} TFLOP/s) "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}){extra} "
+              f"card: {card}", flush=True)
+        if route and r != 1013:
           check_tiles_equal(torch, ffn, f"{kname} {tag}", kfn, args, kw)
         if cd == torch.bfloat16:
           res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], err)
           if (r, h) == shapes[0]:
             res[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by)
+                              bound_by=b_by, device_ms=dev_ms)
         if not train:
           continue
         # B3 as the tensor-parallel backward runs it, on B7's residuals.

@@ -39,8 +39,8 @@ _SIGNATURES = {
                                       _P],
     # x, w1, b1, w2, out, xb, g, R, H, I, compute_dtype, tile, stream
     "mmt_ffn_partial": [_P] * 7 + [_I] * 5 + [_P],
-    # x, w1, b1, w2, out, inter, R, H, I, compute_dtype, stream
-    "mmt_ffn_train_fwd_partial": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # x, w1, b1, w2, out, inter, xb, g, R, H, I, compute_dtype, tile, stream
+    "mmt_ffn_train_fwd_partial": [_P] * 8 + [_I] * 5 + [_P],
     # dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter, dffn, w1t, w2t,
     # R, H, I, eps, compute_dtype, add_dz, tile, stream
     "mmt_ffn_train_bwd": [_P] * 13 + [_I, _I, _I, ctypes.c_float, _I, _I,

@@ -55,16 +55,15 @@
 // Ragged row counts are masked: rows past R are staged as zeros and never
 // stored.
 //
-// The bf16 eval block (B1), its partial (B6) and the train forward (B2)
-// take another route where H and I are multiples of 128 (every
-// configuration under configs/eccv20/: H = 512 / 768, I = 3072, I/mp =
-// 1536 / 768): two TMA + wgmma GEMMs with fused epilogues (ffn_gemm.cuh)
-// and two row passes,
+// In bf16 all four take another route where H and I are multiples of
+// 128 (every configuration under configs/eccv20/: H = 512 / 768, I =
+// 3072, I/mp = 1536 / 768): two TMA + wgmma GEMMs with fused epilogues
+// (ffn_gemm.cuh) and up to two row passes,
 //
 //   xb = bf16(x)                                     cast pass
 //   u  = xb W1^T + b1                                GEMM 1, [R, I]
-//   g  = bf16(GELU_erf(u)); B2 also inter = bf16(u)    (its epilogue)
-//   B6: out = g W2^T                                 GEMM 2
+//   g  = bf16(GELU_erf(u)); B2, B7 also inter = bf16(u)   (its epilogue)
+//   B6, B7: out = g W2^T                             GEMM 2
 //   B1: out = g W2^T + b2 + x, then LayerNorm(out)   GEMM 2, row pass
 //   B2: out = (g W2^T + b2) * drop + x, then z = bf16(out) and
 //       LayerNorm(out)                               GEMM 2, row pass
@@ -76,12 +75,13 @@
 // tensor-core time at 989 TFLOP/s; 44 GFLOP at B2's b32 video shape),
 // against which the bf16 intermediate adds 2 x 67 MB of traffic at the
 // video eval shape (~0.04 ms at 3.35 TB/s, partly in L2; B2 also writes
-// inter, 43 MB at b32) and the row passes ~60 MB.  The weights are read
-// from L2 once per 128 (or 64) rows instead of once per 16.  The
+// inter, 43 MB at b32, B7 half that) and the row passes ~60 MB.  The
+// weights are read from L2 once per 128 (or 64) rows instead of once per
+// 16.  The
 // LayerNorm is a row pass and not GEMM 2's epilogue: a block owns 128 of
 // the H = 512 / 768 columns, and a block of all H columns would hold a
 // [64, 768] fp32 accumulator, 384 registers a thread of one warpgroup.
-// Other widths, fp32, and B7 keep the WMMA / FMA kernels.  The caller
+// Other widths and fp32 keep the WMMA / FMA kernels.  The caller
 // chooses the route (ops/ffn.py:gemm_route): a tile id >= 0 takes this
 // one, whose launcher refuses a shape or type it does not take; -1 the
 // WMMA / FMA kernel.
@@ -552,7 +552,7 @@ ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
   }
 }
 
-// B1, B6 or B2 on the GEMM route: xb [R, H] and g [R, I] are bf16
+// B1, B6, B2 or B7 on the GEMM route: xb [R, H] and g [R, I] are bf16
 // scratch from the caller; ``tile`` an id of mmt_gemm::kTileRows.  Takes
 // bf16 with H and I multiples of 128 and H <= MAX_H (the row pass), and
 // every pointer its mode reads or writes non-null and 16-byte aligned,
@@ -563,8 +563,12 @@ int launch_route(const float* x, const void* w1, const float* b1,
                  const float* beta, const float* drop, float* out, void* inter,
                  void* z, void* xb, void* g, int R, int H, int I, float eps,
                  int compute_dtype, int tile, cudaStream_t stream) {
-  static_assert(kMode != Mode::kTrainPartial, "B7 keeps the WMMA kernel");
-  constexpr bool kPartial = kMode == Mode::kPartial;
+  // Writes inter (B2, B7); stops at the unreduced partial (B6, B7); takes
+  // the mask and writes z (B2).
+  constexpr bool kInter =
+      kMode == Mode::kTrain || kMode == Mode::kTrainPartial;
+  constexpr bool kPartial =
+      kMode == Mode::kPartial || kMode == Mode::kTrainPartial;
   constexpr bool kTrain = kMode == Mode::kTrain;
   if (compute_dtype != 1 || H <= 0 || I <= 0 || H % mmt_gemm::BN ||
       I % mmt_gemm::BN || H > MAX_H || R <= 0 || tile < 0 ||
@@ -574,7 +578,7 @@ int launch_route(const float* x, const void* w1, const float* b1,
   const void* ptrs[] = {x,    w1,   b1,    w2,   out,  xb,   g,
                         kPartial ? x : b2,  kPartial ? x : gamma,
                         kPartial ? x : beta, kTrain ? drop : x,
-                        kTrain ? inter : x, kTrain ? z : x};
+                        kInter ? inter : x, kTrain ? z : x};
   for (const void* p : ptrs) {
     if (p == nullptr || !aligned16(p)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -591,7 +595,7 @@ int launch_route(const float* x, const void* w1, const float* b1,
   const bf16* w1b = static_cast<const bf16*>(w1);
   const bf16* w2b = static_cast<const bf16*>(w2);
   bf16* gb = static_cast<bf16*>(g);
-  if constexpr (kTrain) {
+  if constexpr (kInter) {
     err = mmt_gemm::tn_gemm(
         xbb, w1b, R, I, H, tile,
         GeluInterEpilogue{b1, static_cast<bf16*>(inter), gb, I}, stream);
@@ -690,9 +694,17 @@ extern "C" int mmt_ffn_partial(const float* x, const void* w1,
 // [R, I] in the compute type.
 extern "C" int mmt_ffn_train_fwd_partial(const float* x, const void* w1,
                                          const float* b1, const void* w2,
-                                         float* out, void* inter, int R,
-                                         int H, int I, int compute_dtype,
+                                         float* out, void* inter, void* xb,
+                                         void* g, int R, int H, int I,
+                                         int compute_dtype, int tile,
                                          void* stream_ptr) {
+  if (tile >= 0) {
+    return launch_route<Mode::kTrainPartial>(
+        x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, out, inter,
+        nullptr, xb, g, R, H, I, 0.0f, compute_dtype, tile,
+        static_cast<cudaStream_t>(stream_ptr));
+  }
+  if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kTrainPartial>(x, w1, b1, w2, nullptr, nullptr,
                                        nullptr, nullptr, out, inter, nullptr,
                                        R, H, I, 0.0f, compute_dtype,

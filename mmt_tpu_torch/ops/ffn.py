@@ -6,10 +6,10 @@ each block is hand-written CUDA: the eval block (B1) and the train
 forward (B2, with the pre-scaled dropout mask on ffn_out before the
 residual) and their tensor-parallel partials (B6, B7) in
 csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.  In
-bf16 at the flagship's widths B1, B6, B2 and B3 run as two TMA + wgmma
-GEMMs with fused epilogues and row passes (csrc/ffn_gemm.cuh;
-``gemm_route``, ``pick_gemm_tile``); otherwise, and for B7, one kernel
-keeps the [R, I] intermediate out of device memory.
+bf16 at the flagship's widths all five run as two TMA + wgmma GEMMs with
+fused epilogues and row passes (csrc/ffn_gemm.cuh; ``gemm_route``,
+``pick_gemm_tile``); otherwise one kernel keeps the [R, I] intermediate
+out of device memory.
 Under autograd the eval blocks' backward is the vjp of ``ffn_block_ref``,
 the port of the JAX package's XLA reference, recomputed (as
 mmt_tpu/ops/ffn.py:_fused_ffn_fn's).  The ``*_plain`` functions are the same
@@ -88,8 +88,9 @@ MAX_H = 1024       # csrc/ffn_common.cuh: MAX_H, the widest row the kernels take
 
 
 def gemm_route(h, i, compute_dtype) -> bool:
-  """True if the eval block (B1), its partial (B6), the train forward
-  (B2) and backward (B3) take the TMA + wgmma GEMM route at widths H, I:
+  """True if the eval block (B1), the train forward (B2) and backward
+  (B3) and the partials (B6, B7) take the TMA + wgmma GEMM route at
+  widths H, I:
   bf16, H and I multiples of GEMM_COLS.  Else the WMMA kernel (bf16) or
   the FMA kernel (fp32).  The one place the route is chosen: the wrappers
   pass the C entry points a tile id on it and -1 off it."""
@@ -188,7 +189,7 @@ def _bf16_parts(dev, *sizes):
 
 def _gemm_scratch(rows, h, i, compute_dtype, tile, dev):
   """(scratch, the addresses of xb [R, H] and g [R, I] in it, tile id) of
-  a GEMM-route call of B1, B6 or B2.  Off the route (None, None, None,
+  a GEMM-route call of B1, B6, B2 or B7.  Off the route (None, None, None,
   -1).  ``tile`` as for ``_route_tile``."""
   tile = _route_tile(rows, h, i, compute_dtype, tile, dev)
   if tile < 0:
@@ -505,20 +506,23 @@ def ffn_partial_cuda(x, w1, b1, w2, *, compute_dtype, tile=None):
 ffn_partial_cuda.launches = 0
 
 
-def ffn_train_fwd_partial_cuda(x, w1, b1, w2, *, compute_dtype):
+def ffn_train_fwd_partial_cuda(x, w1, b1, w2, *, compute_dtype, tile=None):
   """Launch B7 (csrc/ffn_block.cu, train partial); same contract as
-  ``ffn_train_fwd_partial_plain``, with w1/w2 in the compute dtype."""
+  ``ffn_train_fwd_partial_plain``, with w1/w2 in the compute dtype.
+  ``tile`` as for ``ffn_train_fwd_cuda``."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_train_fwd_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
+      tma=gemm_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)
   inter = torch.empty((r, i), dtype=compute_dtype, device=dev)
+  scratch, xb, g, tile = _gemm_scratch(r, h, i, compute_dtype, tile, dev)
   _launch(_build.load_library(), "mmt_ffn_train_fwd_partial", dev,
           x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-          out.data_ptr(), inter.data_ptr(), r, h, i,
-          _DTYPE_CODES[compute_dtype])
+          out.data_ptr(), inter.data_ptr(), xb, g, r, h, i,
+          _DTYPE_CODES[compute_dtype], tile)
   ffn_train_fwd_partial_cuda.launches += 1
   return out, inter
 

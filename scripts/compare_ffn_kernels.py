@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the FFN kernels (B1 ffn_block, B6 ffn_partial, B2
-ffn_train_fwd, B3 ffn_train_bwd) of two checkouts of this repository on
-one NVIDIA GPU.
+ffn_train_fwd, B3 ffn_train_bwd, B7 ffn_train_fwd_partial) of two
+checkouts of this repository on one NVIDIA GPU.
 
   python3 scripts/compare_ffn_kernels.py OLD_TREE NEW_TREE
 
@@ -13,15 +13,18 @@ inputs made from a seed: B1 at the video (10,900 x 512), text (1,500 x
 768) and ragged (1,013 x 768) shapes with I = 3,072, B6 at the video and
 text shapes with I/mp = 1,536, B2 and B3 (add_dz on and off) at the b32
 train step's video (6,976 x 512), text (960 x 768) and the ragged shape
-with I = 3,072.  Each process builds its tree's kernels,
+with I = 3,072, B7 at those three shapes with I/mp = 1,536.  Each
+process builds its tree's kernels,
 times them (and the plain version) with CUDA events and their device
 time under torch.profiler ("device": without the host's gaps), and saves
 what they return.  The two trees need not agree bitwise (a new kernel may sum in
 another order): each output of one tree must lie within the bf16 rule of
 chip_smoke.py's kernel phase of the other's (max abs 3e-2, mean 2e-3; a
 partial divided by its largest magnitude first; B2's and B3's outputs by
-``check_outputs``, the rules of its train-kernel phase), and each tree
-must repeat itself bitwise.  Prints the times side by side with the card's
+``check_outputs``, the rules of its train-kernel phase, B7's by
+``check_partial``, those of its partial-kernel phase), and each tree
+must repeat itself bitwise; whether the trees agree bitwise is printed.
+Prints the times side by side with the card's
 name and power limit; exits 1 if a rule fails or no CUDA device is there.
 """
 
@@ -40,6 +43,8 @@ CASES = ((("ffn_block", 10900, 512, 3072), ("ffn_block", 1500, 768, 3072),
           ("ffn_block", 1013, 768, 3072), ("ffn_partial", 10900, 512, 1536),
           ("ffn_partial", 1500, 768, 1536))
          + tuple((name, r, h, 3072) for name in TRAIN_CASES
+                 for r, h in TRAIN_SHAPES)
+         + tuple(("ffn_train_fwd_partial", r, h, 1536)
                  for r, h in TRAIN_SHAPES))
 MAX_ERR, MEAN_ERR = 3e-2, 2e-3
 
@@ -71,7 +76,7 @@ def child(out_path):
   times, outputs = {}, {}
   for case_name, r, h, i in CASES:
     name, *flag = case_name.split()
-    if name.startswith("ffn_train"):
+    if name in ("ffn_train_fwd", "ffn_train_bwd"):
       fargs, dy = clock.train_inputs(torch, dropout, r, h, bf16, dev, gen)
       kw = dict(eps=1e-12, compute_dtype=bf16)
       args = fargs
@@ -126,6 +131,20 @@ def train_agreement(torch, clock, case, new, old):
   return True
 
 
+def partial_agreement(torch, clock, case, new, old):
+  """B7's outputs (out, inter) of the two trees by chip_smoke.py's
+  ``check_partial``: True if both lie within its rules."""
+  names = ("out", "inter")
+  try:
+    clock.check_partial(torch, f"{case}: new vs old", torch.bfloat16,
+                        dict(zip(names, new)), dict(zip(names, old)),
+                        ("inter",))
+  except RuntimeError as e:
+    print(e)
+    return False
+  return True
+
+
 def main(argv):
   if len(argv) == 3 and argv[1] == "--child":
     child(argv[2])
@@ -156,17 +175,23 @@ def main(argv):
     new = first["new"]["outputs"][case]
     repeat = all(all(map(torch.equal, first[w]["outputs"][case],
                          run["outputs"][case])) for w, run in runs)
-    if case.startswith("ffn_train"):
+    same = all(map(torch.equal, new, old))
+    if case.startswith("ffn_train_fwd_partial"):
+      good = partial_agreement(torch, clock, case, new, old)
+      print(f"{case}: new vs old within the partial-kernel rules {good}; "
+            f"bitwise equal {same}; each tree repeats itself bitwise {repeat}")
+    elif case.startswith("ffn_train"):
       good = train_agreement(torch, clock, case, new, old)
       print(f"{case}: new vs old within the train-kernel rules {good}; "
-            f"each tree repeats itself bitwise {repeat}")
+            f"bitwise equal {same}; each tree repeats itself bitwise {repeat}")
     else:
       max_err, mean_err = agreement(new[0], old[0],
                                     case.startswith("ffn_partial"))
       good = max_err <= MAX_ERR and mean_err <= MEAN_ERR
       print(f"{case}: new vs old max_abs_diff={max_err:.3e} "
             f"mean_abs_diff={mean_err:.3e} (rule {MAX_ERR:.0e} / "
-            f"{MEAN_ERR:.0e}); each tree repeats itself bitwise {repeat}")
+            f"{MEAN_ERR:.0e}); bitwise equal {same}; each tree repeats "
+            f"itself bitwise {repeat}")
     ok = ok and good and repeat
   print(f"card: {card}")
   for name in runs[0][1]["times"]:

@@ -180,6 +180,7 @@ def test_build_names_every_entry_point_with_its_arity():
   # The train entry points take the route's scratch and tile id too.
   assert found["mmt_ffn_train_fwd"] == 20
   assert found["mmt_ffn_train_bwd"] == 21
+  assert found["mmt_ffn_train_fwd_partial"] == 14
   assert found.pop("mmt_error_string") == 1
   assert set(found) == set(_build._SIGNATURES)
   for name, n in found.items():

@@ -127,6 +127,22 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    steps every replicated parameter and buffer bitwise equal on both
    ranks.  Wall times are of two gloo ranks sharing one card: a
    correctness path, no claim of speed.  A failing rank fails the run.
+11. Train-CLI phase: ``mmt_tpu_torch.cli`` (the port of train.py) trains
+   the flagship config (bf16, b32, the loaders' own num_workers) on a
+   synthetic MSRVTT cut-c corpus written by the port's
+   ``synthetic.generate`` at the flagship's 7 experts and widths (1,000
+   train and 32 val videos, up to 30 feature rows, 3 captions; the
+   vocab padded to bert-base-cased's 28,996 entries) through the real
+   loader and its CUDA prefetch: 2 epochs of 8 steps with a continuous
+   eval of the 1,000 train videos after each (and before the first), a
+   restart to 3 epochs, then ``--only_eval --resume`` on the plain
+   versions.  Launches exactly 16 B1 per eval batch, 16 B2 and 16 B3
+   per step, one B4 per step and per eval; n_steps 16 then 24; finite
+   epoch losses; the checkpoints and artifacts written; the final sims
+   within 2e-2 of the plain versions'.  Prints the loop's median
+   data-loading, step and total ms (the trainer's timers) against phase
+   8's staged b32 step, and each 1,000-video eval's embed / similarity
+   / metrics seconds and videos/s against phase 6's staged eval-1k.
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -138,7 +154,12 @@ come on the line before them.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import math
+import os
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -354,14 +375,22 @@ def host_ms(torch, fn, reps=50, rounds=5):
 
 
 def ffn_phase(torch, ops, ffn, dev, gen, card):
-  """Each FFN case: kernel vs plain version; returns the kernel's line
-  entries (the bf16 cases' worst error, and the video-shape bf16 times
-  and bound: no single PyTorch call computes the block) and the bf16
-  kernel time of each (rows, H)."""
+  """Each FFN case: kernel vs plain version, at the eval shapes of the
+  staged eval-1k and of the train CLI's evals (phase 11, its ragged last
+  batch included); returns the kernel's line entries (the bf16 cases'
+  worst error, and the video-shape bf16 times and bound: no single
+  PyTorch call computes the block) and the bf16 kernel time of each
+  (rows, H)."""
   cases = [(10900, 512, 3072, torch.bfloat16), (1500, 768, 3072,
                                                 torch.bfloat16),
            (1013, 768, 3072, torch.bfloat16),
            (1013, 192, 768, torch.bfloat16),   # off the GEMM route: WMMA
+           # The train CLI's evals (phase 11): b32 video and text, and the
+           # last batch of 8 of 1,000 videos (64-row tile at H = 512).
+           (6976, 512, 3072, torch.bfloat16), (960, 768, 3072,
+                                               torch.bfloat16),
+           (1744, 512, 3072, torch.bfloat16), (240, 768, 3072,
+                                               torch.bfloat16),
            (10900, 512, 3072, torch.float32), (1500, 768, 3072,
                                                torch.float32),
            (1013, 768, 3072, torch.float32)]
@@ -383,6 +412,9 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
     plain_ms = time_ms(torch, lambda: ffn.ffn_block_plain(*args, **kw))
     name = str(cd).replace("torch.", "")
     route = "gemm" if ffn.gemm_route(h, i, cd) else "wmma/fma"
+    if ffn.gemm_route(h, i, cd):
+      sms = torch.cuda.get_device_properties(dev).multi_processor_count
+      route += f", {ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)]}-row tile"
     dev_ms = device_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw))
     print(f"ffn_block R={r} H={h} I={i} {name} ({route} route): max_abs_err="
           f"{max_err:.3e} mean_abs_err={mean_err:.3e} kernel_ms={ms:.4f} "
@@ -731,10 +763,10 @@ def check_step(torch, what, loss, loss_ref, grads, grads_ref):
 def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   """The b32 train step of the full-width flagship (bf16): launch counts,
   kernel path vs plain path, 20 steps, then step times at b32 and b128.
-  Returns the launch counts of the counted step, its loss and gradients
-  (on the CPU) for the tensor-parallel phase, and ``step(batch_size,
-  seed)``, one more kernel-path step of the timed run, for the train
-  profile."""
+  Returns the launch counts of the counted step, the kernel path's b32
+  step time in ms (for the train-CLI phase), its loss and gradients (on
+  the CPU) for the tensor-parallel phase, and ``step(batch_size, seed)``,
+  one more kernel-path step of the timed run, for the train profile."""
   from mmt_tpu_torch.train import losses, optim, step
 
   arch = flagship.flagship_arch()
@@ -827,7 +859,7 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
     print(f"train step b{batch_size} runs kernel_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[False]]} plain_path_ms="
           f"{[round(x * 1e3, 3) for x in runs[True]]}", flush=True)
-  return (launches, loss_k, grads_k,
+  return (launches, times[TRAIN_BATCH][0], loss_k, grads_k,
           lambda batch_size, seed: run(opt, batches[batch_size], seed))
 
 
@@ -1769,6 +1801,325 @@ def profile_phase(torch, evaluate, ffn, model, batches, alone, card):
     raise RuntimeError(f"profiled eval launched B1 {b1_launches} times")
 
 
+# Phase 11: the flagship trained through the port's CLI and real loader.
+CLI_TRAIN_VIDEOS, CLI_VAL_VIDEOS = 1000, 32   # cut c: train 1,000, val 32
+CLI_MAX_FEATS, CLI_CAPTIONS = 30, 3
+CLI_VOCAB = 28996                             # bert-base-cased's table
+CLI_SAMPLES_PER_EPOCH = 256                   # 8 steps of b32 an epoch
+CLI_CORPUS_LIMIT_S = 60.0
+FLAGSHIP_CONFIG = "configs/eccv20/msrvtt_jsfusion_trainval.json"
+# The pickle layout files these as "<name>_c" (the challenge's experts);
+# phase 11 reads them under the flagship's names, so all 7 are read.
+CLI_CHALLENGE_NAMED = ("face", "ocr", "scene", "speech")
+CLI_COUNTED = {"ffn_block": "ffn_block_cuda",
+               "ffn_train_fwd": "ffn_train_fwd_cuda",
+               "ffn_train_bwd": "ffn_train_bwd_cuda"}
+
+
+def cli_config(data_dir, save_dir, epochs):
+  """The flagship config with only the data, splits, compute dtype,
+  epochs, samples per epoch and save_dir changed."""
+  with open(FLAGSHIP_CONFIG) as f:
+    cfg = json.load(f)
+  cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+  for key, split, caps in (("train_sets", "trainval", None),
+                           ("continuous_eval_sets", "train", 1),
+                           ("final_eval_sets", "val", 1)):
+    entry = cfg[key][0]
+    cfg[key] = [entry]
+    mix = entry["args"]["mix"][0]
+    mix.update(data_dir=str(data_dir), cut_name="c", split_name=split)
+    if caps is not None:
+      mix["captions_per_video"] = caps
+  cfg["trainer"].update(epochs=epochs, save_dir=str(save_dir),
+                        max_samples_per_epoch=CLI_SAMPLES_PER_EPOCH)
+  return cfg
+
+
+def cli_counts(ffn, similarity):
+  counts = {k: getattr(ffn, v).launches for k, v in CLI_COUNTED.items()}
+  counts["moe_similarity"] = similarity.sim_cuda.launches
+  return counts
+
+
+def cli_run(ffn, similarity, argv, want, what):
+  """cli.main(argv) with every counter set to 0 just before and read
+  just after; the counts must be ``want``."""
+  from mmt_tpu_torch import cli
+  for name in list(CLI_COUNTED.values()):
+    getattr(ffn, name).launches = 0
+  similarity.sim_cuda.launches = 0
+  tic = time.perf_counter()
+  trainer = cli.main(argv)
+  import torch
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - tic
+  got = cli_counts(ffn, similarity)
+  print(f"train-cli {what}: {wall:.1f} s, n_steps {trainer.n_steps}, "
+        f"launches {got}", flush=True)
+  if got != want:
+    raise RuntimeError(f"train-cli {what}: expected launches {want}, "
+                       f"got {got}")
+  return trainer
+
+
+def cli_loop_breakdown(torch, trainer, card):
+  """Where the loop's time goes, after the counted runs: the loaders
+  alone (assembly + the CUDA prefetch, no model), then one train epoch
+  and one 1,000-video eval of ``trainer`` under torch.profiler (device
+  time, the device's idle share of the wall, the top device ops)."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+
+  from mmt_tpu_torch.data import loader as loader_lib
+
+  def all_experts_read(batches):
+    """The batches, the first checked to hold every expert of the
+    config: none read as missing."""
+    for j, batch in enumerate(batches):
+      if j == 0:
+        ind = batch["features_ind"]
+        absent = [m for m in ind if not bool(np.asarray(ind[m]).any())]
+        if len(ind) != 7 or absent:
+          raise RuntimeError(f"train-cli: the loader read {sorted(ind)}; "
+                             f"absent from the first batch: {absent}")
+      yield batch
+
+  def drain(batches):
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    n = sum(1 for _ in loader_lib.device_prefetch(batches, "cuda"))
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - tic
+
+  entry = trainer.data_loaders["continuous_eval_sets"][0]
+  n, sec = drain(all_experts_read(iter(entry["loader"])))
+  print(f"train-cli loader alone, eval: {n} batches ({CLI_TRAIN_VIDEOS} "
+        f"videos, num_workers {entry['loader'].num_workers}) in {sec:.6f} s, "
+        f"{CLI_TRAIN_VIDEOS / sec:.1f} videos/s card: {card}", flush=True)
+  entry = trainer.data_loaders["train_sets"][0]
+  steps = CLI_SAMPLES_PER_EPOCH // entry.batch_size
+  n, sec = drain(itertools.islice(iter(entry["loader"]), steps))
+  print(f"train-cli loader alone, train: {n} batches of {entry.batch_size} "
+        f"in {sec:.6f} s, {sec * 1e3 / n:.3f} ms a batch card: {card}",
+        flush=True)
+
+  epoch = trainer.epochs + 1
+  for what, run in (("train epoch", lambda: trainer._train_epoch(epoch)),
+                    ("eval-1k", lambda: trainer._valid_epoch(epoch))):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      tic = time.perf_counter()
+      run()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - tic) * 1e3
+    dev_us = lambda e: e.self_device_time_total
+    dev = sorted(device_events(prof), key=dev_us, reverse=True)
+    total_ms = sum(map(dev_us, dev)) / 1e3
+    if not total_ms > 0:
+      raise RuntimeError("the profiler recorded no device time")
+    print(f"train-cli profile, {what} through the loader: wall "
+          f"{wall_ms:.3f} ms (under the profiler), device time "
+          f"{total_ms:.3f} ms in {sum(e.count for e in dev)} device "
+          f"activities, device idle share {1 - total_ms / wall_ms:.4f} "
+          f"card: {card}", flush=True)
+    for e in dev[:5]:
+      print(f"  top device op {dev_us(e) / 1e3:.3f} ms "
+            f"({dev_us(e) / 1e3 / total_ms:.2%}) x{e.count} {e.key[:110]}",
+            flush=True)
+
+
+def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
+                    staged_eval_s, card):
+  """``mmt_tpu_torch.cli`` trains the full-width flagship (bf16) on a
+  synthetic MSRVTT cut-c corpus at the flagship's 7 experts and real
+  widths through the real loader: 2 epochs, then a restart with 3, then
+  ``--only_eval --resume`` on the plain versions.  Checks the launches,
+  counters, losses and artifacts; prints the loop's timers against the
+  staged b32 step (phase 8) and eval-1k (phase 6).  Returns the launch
+  counts of the first run."""
+  import signal
+  import tempfile
+
+  import numpy as np
+
+  from mmt_tpu_torch.data import datasets, synthetic
+  from mmt_tpu_torch.experts import compute_dims
+  from mmt_tpu_torch.train import trainer as trainer_lib
+  from mmt_tpu_torch.utils import timing
+
+  class RecordingMeter(timing.AverageMeter):
+    """The trainer's timers, also keeping every value (medians)."""
+    seen = {}
+
+    def update(self, key, val, n=1):
+      super().update(key, val, n)
+      RecordingMeter.seen.setdefault(key, []).append(val)
+
+  root = pathlib.Path(tempfile.mkdtemp(prefix="mmt_train_cli_"))
+  prev_sigterm = signal.getsignal(signal.SIGTERM)
+  prev_meter = trainer_lib.AverageMeter
+  prev_vocab = os.environ.get("MMT_TPU_BERT_VOCAB")
+  prev_discover = datasets.discover_expert_paths
+
+  def discover_as_flagship(data_dir):
+    """The layout's expert files, the "*_c" ones under the config's
+    names; every expert of the config must have the tables the model
+    reads (the layout takes face-avg.pickle for face's fixed_seg)."""
+    paths = prev_discover(data_dir)
+    for mod in CLI_CHALLENGE_NAMED:
+      if mod + "_c" in paths:
+        paths[mod] = paths.pop(mod + "_c")
+    missing = [m for m in dims
+               if not {"fixed_seg", "max"} <= set(paths.get(m, ()))]
+    if missing:
+      raise RuntimeError(f"train-cli: no features for {missing}")
+    return paths
+
+  try:
+    with open(FLAGSHIP_CONFIG) as f:
+      dims = {m: d["dim"] for m, d in compute_dims(json.load(f)).items()}
+    tic = time.perf_counter()
+    data_dir = synthetic.generate(
+        root, num_videos=CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS,
+        num_test=CLI_VAL_VIDEOS, experts=dims,
+        captions_per_video=CLI_CAPTIONS, max_feats=CLI_MAX_FEATS, cut="c")
+    vocab = (root / "vocab.txt").read_text().splitlines()
+    vocab += [f"[unused{i}]" for i in range(CLI_VOCAB - len(vocab))]
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    corpus_s = time.perf_counter() - tic
+    size = sum(p.stat().st_size for p in data_dir.rglob("*")) / 2 ** 30
+    print(f"train-cli: corpus of {CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS} videos "
+          f"(cut c, {len(dims)} experts, {sum(dims.values())} floats a "
+          f"row, up to {CLI_MAX_FEATS} rows, {CLI_CAPTIONS} captions) "
+          f"written in {corpus_s:.1f} s, {size:.2f} GiB; vocab "
+          f"{len(vocab)}", flush=True)
+    if corpus_s > CLI_CORPUS_LIMIT_S:
+      print(f"train-cli: writing the corpus took over "
+            f"{CLI_CORPUS_LIMIT_S:.0f} s", flush=True)
+    os.environ["MMT_TPU_BERT_VOCAB"] = str(root / "vocab.txt")
+    trainer_lib.AverageMeter = RecordingMeter
+    datasets.discover_expert_paths = discover_as_flagship
+    exp = root / "exp"
+    cfg_path = root / "flagship_c.json"
+    cfg_path.write_text(json.dumps(cli_config(data_dir, exp, 2)))
+
+    per_eval = -(-CLI_TRAIN_VIDEOS // 32)        # 32 batches, the last 8
+    final_batches = -(-CLI_VAL_VIDEOS // 32)
+
+    def want(steps, evals, eval_batches):
+      return {"ffn_block": FFN_LAYERS * eval_batches,
+              "ffn_train_fwd": FFN_LAYERS * steps,
+              "ffn_train_bwd": FFN_LAYERS * steps,
+              "moe_similarity": steps + evals}
+
+    # 2 epochs: continuous evals at epochs 0, 1, 2 and the final eval.
+    steps = 2 * CLI_SAMPLES_PER_EPOCH // 32
+    first = want(steps, 4, 3 * per_eval + final_batches)
+    trainer = cli_run(ffn, similarity, ["--config", str(cfg_path),
+                                        "--device", "cuda"],
+                      first, "2 epochs")
+    if trainer.n_steps != steps:
+      raise RuntimeError(f"train-cli: n_steps {trainer.n_steps} != {steps}")
+    for name in ("checkpoint-epoch2.pth", "trained_model.pth",
+                 "exp_results.json", "exp_completed_flag.txt",
+                 "MSRVTT-val-sims.npy", "perf_log.txt", "config.json"):
+      if not (exp / name).exists():
+        raise RuntimeError(f"train-cli: {name} missing")
+
+    # Restart with 3 epochs: epoch 3 and its eval, then the final eval.
+    cfg = json.loads((exp / "config.json").read_text())
+    cfg["trainer"]["epochs"] = 3
+    (exp / "config.json").write_text(json.dumps(cfg, indent=4))
+    trainer = cli_run(ffn, similarity, ["--resume", str(exp),
+                                        "--device", "cuda"],
+                      want(steps // 2, 2, per_eval + final_batches),
+                      "--resume to 3 epochs")
+    if trainer.n_steps != steps * 3 // 2:
+      raise RuntimeError(f"train-cli: n_steps {trainer.n_steps} after the "
+                         f"restart != {steps * 3 // 2}")
+    with open(exp / "perf_log.txt") as f:
+      losses = [json.loads(line)["loss"] for line in f]
+    print(f"train-cli: epoch losses {losses}", flush=True)
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+      raise RuntimeError(f"train-cli: bad epoch losses {losses}")
+    kernel_sims = np.load(exp / "MSRVTT-val-sims.npy",
+                          allow_pickle=True)[()]["sims"]
+    results = json.loads((exp / "exp_results.json").read_text())["perfs"]
+    print(f"train-cli: final eval {json.dumps(results)}", flush=True)
+    # The counted runs' timers, before the breakdown adds its own.
+    seen = {k: list(v) for k, v in RecordingMeter.seen.items()}
+    cli_loop_breakdown(torch, trainer, card)
+
+    with ops.plain_versions():
+      cli_run(ffn, similarity, ["--resume", str(exp), "--only_eval",
+                                "--device", "cuda"],
+              {k: 0 for k in first}, "--only_eval --resume, plain versions")
+    plain_sims = np.load(exp / "MSRVTT-val-sims.npy",
+                         allow_pickle=True)[()]["sims"]
+    diff = float(np.abs(plain_sims - kernel_sims).max())
+    print(f"train-cli: final sims kernel vs plain max_abs_diff={diff:.3e} "
+          "(limit 2e-2)", flush=True)
+    if not np.isfinite(kernel_sims).all() or diff > 2e-2:
+      raise RuntimeError(f"train-cli: final sims differ by {diff} > 2e-2")
+
+    ms = lambda key, runs: [round(x * 1e3, 3) for x in runs.get(key, [])]
+    for key in ("train_batch.data_loading", "train_batch.step",
+                "train_batch.total"):
+      vals = seen[key]
+      print(f"train-cli loop {key} (trainer timer, {len(vals)} steps): "
+            f"median {statistics.median(vals) * 1e3:.3f} ms; all "
+            f"{ms(key, seen)}", flush=True)
+    # Sustained: the whole window, the stalls that open each epoch (the
+    # loader's threads starting cold) included: one epoch in 8 steps here.
+    steps_ms = [x * 1e3 for x in seen["train_batch.total"]]
+    per_epoch = CLI_SAMPLES_PER_EPOCH // 32
+    opening = steps_ms[::per_epoch]
+    rest = [x for j, x in enumerate(steps_ms) if j % per_epoch]
+    total = sum(steps_ms) / len(steps_ms)
+    median = statistics.median(steps_ms)
+    print(f"train-cli: sustained b32 step through the loader (whole "
+          f"window: {sum(steps_ms):.3f} ms over {len(steps_ms)} steps) "
+          f"{total:.3f} ms, samples/s {32e3 / total:.1f}; median "
+          f"{median:.3f} ms, samples/s {32e3 / median:.1f}; the "
+          f"{len(opening)} steps opening an epoch {statistics.mean(opening):.3f}"
+          f" ms on average, the other {len(rest)} "
+          f"{statistics.mean(rest):.3f}; against the staged b32 step "
+          f"{staged_step_ms:.3f} ms (phase 8): whole window "
+          f"{total / staged_step_ms:.4f}x, median "
+          f"{median / staged_step_ms:.4f}x card: {card}", flush=True)
+    # The eval timers in order: the first run's continuous evals (1,000
+    # videos) at epochs 0-2 and its final eval (32), the restart's
+    # continuous eval and final eval, the plain --only_eval's final eval.
+    evals = [0, 1, 2, 4]
+    parts = {k: [seen[k][i] for i in evals]
+             for k in ("valid.embds", "valid.conf_mat", "valid.metrics")}
+    for i in range(len(evals)):
+      e, c, m = (parts[k][i] for k in parts)
+      print(f"train-cli eval-1k through the loader #{i}: embed {e:.6f} s, "
+            f"similarity {c:.6f} s, metrics {m:.6f} s; "
+            f"{CLI_TRAIN_VIDEOS / (e + c):.1f} videos/s (embed + "
+            "similarity)", flush=True)
+    e, c, m = (statistics.median(parts[k]) for k in parts)
+    print(f"train-cli: eval-1k through the loader (median of {len(evals)}) "
+          f"embed {e:.6f} + similarity {c:.6f} + metrics {m:.6f} = "
+          f"{e + c + m:.6f} s against the staged eval-1k "
+          f"{staged_eval_s:.6f} s (phase 6, embed + similarity + ranks); "
+          f"videos/s through the loader {CLI_TRAIN_VIDEOS / (e + c):.1f} "
+          f"card: {card}", flush=True)
+    return first
+  finally:
+    trainer_lib.AverageMeter = prev_meter
+    datasets.discover_expert_paths = prev_discover
+    signal.signal(signal.SIGTERM, prev_sigterm)
+    if prev_vocab is None:
+      os.environ.pop("MMT_TPU_BERT_VOCAB", None)
+    else:
+      os.environ["MMT_TPU_BERT_VOCAB"] = prev_vocab
+    shutil.rmtree(root, ignore_errors=True)
+
+
 class PhaseClock:
   """Seconds of each phase: ``done(name)`` ends the phase that began at
   the last call (or at construction) and prints its seconds."""
@@ -1920,7 +2271,7 @@ def main():
   torch.cuda.empty_cache()
   clock.done("at-scale")
 
-  train_launches, *step_ref, step = train_step_phase(
+  train_launches, staged_step_ms, *step_ref, step = train_step_phase(
       torch, flagship, ops, ffn, similarity, dev, card)
   clock.done("train-step")
   train_profile_phase(torch, ffn, dropout, step, train_alone, dev, gen, card)
@@ -1930,6 +2281,11 @@ def main():
   tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
   del sims, step_ref
   clock.done("tp")
+  cli_launches = train_cli_phase(torch, ops, ffn, similarity,
+                                 staged_step_ms, k_s, card)
+  print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
+        flush=True)
+  clock.done("train-cli")
   entries["ffn_block"]["launches"] = launches["ffn_block"]
   entries["moe_similarity"]["launches"] = launches["moe_similarity"]
   for name in ("ffn_train_fwd", "ffn_train_bwd"):

@@ -5,7 +5,10 @@ forward in models/, the MoE similarity and the retrieval ranks and
 metrics in ops/, train/metrics.py, evaluate.py) and the train step
 (train/step.py, train/losses.py, train/optim.py, dropout and train-mode
 BatchNorm in models/), both also under tensor parallelism (parallel/,
-the Megatron layout over torch.distributed).  Hand-written sm_90a CUDA
+the Megatron layout over torch.distributed), and the training entry
+point (cli.py, ``python -m mmt_tpu_torch.train``: the data side in
+data/, tokenization.py, config.py, checkpoints and the trainer in
+train/).  Hand-written sm_90a CUDA
 kernels carry them on the card: the fused FFN block, eval and train
 forward and their tensor-parallel partials (ops/ffn.py,
 csrc/ffn_block.cu), its backward (csrc/ffn_train_bwd.cu), the fused MoE

@@ -1,0 +1,206 @@
+"""Training entry point of the port.
+
+Port of train.py, the same surface:
+
+  python -m mmt_tpu_torch.train --config configs/eccv20/X.json
+      [--resume EXPDIR] [--load_checkpoint PTH] [--only_eval]
+      [--device cuda|cpu] [-v]
+
+Builds tokenizer -> data loaders -> model -> loss -> optimizer ->
+schedule -> visualizer -> trainer, then trains and runs the final eval,
+writing the JAX CLI's artifacts (``.pth`` checkpoints in place of
+``.msgpack``).  ``--device`` is a torch device and defaults to ``cuda``;
+without a card, pass ``--device cpu``: the port never falls back to the
+CPU by itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import random
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+# Default location of converted pretrained text-BERT weights, as in
+# train.py (the JAX package's msgpack asset).
+TXT_BERT_INIT_DEFAULT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "txt_bert_init.msgpack")
+
+
+def build_data_loaders(config, expert_dims, tokenizer):
+  from mmt_tpu_torch.registry import build
+  import mmt_tpu_torch.data.loader  # noqa: F401 (registers ExpertDataLoader)
+
+  loaded_data = {}
+  loaders = {}
+  for key, training in (("train_sets", True), ("continuous_eval_sets", False),
+                        ("final_eval_sets", False)):
+    loaders[key] = [
+        build("data_loader", spec, raw_input_dims=expert_dims,
+              training=training, tokenizer=tokenizer, loaded_data=loaded_data,
+              cross_seed=config.cross_seed)
+        for spec in config.get(key, [])
+    ]
+  return loaders
+
+
+def resolve_txt_bert_init(config, arch_value, txt_agg, custom_geometry=False):
+  """Locate pretrained text-BERT init weights for a bertftn run, in
+  train.py's order (MMT_TPU_TXT_BERT_INIT env > arch.args
+  "txt_bert_init" > the default asset, if present).  Returns a path or
+  None; with none found (and no resume) it warns that the text tower
+  starts from random weights, as train.py does."""
+  from mmt_tpu_torch.config import TxtAggSpec
+
+  spec = TxtAggSpec.parse(txt_agg) if txt_agg[:4] == "bert" else None
+  env_value = os.environ.get("MMT_TPU_TXT_BERT_INIT")
+  if spec is None or spec.state not in ("ftn", "frz"):
+    if arch_value:
+      raise ValueError(
+          f"txt_bert_init={arch_value!r} conflicts with txt_agg={txt_agg!r}: "
+          "only bertftn/bertfrz towers start from pretrained weights "
+          "(model/model.py:150-162)")
+    return None
+  explicit = env_value or arch_value
+  if explicit:
+    if not os.path.isfile(explicit):
+      raise FileNotFoundError(f"txt_bert_init not found: {explicit}")
+    return explicit
+  if custom_geometry:
+    return None
+  if os.path.isfile(TXT_BERT_INIT_DEFAULT):
+    return TXT_BERT_INIT_DEFAULT
+  if config.resume is None:
+    logger.warning(
+        "txt_agg=%s: no pretrained text-BERT weights found — txt_bert is "
+        "RANDOMLY initialized (the reference always starts from pretrained "
+        "bert-base-cased).", txt_agg)
+  return None
+
+
+def _is_custom_text_geometry(geom):
+  """True when a text_bert_geometry override departs from bert-base-cased
+  (train.py:_is_custom_text_geometry)."""
+  if not geom:
+    return False
+  import dataclasses
+  from mmt_tpu_torch.config import TEXT_BERT_BASE_CASED
+  stock = dataclasses.asdict(TEXT_BERT_BASE_CASED)
+  return any(stock.get(k) != v for k, v in dict(geom).items())
+
+
+def build_trainer(config, device="cuda"):
+  """Construct the fully-wired Trainer for ``config`` on ``device``
+  (model, loaders, optimizer, schedule) without running it."""
+  from mmt_tpu_torch.experts import compute_dims
+  from mmt_tpu_torch.models.cenet import CENet, cenet_kwargs_from_arch_args
+  from mmt_tpu_torch.registry import build, get
+  from mmt_tpu_torch.tokenization import create_tokenizer
+  from mmt_tpu_torch.train.optim import build_optimizer, step_lr
+  from mmt_tpu_torch.train.trainer import Trainer, check_device
+  import mmt_tpu_torch.train.losses    # noqa: F401 (registry)
+  import mmt_tpu_torch.train.metrics   # noqa: F401 (registry)
+  import mmt_tpu_torch.utils.visualizer  # noqa: F401 (registry)
+
+  device = check_device(device)
+  expert_dims = compute_dims(config.raw)
+  logger.debug("experts: %s", expert_dims)
+
+  # Seeds (train.py:53-59): data-pipeline randomness is host-side numpy;
+  # model randomness flows through the trainer's torch.Generator.
+  seed = config.seed
+  random.seed(seed)
+  np.random.seed(seed)
+
+  arch_args = dict(config.arch_args)
+  tokenizer = create_tokenizer(arch_args.get("txt_inp", "bertftn"))
+  data_loaders = build_data_loaders(config, expert_dims, tokenizer)
+
+  model_kwargs, cfg_txt_bert_init = cenet_kwargs_from_arch_args(
+      arch_args, tokenizer)
+  txt_bert_init = resolve_txt_bert_init(
+      config, cfg_txt_bert_init, arch_args.get("txt_agg", "bertftn"),
+      custom_geometry=_is_custom_text_geometry(
+          model_kwargs.get("text_bert_geometry")))
+  model = CENet(expert_dims=expert_dims, device=device, **model_kwargs)
+
+  loss_fn = build("loss", config["loss"])
+  metrics = [(name, get("metric", name)) for name in config["metrics"]]
+  optimizer, base_lr = build_optimizer(config["optimizer"],
+                                       model.parameters())
+  sched_args = config.get("lr_scheduler", {"args": {}}).get("args", {})
+  lr_schedule = step_lr(base_lr, sched_args.get("step_size", 1),
+                        sched_args.get("gamma", 1.0))
+
+  visualizer = None
+  if "visualizer" in config.raw:
+    visualizer = build("visualizer", config["visualizer"],
+                       exp_name=config.exper_name, web_dirs=config.web_dirs)
+
+  cfg_trainer = config["trainer"]
+  return Trainer(
+      model=model, loss_fn=loss_fn, metrics=metrics, optimizer=optimizer,
+      config=config, data_loaders=data_loaders,
+      lr_schedule=lr_schedule, visualizer=visualizer,
+      skip_first_n_saves=cfg_trainer.get("skip_first_n_saves", 0),
+      include_optim_in_ckpts=cfg_trainer.get("include_optim_in_ckpts",
+                                             False),
+      expert_dims=expert_dims,
+      num_keep_ckpts=cfg_trainer.get("num_keep_ckpts", 1),
+      tokenizer=tokenizer,
+      warmup_iterations=cfg_trainer.get("warmup_iterations", -1),
+      device=device, txt_bert_init=txt_bert_init)
+
+
+def train(config, device="cuda"):
+  trainer = build_trainer(config, device=device)
+  if not config.only_eval:
+    trainer.train()
+  trainer.evaluate()
+  return trainer
+
+
+def main(argv=None):
+  parser = argparse.ArgumentParser(description="mmt_tpu_torch trainer")
+  parser.add_argument("--config", default=None, type=str,
+                      help="config file path")
+  parser.add_argument("--resume", default=None, type=str,
+                      help="path to the experiment dir to resume")
+  parser.add_argument("--load_checkpoint", default=None, type=str,
+                      help="checkpoint (.pth) path for a warm start")
+  parser.add_argument("--device", default="cuda", type=str,
+                      help="torch device (default cuda; cpu runs the plain "
+                           "PyTorch versions of the kernels)")
+  parser.add_argument("--only_eval", action="store_true",
+                      help="skip training; evaluate only")
+  parser.add_argument("-v", "--verbose", action="store_true")
+  args = parser.parse_args(argv)
+
+  from mmt_tpu_torch import config as config_lib
+  from mmt_tpu_torch.train.trainer import check_device
+  device = check_device(args.device)
+  config = config_lib.from_args(args)
+
+  level = logging.DEBUG if args.verbose else logging.INFO
+  # force=True so a second experiment in the same process re-points the
+  # log file at its own exp dir (parse_config.py:103-117 behavior).
+  logging.basicConfig(
+      level=os.environ.get("LOGLEVEL", level),
+      format="%(message)s",
+      force=True,
+      handlers=[logging.FileHandler(config.save_dir / "log.txt"),
+                logging.StreamHandler()])
+  logger.info("Experiment directory: %s", config.save_dir)
+
+  epochs = config["trainer"]["epochs"]
+  save_period = config["trainer"].get("save_period", 1)
+  assert epochs >= save_period, (
+      f"epochs ({epochs}) must be >= save_period ({save_period}), "
+      "otherwise no checkpoint would ever be written")
+
+  return train(config, device=device)

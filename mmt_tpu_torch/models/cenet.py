@@ -4,8 +4,11 @@ Port of mmt_tpu/models/cenet.py for the MSRVTT-jsfusion flagship:
 txt_agg ``bertftn`` (CLS of a bert-base-cased tower), txt_pro ``gbn``
 (gated embedding units with BatchNorm), txt_wgh ``emb`` (MoE weights from
 the caption embedding), vid_inp ``both``, vid_cont ``bert``, vid_wgh
-``none``, pos_enc ``tint``, out_tok ``mxp``, missing modalities kept.  Any
-other value of a switch raises NotImplementedError.
+``none``, pos_enc ``tint``, out_tok ``mxp``, missing modalities kept,
+``l2renorm`` off (every configs/eccv20 model's; inert in the JAX package
+and the reference).  Any other value of a switch raises
+NotImplementedError.  ``cenet_kwargs_from_arch_args`` turns an
+experiment's ``arch.args`` into constructor arguments.
 
 The video tokens are ordered [CLS, agg x M, temporal x M x L], the JAX
 package's grouped order (semantically the reference's interleave: the
@@ -16,6 +19,7 @@ Module names are the reference's state-dict names (``txt_bert``,
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping, Optional
 
 import torch
@@ -32,7 +36,44 @@ FLAGSHIP_SWITCHES = dict(
     keep_missing_modalities=True, test_caption_mode="indep",
     txt_inp="bertftn", txt_agg="bertftn", txt_pro="gbn", txt_wgh="emb",
     vid_inp="both", vid_cont="bert", vid_wgh="none", pos_enc="tint",
-    out_tok="mxp", normalize_experts=True)
+    out_tok="mxp", normalize_experts=True, l2renorm=False)
+
+# Config value of ``compute_dtype`` -> torch dtype.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cenet_kwargs_from_arch_args(arch_args, tokenizer):
+  """CENet constructor kwargs from an experiment's ``arch.args``.
+
+  Port of mmt_tpu/models/cenet.py:cenet_kwargs_from_arch_args, the one
+  place where config-surface knobs become constructor arguments:
+
+  * reference-inert keys dropped (``vocab_size``);
+  * ``txt_bert_init`` extracted and RETURNED (training-only knob, not a
+    CENet argument);
+  * ``compute_dtype`` string -> torch dtype (COMPUTE_DTYPES);
+  * text vocab sizing from the tokenizer: the bert tower gets
+    ``text_bert_geometry.vocab_size`` when a custom geometry names one or
+    MMT_TPU_BERT_VOCAB is set.
+
+  Returns ``(kwargs, txt_bert_init_path_or_None)``.
+  """
+  kwargs = {k: v for k, v in dict(arch_args).items()
+            if k not in ("vocab_size",)}
+  txt_bert_init = kwargs.pop("txt_bert_init", None)
+  if "compute_dtype" in kwargs:
+    name = kwargs["compute_dtype"]
+    if name not in COMPUTE_DTYPES:
+      raise ValueError(f"compute_dtype {name!r}: expected one of "
+                       f"{sorted(COMPUTE_DTYPES)}")
+    kwargs["compute_dtype"] = COMPUTE_DTYPES[name]
+  if tokenizer is not None and hasattr(tokenizer, "vocab_size"):
+    geom = dict(kwargs.get("text_bert_geometry") or {})
+    if (dict(arch_args).get("txt_agg", "bert")[:4] == "bert"
+        and ("vocab_size" in geom or os.environ.get("MMT_TPU_BERT_VOCAB"))):
+      geom.setdefault("vocab_size", tokenizer.vocab_size)
+      kwargs["text_bert_geometry"] = geom
+  return kwargs, txt_bert_init
 
 
 class CENet(nn.Module):

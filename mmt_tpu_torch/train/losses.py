@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from mmt_tpu_torch.registry import register
 
+
+@register("loss", "MaxMarginRankingLoss")
 def max_margin_ranking_loss(margin: float = 1.0, fix_norm: bool = True):
   """Bidirectional max-margin ranking loss: relu(margin - x_ii + x_ij)
   over row negatives and relu(margin - x_ii + x_ji) over column
@@ -29,6 +32,7 @@ def max_margin_ranking_loss(margin: float = 1.0, fix_norm: bool = True):
   return loss_fn
 
 
+@register("loss", "InfoNceLoss")
 def info_nce_loss():
   """Symmetric cross-entropy over rows and columns, diagonal labels."""
   def loss_fn(x):

@@ -16,6 +16,7 @@ import scipy.stats
 import torch
 
 from mmt_tpu_torch.ops import ranking
+from mmt_tpu_torch.registry import register
 
 
 def cols2metrics(cols, num_queries):
@@ -37,6 +38,7 @@ def cols2metrics(cols, num_queries):
   return metrics
 
 
+@register("metric", "t2v_metrics")
 def t2v_metrics(sims, query_masks=None):
   """Text-to-video metrics from a [Q, V] similarity tensor."""
   assert sims.dim() == 2, "expected a matrix"
@@ -50,6 +52,7 @@ def t2v_metrics(sims, query_masks=None):
   return cols2metrics(cols, nq)
 
 
+@register("metric", "v2t_metrics")
 def v2t_metrics(sims, query_masks=None):
   """Video-to-text metrics (closest own caption) from [Q, V] sims."""
   assert sims.dim() == 2, "expected a matrix"

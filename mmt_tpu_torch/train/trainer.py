@@ -1,0 +1,774 @@
+"""Training runtime: epoch loop, eval, checkpoints, logs, on one device.
+
+Port of mmt_tpu/train/trainer.py (base/base_trainer.py:39-464 +
+trainer/trainer.py:55-493 semantics), single process:
+
+* each step is ``train.step.train_step`` (forward, 'avg' similarity,
+  loss, backward, optimizer) with the dropout masks drawn from one
+  ``torch.Generator`` seeded from ``config.seed``, whose state the
+  checkpoints carry;
+* eval embeds under ``torch.inference_mode()`` and ranks on the device,
+  from the [Q, V] similarity matrix or, at ``fused_eval_from_videos``
+  videos and more, straight from the embeddings (train/metrics.py);
+* batches reach the device through ``data.loader.device_prefetch``
+  (pinned memory, a side stream, 2 batches ahead);
+* epoch-0 eval-only baseline, curriculum train-set selection by
+  ``until_epoch``, ``max_samples_per_epoch`` caps, monitor / early-stop /
+  best-checkpoint, atomic checkpoint saves + stale purge, SIGTERM
+  preemption checkpoint, perf log and TensorBoard scalars (a null writer
+  without tensorboardX), final-eval artifacts (sims .npy, challenge CSV,
+  HTML ranking pages, exp_results.json + completion flag).
+
+Not ported (each raises NotImplementedError): the data mesh, tensor
+parallelism (``model_parallel``) and host-staged embeddings (ROADMAP.md
+A10), and the pretrained text-tower init (``txt_bert_init``, which reads
+the JAX package's msgpack assets).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import logging
+import math
+import os
+import pathlib
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from mmt_tpu_torch.config import parse_monitor
+from mmt_tpu_torch.data import loader as loader_lib
+from mmt_tpu_torch.ops import similarity as similarity_ops
+from mmt_tpu_torch.train import checkpoint as ckpt_lib
+from mmt_tpu_torch.train import metrics as metrics_lib
+from mmt_tpu_torch.train.optim import linear_warmup
+from mmt_tpu_torch.train.step import train_step
+from mmt_tpu_torch.utils.timing import (AverageMeter, profiler_trace,
+                                        update_perf_log)
+
+logger = logging.getLogger(__name__)
+
+MODEL_BATCH_KEYS = ("token_ids", "query_masks", "features", "features_t",
+                    "features_ind", "features_avgpool", "features_maxpool")
+
+
+def model_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+  """Strip host-only list fields (the analogue of move_dict_to_device's
+  tensor filter, trainer/trainer.py:36-52)."""
+  return {k: batch[k] for k in MODEL_BATCH_KEYS if k in batch}
+
+
+def compress_predictions(query_masks: np.ndarray, sims: np.ndarray,
+                         topk: int = 10) -> np.ndarray:
+  """Top-k ranked video indices per valid query (utils/util.py:37-68)."""
+  assert query_masks.ndim == 2 and sims.ndim == 2
+  nv, per_vid = query_masks.shape
+  nq, nv2 = sims.shape
+  assert nv == nv2 and nq == nv * per_vid
+  valid = sims[query_masks.flatten().astype(bool)]
+  return np.argsort(-valid, axis=1)[:, :topk]
+
+
+def _json_sanitize(obj):
+  """Replace non-finite floats with strings so the output is RFC-8259
+  JSON (json.dump would otherwise emit bare `Infinity`/`NaN`)."""
+  if isinstance(obj, dict):
+    return {k: _json_sanitize(v) for k, v in obj.items()}
+  if isinstance(obj, (list, tuple)):
+    return [_json_sanitize(v) for v in obj]
+  if isinstance(obj, float) and not math.isfinite(obj):
+    return str(obj)
+  return obj
+
+
+def check_device(device) -> torch.device:
+  """``device`` as a torch.device; a CUDA device without a card raises
+  (the port never falls back to the CPU)."""
+  device = torch.device(device)
+  if device.type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError(
+        f"device {device}: no CUDA device here; pass device='cpu' (the "
+        "CLI's --device cpu) to run on the CPU")
+  return device
+
+
+def _read_async(vals):
+  """Start the device->host copy of a stacked loss window: (host tensor,
+  event to wait on before reading it, or None)."""
+  if not vals.is_cuda:
+    return vals, None
+  host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+  host.copy_(vals, non_blocking=True)
+  done = torch.cuda.Event()
+  done.record()
+  return host, done
+
+
+class Trainer:
+  """Epoch-loop trainer over ``train.step.train_step``."""
+
+  def __init__(self, model, loss_fn, metrics, optimizer, config,
+               data_loaders, lr_schedule, visualizer=None,
+               skip_first_n_saves=0, include_optim_in_ckpts=False,
+               expert_dims=None, num_keep_ckpts=1, tokenizer=None,
+               warmup_iterations=-1, device="cuda", txt_bert_init=None):
+    self.device = check_device(device)
+    self.model = model
+    self.loss_fn = loss_fn
+    self.metrics = metrics                      # list of (name, fn)
+    self.optimizer = optimizer
+    self.config = config
+    self.data_loaders = data_loaders
+    self.lr_schedule = lr_schedule
+    self.visualizer = visualizer
+    self.skip_first_n_saves = skip_first_n_saves
+    self.include_optim_in_ckpts = include_optim_in_ckpts
+    self.num_keep_ckpts = num_keep_ckpts
+    self.tokenizer = tokenizer
+    self.warmup = linear_warmup(warmup_iterations)
+    self.modalities = list(expert_dims.keys()) if expert_dims else []
+
+    cfg_trainer = config["trainer"]
+    model_parallel = int(cfg_trainer.get("model_parallel", 1))
+    if model_parallel > 1:
+      raise NotImplementedError(
+          f"model_parallel={model_parallel}: the port's trainer runs one "
+          "device; tensor parallelism in the trainer is ROADMAP.md A10")
+    self.epochs = cfg_trainer["epochs"]
+    self.save_period = cfg_trainer.get("save_period", 1)
+    self.max_samples_per_epoch = cfg_trainer.get("max_samples_per_epoch",
+                                                 int(1e9))
+    monitor = cfg_trainer.get("monitor", "off")
+    self.mnt_mode, self.mnt_arg = parse_monitor(monitor)
+    if self.mnt_mode in ("min", "max"):
+      self.mnt_metric = self.mnt_arg
+      self._validate_monitor_metric()
+      self.mnt_best = np.inf if self.mnt_mode == "min" else -np.inf
+      self.early_stop = cfg_trainer.get("early_stop", np.inf)
+    else:
+      self.mnt_best = 0
+      self.given_epoch = self.mnt_arg if self.mnt_mode == "given_epoch" else -1
+
+    self.exp_dir = pathlib.Path(config.save_dir)
+    self.perf_log_path = self.exp_dir / "perf_log.txt"
+    self.timer = AverageMeter()
+    self.writer = self._make_writer(config.log_dir)
+    from mmt_tpu_torch.utils.hparams import get_hparams_from_config
+    self.hparams = get_hparams_from_config(config)
+
+    # A torch.profiler trace of the first trained epoch.
+    self.profile_dir = cfg_trainer.get("profile_dir")
+    # Batch invariants on the first batch of each epoch, on the host.
+    self.sanity_checks = bool(cfg_trainer.get("sanity_checks"))
+    # Eval sets with >= this many videos rank on the device from the
+    # embeddings (ops/ranking.py fused path); the [Q, V] similarity
+    # matrix is never materialized.  Applies where no sims artifact is
+    # required.
+    self.fused_eval_from_videos = cfg_trainer.get("fused_eval_from_videos",
+                                                  50_000)
+
+    # Preemption-safe checkpointing: SIGTERM triggers an atomic save
+    # before exit (the reference has no failure handling; its recovery is
+    # manual --resume).
+    self._install_preemption_handler()
+
+    # Background checkpoint writes: the device->host snapshot happens
+    # inline (the next step updates the parameters in place), the
+    # serialization + disk write overlap the next epoch.  trainer.args
+    # "async_checkpoint": false restores inline writes.
+    self._ckpt_writer = ckpt_lib.AsyncCheckpointWriter(
+        async_enabled=bool(cfg_trainer.get("async_checkpoint", True)))
+
+    self.start_epoch = 0
+    self.epoch = 0
+    self.loaded_epoch = 0
+    self.n_samples = 0
+    self.n_steps = 0
+
+    # Weights and the dropout stream from one generator seeded from the
+    # config (the JAX package splits one key for both).
+    self.generator = torch.Generator(device=self.device).manual_seed(
+        config.seed)
+    self._init_state()
+
+    if txt_bert_init is not None:
+      raise NotImplementedError(
+          f"txt_bert_init {txt_bert_init}: the pretrained text-tower init "
+          "reads the JAX package's msgpack assets, which the port cannot "
+          "read yet (ROADMAP.md, queue A)")
+
+    if config.resume is not None:
+      self._resume_checkpoint(config.resume)
+
+  # ------------------------------------------------------------------
+  def _validate_monitor_metric(self):
+    """Fail fast on a monitor key the epoch log will never contain
+    (mmt_tpu/train/trainer.py:288-321): '<dataset>/<metric_fn>/<name>'
+    for every continuous eval set, or one of the scalar epoch-log keys."""
+    scalar_keys = {"epoch", "loss", "learning_rate", "n_samples", "n_steps"}
+    if self.mnt_metric in scalar_keys:
+      return
+    ds_names = {e["dataset"].dataset_name
+                for e in self.data_loaders.get("continuous_eval_sets", [])}
+    metric_fns = {name for name, _ in self.metrics}
+    parts = self.mnt_metric.split("/")
+    ok = (len(parts) == 3 and parts[0] in ds_names
+          and parts[1] in metric_fns)
+    if ok and parts[1] in ("t2v_metrics", "v2t_metrics"):
+      ok = parts[2] in {"R1", "R5", "R10", "R50", "MedR", "MeanR",
+                        "geometric_mean_R1-R5-R10"}
+    if not ok:
+      hint = sorted(f"{ds}/{fn}/R1" for ds in ds_names
+                    for fn in metric_fns)[:4]
+      raise ValueError(
+          f"monitor metric {self.mnt_metric!r} will never appear in the "
+          f"epoch log (eval sets: {sorted(ds_names)}, metrics: "
+          f"{sorted(metric_fns)}); examples of valid keys: {hint} "
+          f"or scalar keys {sorted(scalar_keys)}")
+
+  # ------------------------------------------------------------------
+  def _install_preemption_handler(self):
+    import signal
+
+    self._preempt_requested = False
+
+    def handler(signum, frame):
+      # Defer the save to the next step boundary: the train loop checks
+      # the flag after every step.
+      logger.warning("SIGTERM received: checkpointing at the next step "
+                     "boundary")
+      self._preempt_requested = True
+
+    try:
+      signal.signal(signal.SIGTERM, handler)
+    except ValueError:
+      pass  # not the main thread (e.g. under some test runners)
+
+  def _maybe_preempt_exit(self, completed_epoch: int):
+    """If preemption was requested, checkpoint and exit 143.
+
+    The checkpoint is stamped with the last COMPLETED epoch: a mid-epoch
+    save that claimed the current epoch would make restart skip the rest
+    of that epoch's samples silently.  The (partially trained) weights
+    are still saved — they are strictly newer than the completed epoch's.
+    """
+    if not self._preempt_requested:
+      return
+    epoch, self.epoch = self.epoch, completed_epoch
+    try:
+      self._save_checkpoint(completed_epoch, save_best=False)
+      self._ckpt_writer.flush()  # the process exits right after
+      logger.warning("preemption checkpoint written (epoch %d complete); "
+                     "exiting", completed_epoch)
+    except Exception:
+      # A failed save must not masquerade as a clean preemption exit:
+      # log it loudly, then still exit 143 (the previous on-disk
+      # checkpoint survives).
+      logger.exception("preemption checkpoint FAILED; exiting without a "
+                       "fresh checkpoint (last periodic save is intact)")
+    finally:
+      self.epoch = epoch
+    raise SystemExit(143)
+
+  # ------------------------------------------------------------------
+  def _make_writer(self, log_dir):
+    class _Null:
+      def add_scalar(self, *a, **k): pass
+      def add_text(self, *a, **k): pass
+      def add_hparams(self, *a, **k): pass
+    try:
+      from tensorboardX import SummaryWriter
+    except ImportError:
+      return _Null()
+    return SummaryWriter(str(log_dir))
+
+  def _first_loader(self):
+    sets = (self.data_loaders.get("train_sets")
+            or self.data_loaders.get("continuous_eval_sets")
+            or self.data_loaders["final_eval_sets"])
+    return sets[0]
+
+  def _init_state(self):
+    """Random weights from the generator.  Also assembles one batch of
+    the first loader, as the JAX package's trainer does to take the
+    parameter shapes: that draw advances the global numpy stream, which
+    the train batches then continue from in both packages."""
+    next(iter(self._first_loader()["loader"]))
+    self.model.init_weights(self.generator)
+    n = sum(p.numel() for p in self.model.parameters())
+    logger.info("Initialized model: %s params", f"{n:,}")
+
+  # ------------------------------------------------------------------
+  # Train loop
+  # ------------------------------------------------------------------
+  def train(self):
+    not_improved_count = 0
+    for epoch in range(self.start_epoch, self.epochs + 1):
+      self.epoch = epoch
+      epoch_start = time.time()
+
+      with self.timer.time("epoch.train"):
+        # Capture a trace of the first trained epoch when asked.
+        with profiler_trace(self.profile_dir,
+                            enabled=bool(self.profile_dir) and epoch == 1):
+          result = self._train_epoch(epoch)
+      for key, val in result.items():
+        if np.isscalar(val):
+          self.writer.add_scalar(key, val, epoch)
+
+      with self.timer.time("epoch.valid"):
+        val_log = self._valid_epoch(epoch, sets="continuous_eval")
+      result.update(val_log)
+
+      log = {"epoch": epoch}
+      for key, value in result.items():
+        if key == "metrics":
+          for ds_name, ds_metrics in value.items():
+            for m_type, m_dict in ds_metrics.items():
+              for m_name, m_value in m_dict.items():
+                log[f"{ds_name}/{m_type}/{m_name}"] = m_value
+        else:
+          log[key] = value
+
+      best = False
+      if self.mnt_mode in ("min", "max"):
+        try:
+          lower = log[self.mnt_metric] <= self.mnt_best
+          higher = log[self.mnt_metric] >= self.mnt_best
+          improved = ((self.mnt_mode == "min" and lower)
+                      or (self.mnt_mode == "max" and higher))
+        except KeyError:
+          logger.warning("Metric %s not found; monitoring disabled",
+                         self.mnt_metric)
+          self.mnt_mode = "off"
+          improved, not_improved_count = False, 0
+        if improved:
+          self.mnt_best = log[self.mnt_metric]
+          not_improved_count = 0
+          best = True
+        else:
+          not_improved_count += 1
+        if not_improved_count > self.early_stop:
+          logger.info("No improvement for %s epochs; stopping",
+                      self.early_stop)
+          break
+
+      # 'save_best' decides whether an off-period save happens at all; the
+      # trained_model copy itself follows 'best' (base/base_trainer.py:181-193
+      # ordering — monitor='max epoch' refreshes trained_model every epoch).
+      save_best = best and getattr(self, "mnt_metric", None) != "epoch"
+      if self.mnt_mode == "given_epoch" and epoch == self.given_epoch:
+        save_best = True
+        best = True
+
+      with self.timer.time("epoch.checkpoint"):
+        if epoch < self.skip_first_n_saves:
+          logger.info("Skipping ckpt save at epoch %d < %d", epoch,
+                      self.skip_first_n_saves)
+        elif epoch % self.save_period == 0 or save_best:
+          self._save_checkpoint(epoch, save_best=best)
+        if epoch > self.num_keep_ckpts:
+          # Routed through the writer queue so the purge always sees the
+          # epoch's (possibly still in-flight) checkpoint file.
+          self._ckpt_writer.purge(self.exp_dir, self.num_keep_ckpts)
+      # SIGTERM between epochs (e.g. during the continuous eval above):
+      # this epoch IS complete, checkpoint it as such and exit.
+      self._maybe_preempt_exit(epoch)
+
+      self.timer.update("epoch.total", time.time() - epoch_start)
+      for key, entry in self.timer.dic.items():
+        log[f"timer.{key}.sum"] = entry["sum"]
+        self.writer.add_scalar(f"timer_epoch/{key}", entry["sum"], epoch)
+      self.writer.add_text("exp_dir", str(self.exp_dir), epoch)
+      self.timer.reset()
+
+      log["mnt_best"] = self.mnt_best
+      log["not_improved_count"] = not_improved_count
+      if np.isfinite(self.mnt_best):  # -inf until first improvement
+        self.writer.add_scalar("mnt_best", self.mnt_best, epoch)
+      try:
+        acc_key = getattr(self, "mnt_metric", None)
+        self.writer.add_hparams(
+            self.hparams,
+            {"hparam/accuracy": log.get(acc_key, 0),
+             "hparam/mnt_best": self.mnt_best,
+             "hparam/epoch": epoch},
+            name="hparams")
+      except Exception:  # pragma: no cover - tensorboardX quirk tolerance
+        pass
+
+      for name, value in log.items():
+        if "/cols" in name:
+          continue
+        (logger.debug if "timer." in name else logger.info)(
+            " %-30s: %s", name, value)
+      update_perf_log({k: v for k, v in log.items()
+                       if not k.endswith("cols")}, self.perf_log_path)
+
+    # Join the last background checkpoint write (and surface its error)
+    # before callers read the files (evaluate() loads trained_model).
+    self._ckpt_writer.flush()
+
+  def _select_train_set(self, epoch):
+    """Curriculum: first train set whose until_epoch >= epoch
+    (trainer/trainer.py:137-143; past the last until_epoch the final set
+    stays in use)."""
+    i = 0
+    sets = self.data_loaders["train_sets"]
+    while i < len(sets) - 1 and sets[i].until_epoch < epoch:
+      i += 1
+    return sets[i]
+
+  def _checked(self, batches):
+    """The host batches, the first one validated (utils/checks.py)."""
+    from mmt_tpu_torch.utils.checks import validate_batch
+    for i, batch in enumerate(batches):
+      if i == 0:
+        validate_batch(batch)
+      yield batch
+
+  def _train_epoch(self, epoch):
+    if epoch == 0:
+      # Eval-only baseline epoch (trainer/trainer.py:120-130).
+      return {"loss": 0, "learning_rate": self.lr_schedule(0),
+              "n_samples": self.n_samples, "n_steps": self.n_steps}
+
+    entry = self._select_train_set(epoch)
+    loader = entry["loader"]
+    batch_size, n_pairs = entry.batch_size, entry.n_pairs
+    max_batches = int(self.max_samples_per_epoch / n_pairs / batch_size)
+    batches_per_epoch = min(len(loader), max_batches)
+    log_step = max(1, int(np.sqrt(batch_size)))
+    # StepLR steps at end of each epoch; epoch e uses rate decayed e-1
+    # times (torch calls get_lr before step()).
+    epoch_lr = self.lr_schedule(epoch - 1)
+
+    # Losses stay on the device between log points: reading the scalar
+    # every step would serialize host and device (the reference pays
+    # this with loss.item() each step, trainer/trainer.py:206).  Window
+    # reads are PIPELINED one window deep: at each log point the stacked
+    # window starts an async device->host copy and the PREVIOUS window
+    # (whose copy has long since landed) is logged.
+    pending_losses: List[Any] = []
+    # [(batch_idx, (host window, event), batch_time when it closed)]
+    pending_reads: List[Any] = []
+    total_loss = 0.0
+
+    def drain(window):
+      nonlocal total_loss
+      idx, (host, done), bt = window
+      if done is not None:
+        done.synchronize()
+      vals = host.numpy()
+      total_loss += float(vals.sum())
+      logger.info("Train Epoch: %d [%d/%d] Loss: %.6f batch_time=%.5f",
+                  epoch, idx + 1, batches_per_epoch, float(vals[-1]), bt)
+
+    data_start = time.time()
+    # Cap the source at the epoch's batch budget BEFORE prefetch: the
+    # 2-deep prefetch would otherwise assemble (and copy) batches past
+    # the epoch boundary that no step ever consumes.
+    batches = itertools.islice(iter(loader), batches_per_epoch)
+    if self.sanity_checks:
+      batches = self._checked(batches)
+    batches = loader_lib.device_prefetch((model_batch(b) for b in batches),
+                                         self.device, size=2)
+    for batch_idx, batch in enumerate(batches):
+      self.timer.update("train_batch.data_loading", time.time() - data_start)
+      self.n_samples += batch_size * n_pairs
+      self.n_steps += 1
+      lr = epoch_lr * self.warmup(self.n_steps - 1)
+
+      step_start = time.time()
+      loss = train_step(self.model, self.optimizer, batch,
+                        loss_fn=self.loss_fn, lr=lr,
+                        generator=self.generator)
+      self._maybe_preempt_exit(epoch - 1)
+      pending_losses.append(loss)
+      self.timer.update("train_batch.step", time.time() - step_start)
+      self.timer.update("train_batch.total", time.time() - data_start)
+
+      if batch_idx % log_step == 0:
+        vals = torch.stack(pending_losses)
+        pending_losses = []
+        pending_reads.append((batch_idx, _read_async(vals),
+                              self.timer.dic["train_batch.total"]["val"]))
+        while len(pending_reads) > 1:
+          drain(pending_reads.pop(0))
+      data_start = time.time()
+
+    if pending_losses:
+      pending_reads.append((batch_idx,
+                            _read_async(torch.stack(pending_losses)),
+                            self.timer.dic["train_batch.total"]["val"]))
+    for window in pending_reads:
+      drain(window)
+    return {"loss": total_loss / max(batches_per_epoch, 1),
+            "learning_rate": epoch_lr,
+            "n_samples": self.n_samples, "n_steps": self.n_steps}
+
+  # ------------------------------------------------------------------
+  # Eval
+  # ------------------------------------------------------------------
+  def _get_embeddings(self, loader, to_host=False):
+    """Accumulate per-modality embeddings over an eval set on the device
+    (trainer/trainer.py:286-370), through the same prefetch as training,
+    under ``torch.inference_mode()`` (no autograd graph: the eval FFN
+    block launches B1 alone)."""
+    if to_host:
+      raise NotImplementedError(
+          "host-staged embeddings (to_host=True) are ROADMAP.md A10")
+    vid_embds, text_embds = [], []
+    vid_weights, text_weights = [], []
+    query_masks, raw_captions, paths = [], [], []
+    data_start = time.time()
+    with torch.inference_mode():
+      for batch in loader_lib.device_prefetch(iter(loader), self.device,
+                                              size=2):
+        # A SIGTERM landing during a long eval must not wait for the
+        # whole eval to finish: eval state is safe to abandon, and the
+        # current epoch's training is complete whenever an eval runs.
+        self._maybe_preempt_exit(self.epoch)
+        self.timer.update("valid_batch.data_loading",
+                          time.time() - data_start)
+        step_start = time.time()
+        out = self.model(batch)
+        vid_embds.append(out["vid_embds"])
+        text_embds.append(out["text_embds"])
+        vid_weights.append(out["vid_weights"])
+        text_weights.append(out["text_weights"])
+        query_masks.append(batch["query_masks"])
+        n = len(batch["query_masks"])
+        raw_captions.extend(batch.get("raw_captions", [None] * n))
+        paths.extend(batch.get("paths", [""] * n))
+        self.timer.update("valid_batch.forward", time.time() - step_start)
+        data_start = time.time()
+      return {
+          "vid_embds": torch.cat(vid_embds, 0),
+          "text_embds": torch.cat(text_embds, 0),
+          "vid_weights": torch.cat(vid_weights, 0),
+          "text_weights": torch.cat(text_weights, 0),
+          "query_masks": torch.cat(query_masks, 0).cpu().numpy(),
+          "raw_captions": raw_captions,
+          "paths": paths,
+      }
+
+  def _valid_epoch(self, epoch=None, sets="continuous_eval"):
+    result = {"metrics": {}}
+    entries = self.data_loaders.get(f"{sets}_sets", [])
+    for entry in entries:
+      loader, dataset = entry["loader"], entry["dataset"]
+      dataset_name = dataset.dataset_name
+
+      metric_names = {name for name, _ in self.metrics}
+      # At >= fused_eval_from_videos videos, rank on the device from the
+      # embeddings (ops/ranking.py) instead of materializing the [Q, V]
+      # matrix; final_eval keeps the matrix (sims .npy / challenge CSV
+      # artifacts need it, trainer/trainer.py:411-437), and so does a
+      # configured visualizer, which reads it.
+      n_videos = len(dataset)
+      use_fused = (sets != "final_eval"
+                   and self.fused_eval_from_videos
+                   and n_videos >= self.fused_eval_from_videos
+                   and metric_names <= {"t2v_metrics", "v2t_metrics"}
+                   and self.visualizer is None)
+
+      with self.timer.time("valid.embds"):
+        embds = self._get_embeddings(loader)
+
+      b, k, m, d = embds["text_embds"].shape
+      query_masks = embds["query_masks"]
+      n_videos = embds["vid_embds"].shape[0]
+      sims = sims_dev = None
+      if not use_fused:
+        with self.timer.time("valid.conf_mat"), torch.inference_mode():
+          sims_dev = similarity_ops.moe_similarity(
+              embds["text_embds"].reshape(b * k, m, d),
+              embds["vid_embds"],
+              embds["text_weights"].reshape(b * k, m),
+              embds["vid_weights"],
+              merge="indep", num_caps=k)
+          sims = sims_dev.cpu().numpy()
+
+      # MixDataset evals have dataset_name='Mix' with no cut/split parts
+      # (the reference IndexErrors there, trainer/trainer.py:411-437);
+      # artifact naming just falls back to the plain name.
+      parts = dataset_name.split("_")
+      if len(parts) >= 3:
+        ds_base, cut_name, split_name = parts[0], parts[1], parts[2]
+      else:
+        ds_base, cut_name, split_name = dataset_name, "", "eval"
+
+      if sets == "final_eval":
+        if cut_name == "c" and split_name in ("test1", "test2"):
+          public = ("public_server_val" if split_name == "test1"
+                    else "public_server_test")
+          pred_path = self.exp_dir / f"{ds_base}-{public}-predictions.csv"
+          np.savetxt(pred_path,
+                     compress_predictions(query_masks, sims),
+                     delimiter=",", fmt="%d")
+          logger.info("Saved predictions to %s", pred_path)
+        sims_path = self.exp_dir / f"{ds_base}-{split_name}-sims.npy"
+        np.save(sims_path, {"sims": sims, "query_masks": query_masks})
+        logger.info("Saved similarity matrix to %s", sims_path)
+
+      nested = {}
+      if use_fused:
+        with self.timer.time("valid.conf_mat"), torch.inference_mode():
+          nested = metrics_lib.fused_retrieval_metrics(
+              embds["text_embds"].reshape(b * k, m, d),
+              embds["vid_embds"],
+              embds["text_weights"].reshape(b * k, m),
+              embds["vid_weights"],
+              query_masks, which=tuple(name for name, _ in self.metrics),
+              device=self.device)
+        logger.info("%s: fused on-device ranking (%d videos; sims matrix "
+                    "not materialized)", dataset_name, n_videos)
+
+      # Tracked throughput metric: eval videos/s on the one device.
+      embds_time = self.timer.dic.get("valid.embds", {}).get("val", 0)
+      conf_time = self.timer.dic.get("valid.conf_mat", {}).get("val", 0)
+      if embds_time + conf_time > 0:
+        vps = n_videos / (embds_time + conf_time)
+        logger.info("%s eval throughput: %.1f videos/s "
+                    "(%d videos, %.3fs embed + %.3fs similarity)",
+                    dataset_name, vps, n_videos, embds_time, conf_time)
+        self.writer.add_scalar(f"{dataset_name}/eval_videos_per_sec",
+                               vps, epoch)
+
+      with self.timer.time("valid.metrics"), torch.inference_mode():
+        for name, fn in self.metrics:
+          if not use_fused:
+            nested[name] = fn(sims_dev, query_masks=query_masks)
+          for key, value in nested[name].items():
+            if key != "cols":
+              self.writer.add_scalar(f"{dataset_name}/{name}/{key}",
+                                     value, epoch)
+      result["metrics"][dataset_name] = nested
+
+      if self.visualizer is not None and sims is not None:
+        with self.timer.time("valid.visu"):
+          self.visualizer.visualize_ranking(
+              sims=sims, query_masks=query_masks, epoch=epoch,
+              meta={"paths": embds["paths"],
+                    "raw_captions": embds["raw_captions"],
+                    "vid_weights": embds["vid_weights"].cpu().numpy(),
+                    "text_weights": embds["text_weights"].reshape(
+                        b * k, m).cpu().numpy()},
+              nested_metrics=nested, modalities=self.modalities,
+              subdir_name=f"{split_name}_{sets}", sets=sets,
+              tokenizer=self.tokenizer)
+    return result
+
+  def evaluate(self):
+    """Final eval: load best ckpt, run final_eval sets, write artifacts
+    (base/base_trainer.py:244-297)."""
+    self._ckpt_writer.flush()
+    best = self.exp_dir / ckpt_lib.BEST_NAME
+    if best.exists():
+      self._resume_checkpoint(best)
+    else:
+      logger.info("No best checkpoint at %s; evaluating current weights",
+                  best)
+    final = self._valid_epoch(epoch=self.epoch, sets="final_eval")
+
+    log = {}
+    for ds_name, ds_metrics in final["metrics"].items():
+      log[ds_name] = {}
+      for m_type, m_dict in ds_metrics.items():
+        for m_name, m_value in m_dict.items():
+          log[ds_name][f"{m_type}/{m_name}/final_eval"] = m_value
+    for ds_name, metric_dict in log.items():
+      logger.info("%s:", ds_name)
+      for name, value in metric_dict.items():
+        if "/cols" not in name:
+          logger.info(" %-40s: %s", name, value)
+
+    results_path = self.exp_dir / "exp_results.json"
+    res = {}
+    if results_path.exists():
+      with open(results_path) as f:
+        res = json.load(f)
+    res["perfs"] = {ds: {k: v for k, v in d.items() if "/cols" not in k}
+                    for ds, d in log.items()}
+    res["checkpoint_epoch"] = self.loaded_epoch
+    with open(results_path, "w") as f:
+      # MeanR/MedR can legitimately be inf (a video whose captions are
+      # all masked ranks at infinity, ops/ranking.py) — python's json
+      # would emit non-RFC `Infinity`, which external parsers reject.
+      json.dump(_json_sanitize(res), f, indent=4)
+    (self.exp_dir / "exp_completed_flag.txt").touch()
+    return final
+
+  # ------------------------------------------------------------------
+  # Checkpointing
+  # ------------------------------------------------------------------
+  def _state_dict(self):
+    state = {
+        "state_dict": self.model.state_dict(),
+        "epoch": self.epoch,
+        "monitor_best": float(self.mnt_best),
+        "n_samples": self.n_samples,
+        "n_steps": self.n_steps,
+        "config": json.dumps(dict(self.config.raw)),
+        "arch": type(self.model).__name__,
+        # Dropout generator state: restored on restart so the dropout
+        # stream continues exactly (the reference loses its RNG state
+        # across --resume).
+        "generator": self.generator.get_state(),
+    }
+    if self.include_optim_in_ckpts:
+      state["optimizer"] = self.optimizer.state_dict()
+    return state
+
+  def _save_checkpoint(self, epoch, save_best=False):
+    # Snapshot to host NOW (the next step updates the parameters in
+    # place); serialization + write happen on the writer thread.
+    self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(self._state_dict()),
+                           epoch, save_best=save_best)
+
+  def _resume_checkpoint(self, resume_path):
+    resume_path = str(resume_path)
+    logger.info("Loading checkpoint from %s", resume_path)
+    raw = ckpt_lib.load_checkpoint(resume_path)
+    restart = os.path.dirname(os.path.abspath(resume_path)) == str(
+        self.exp_dir.resolve())
+
+    loaded_cfg = json.loads(raw.get("config", "{}"))
+    if loaded_cfg.get("arch") != self.config.raw.get("arch"):
+      logger.warning("Architecture config differs from checkpoint")
+
+    state_dict = ckpt_lib.match_checkpoint_to_model(
+        raw["state_dict"], self.model.state_dict())
+    if restart:
+      self.model.load_state_dict(state_dict, strict=True)
+      if "optimizer" in raw and self.include_optim_in_ckpts:
+        same_optim = (loaded_cfg.get("optimizer", {}).get("type")
+                      == self.config.raw.get("optimizer", {}).get("type"))
+        if same_optim:
+          self.optimizer.load_state_dict(raw["optimizer"])
+        else:
+          logger.warning("Optimizer type changed; not resuming its state")
+      self.loaded_epoch = int(raw.get("epoch", 0))
+      self.epoch = self.loaded_epoch
+      self.start_epoch = self.loaded_epoch + 1
+      self.n_samples = int(raw.get("n_samples", 0))
+      self.n_steps = int(raw.get("n_steps", 0))
+      self.mnt_best = float(raw.get("monitor_best", self.mnt_best))
+      if raw.get("generator") is not None:
+        self.generator.set_state(raw["generator"])
+    else:
+      # Warm start: non-strict load, counters reset
+      # (base/base_trainer.py:452-462).
+      self.model.load_state_dict(ckpt_lib.merge_params(
+          self.model.state_dict(), state_dict))
+      self.loaded_epoch = int(raw.get("epoch", 0))
+      self.epoch = 0
+      self.start_epoch = 0
+      self.n_samples = 0
+      self.n_steps = 0
+      ckpt_lib.write_info(self.exp_dir, resume_path, self.loaded_epoch)
+    logger.info("Ckpt loaded at epoch %s", raw.get("epoch", "?"))

@@ -93,6 +93,17 @@ def test_port_imports_no_jax():
       "assert res['sims'].shape == (3, 3)\n"
       "res = evaluate.retrieval_eval(model, [batch], fused=True)\n"
       "assert 'sims' not in res and len(res['t2v_metrics']['cols']) == 3\n"
+      "from mmt_tpu_torch import serve, serving\n"
+      "with torch.no_grad():\n"
+      "  txt = model.embed_text(batch['token_ids'])\n"
+      "  vid = model.embed_video(batch)\n"
+      "  for q in (None, 'int8'):\n"
+      "    staged = serving.stage_index(vid['vid_embds'].numpy(),\n"
+      "                                 vid['vid_weights'].numpy(), 'cpu', q)\n"
+      "    sims = serving.index_similarity(txt['text_embds'][:, 0],\n"
+      "                                    txt['text_weights'][:, 0],\n"
+      "                                    staged, 3, q)\n"
+      "    assert sims.shape[0] == 3\n"
       "new = set(sys.modules) - before\n"
       "bad = sorted(m for m in new if m.split('.')[0] in\n"
       "             ('jax', 'jaxlib', 'flax', 'optax', 'mmt_tpu'))\n"

@@ -143,6 +143,17 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    data-loading, step and total ms (the trainer's timers) against phase
    8's staged b32 step, and each 1,000-video eval's embed / similarity
    / metrics seconds and videos/s against phase 6's staged eval-1k.
+   (d) The pretrained text-tower init: a synthetic asset under HF
+   BertForPreTraining names at bert-base-cased's geometry (197 tensors,
+   107,719,680 parameters, 431 MB fp32, plus the pooler, position_ids and
+   cls.* heads to drop), written as pytorch_model.bin and converted by
+   ``python -m mmt_tpu_torch.hf_bert``; then through ``cli.main`` on the
+   phase's corpus and config: ``--only_eval --txt_bert_init`` (every
+   txt_bert parameter bitwise the asset's; 16 B1 per eval batch, 1 B4),
+   one epoch from the init (finite losses; launches as counted above),
+   and ``--only_eval --load_checkpoint <that run's checkpoint>
+   --txt_bert_init <a zero asset>`` (every entry the checkpoint's: the
+   checkpoint wins).  Prints the asset's load and merge seconds.
 12. Serve phase, in three parts.  (a) Before phase 11's directory is
    removed, ``mmt_tpu_torch.serve.main`` on its trained_model.pth and
    config: --build_index over the eval set (32 videos) with 4 --query
@@ -2162,6 +2173,8 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
           f"{staged_eval_s:.6f} s (phase 6, embed + similarity + ranks); "
           f"videos/s through the loader {CLI_TRAIN_VIDEOS / (e + c):.1f} "
           f"card: {card}", flush=True)
+    txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
+                        per_eval, final_batches, card)
     return first, (then(cfg_path, exp) if then is not None else None)
   finally:
     trainer_lib.AverageMeter = prev_meter
@@ -2172,6 +2185,185 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
     else:
       os.environ["MMT_TPU_BERT_VOCAB"] = prev_vocab
     shutil.rmtree(root, ignore_errors=True)
+
+
+# Phase 11 (d): the pretrained text-tower init through the CLI.
+INIT_SEED = 11
+
+
+def hf_style_asset(torch, geom, seed=INIT_SEED):
+  """Random weights under HF BertForPreTraining names at ``geom`` (a
+  config.BertParams): the tower's 5 + 16 x layers tensors, then the
+  position_ids buffer, the pooler and the cls.* heads that the conversion
+  drops.  Returns (state dict, number of tower tensors)."""
+  gen = torch.Generator().manual_seed(seed)
+  h, inter = geom.hidden_size, geom.intermediate_size
+  sd = {}
+
+  def rand(*shape, scale=0.02, shift=0.0):
+    return torch.randn(*shape, generator=gen) * scale + shift
+
+  def lin(name, n_in, n_out):
+    sd[f"{name}.weight"] = rand(n_out, n_in)
+    sd[f"{name}.bias"] = rand(n_out, scale=0.01)
+
+  def ln(name):
+    sd[f"{name}.weight"] = rand(h, scale=0.01, shift=1.0)
+    sd[f"{name}.bias"] = rand(h, scale=0.01)
+
+  emb = "bert.embeddings"
+  sd[f"{emb}.word_embeddings.weight"] = rand(geom.vocab_size, h)
+  sd[f"{emb}.position_embeddings.weight"] = rand(
+      geom.max_position_embeddings, h)
+  sd[f"{emb}.token_type_embeddings.weight"] = rand(geom.type_vocab_size, h)
+  ln(f"{emb}.LayerNorm")
+  for layer in range(geom.num_hidden_layers):
+    base = f"bert.encoder.layer.{layer}"
+    for sub in ("attention.self.query", "attention.self.key",
+                "attention.self.value", "attention.output.dense"):
+      lin(f"{base}.{sub}", h, h)
+    ln(f"{base}.attention.output.LayerNorm")
+    lin(f"{base}.intermediate.dense", h, inter)
+    lin(f"{base}.output.dense", inter, h)
+    ln(f"{base}.output.LayerNorm")
+  tower = len(sd)
+  sd[f"{emb}.position_ids"] = torch.arange(geom.max_position_embeddings)[None]
+  lin("bert.pooler.dense", h, h)
+  lin("cls.predictions.transform.dense", h, h)
+  ln("cls.predictions.transform.LayerNorm")
+  sd["cls.predictions.bias"] = torch.zeros(geom.vocab_size)
+  lin("cls.seq_relationship", h, 2)
+  return sd, tower
+
+
+def txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
+                        per_eval, final_batches, card):
+  """Phase 11 (d): a synthetic HF asset at the config's text geometry
+  (bert-base-cased), converted by hf_bert, then ``cli.main`` on phase
+  11's corpus: --only_eval from the init (the tower bitwise the asset),
+  one epoch from it, and --only_eval of that epoch's checkpoint over a
+  zero init (the checkpoint wins).  Launches as counted; prints the
+  asset's load and merge seconds."""
+  import dataclasses
+
+  from mmt_tpu_torch import hf_bert
+  from mmt_tpu_torch.config import TEXT_BERT_BASE_CASED
+  from mmt_tpu_torch.train import checkpoint as ckpt_lib
+  from mmt_tpu_torch.train import trainer as trainer_lib
+
+  start = time.perf_counter()
+
+  def config(name, epochs):
+    cfg = cli_config(data_dir, root / name, epochs)
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return cfg, path
+
+  cfg, eval_cfg = config("init_eval", 1)
+  vocab = len((root / "vocab.txt").read_text().splitlines())
+  geom = dataclasses.replace(
+      TEXT_BERT_BASE_CASED, **cfg["arch"]["args"].get("text_bert_geometry",
+                                                      {}),
+      vocab_size=vocab)
+  tic = time.perf_counter()
+  sd, tower = hf_style_asset(torch, geom)
+  hf_dir = root / "hf_bert"
+  hf_dir.mkdir()
+  torch.save(sd, hf_dir / "pytorch_model.bin")
+  written_s = time.perf_counter() - tic
+  tic = time.perf_counter()
+  asset_path = hf_bert.main(["--hf_dir", str(hf_dir),
+                             "--out", str(root / "txt_bert_init.pth")])
+  convert_s = time.perf_counter() - tic
+  asset = ckpt_lib.load_txt_bert_init(asset_path)
+  n_params = sum(t.numel() for t in asset.values())
+  print(f"train-cli (d): HF asset of {len(sd)} tensors ({tower} of the "
+        f"tower) written in {written_s:.3f} s; hf_bert kept {len(asset)} "
+        f"tensors, {n_params:,} parameters, {n_params * 4 / 1e6:.1f} MB "
+        f"fp32, in {convert_s:.3f} s", flush=True)
+  if len(asset) != tower:
+    raise RuntimeError(f"train-cli (d): hf_bert kept {len(asset)} tensors "
+                       f"of the {tower} of the tower")
+  del sd
+
+  # 1. --only_eval from the init, its load and merge timed.
+  seconds = {}
+  load, merge = ckpt_lib.load_txt_bert_init, trainer_lib.Trainer._load_txt_bert_init
+
+  def timed_load(path):
+    tic = time.perf_counter()
+    out = load(path)
+    seconds["load"] = time.perf_counter() - tic
+    return out
+
+  def timed_merge(self, path):
+    tic = time.perf_counter()
+    merge(self, path)
+    torch.cuda.synchronize()
+    seconds["load + merge"] = time.perf_counter() - tic
+
+  ckpt_lib.load_txt_bert_init = timed_load
+  trainer_lib.Trainer._load_txt_bert_init = timed_merge
+  try:
+    trainer = cli_run(ffn, similarity, [
+        "--config", str(eval_cfg), "--device", "cuda", "--only_eval",
+        "--txt_bert_init", asset_path], want(0, 1, final_batches),
+        "(d) --only_eval --txt_bert_init")
+  finally:
+    ckpt_lib.load_txt_bert_init = load
+    trainer_lib.Trainer._load_txt_bert_init = merge
+  differ = [n for n, p in trainer.model.txt_bert.named_parameters()
+            if not torch.equal(p.detach().cpu(), asset[f"txt_bert.{n}"])]
+  n_tower = sum(1 for _ in trainer.model.txt_bert.parameters())
+  del trainer
+  if differ or n_tower != len(asset):
+    raise RuntimeError(f"train-cli (d): {len(differ)} of {n_tower} txt_bert "
+                       f"parameters are not the asset's (first: "
+                       f"{differ[:1]})")
+  merge_s = seconds["load + merge"] - seconds["load"]
+  print(f"train-cli (d): txt_bert init of {len(asset)} tensors "
+        f"({n_params:,} parameters): load {seconds['load']:.3f} s, merge "
+        f"{merge_s:.3f} s, load + merge {seconds['load + merge']:.3f} s; "
+        f"every txt_bert parameter bitwise the asset's card: {card}",
+        flush=True)
+
+  # 2. One epoch from the init.
+  _, train_cfg = config("init_train", 1)
+  cli_run(ffn, similarity, ["--config", str(train_cfg), "--device", "cuda",
+                            "--txt_bert_init", asset_path],
+          want(CLI_SAMPLES_PER_EPOCH // 32, 3,
+               2 * per_eval + final_batches),
+          "(d) 1 epoch from the init")
+  with open(root / "init_train" / "perf_log.txt") as f:
+    losses = [json.loads(line)["loss"] for line in f]
+  print(f"train-cli (d): epoch losses from the init {losses}", flush=True)
+  if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+    raise RuntimeError(f"train-cli (d): bad epoch losses {losses}")
+
+  # 3. The checkpoint wins over a zero init.
+  zero_path = root / "zero_init.pth"
+  torch.save({"state_dict": {k: torch.zeros_like(v)
+                             for k, v in asset.items()}}, zero_path)
+  del asset
+  ckpt = root / "init_train" / "trained_model.pth"
+  _, warm_cfg = config("init_warm", 1)
+  trainer = cli_run(ffn, similarity, [
+      "--config", str(warm_cfg), "--device", "cuda", "--only_eval",
+      "--load_checkpoint", str(ckpt), "--txt_bert_init", str(zero_path)],
+      want(0, 1, final_batches), "(d) a checkpoint over a zero init")
+  saved = ckpt_lib.load_checkpoint(ckpt)["state_dict"]
+  state = trainer.model.state_dict()
+  differ = [k for k, v in state.items()
+            if not torch.equal(v.detach().cpu(), saved[k])]
+  del trainer
+  if differ or set(saved) != set(state):
+    raise RuntimeError(f"train-cli (d): {len(differ)} entries differ from "
+                       f"the checkpoint's (first: {differ[:1]})")
+  print(f"train-cli (d): every entry the checkpoint's; phase 11 (d) "
+        f"{time.perf_counter() - start:.1f} s", flush=True)
+  for path in (hf_dir / "pytorch_model.bin", pathlib.Path(asset_path),
+               zero_path):
+    path.unlink()
 
 
 # Phase 12: serving (mmt_tpu_torch.serving, mmt_tpu_torch.serve).

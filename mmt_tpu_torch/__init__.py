@@ -8,7 +8,9 @@ BatchNorm in models/), both also under tensor parallelism (parallel/,
 the Megatron layout over torch.distributed), and the training entry
 point (cli.py, ``python -m mmt_tpu_torch.train``: the data side in
 data/, tokenization.py, config.py, checkpoints and the trainer in
-train/).  Hand-written sm_90a CUDA
+train/, the pretrained text-tower init from hf_bert.py), serving
+(serving.py, serve.py), and the JAX package's msgpack files
+(serialization.py, convert.py).  Hand-written sm_90a CUDA
 kernels carry them on the card: the fused FFN block, eval and train
 forward and their tensor-parallel partials (ops/ffn.py,
 csrc/ffn_block.cu), its backward (csrc/ffn_train_bwd.cu), the fused MoE

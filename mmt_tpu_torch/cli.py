@@ -3,15 +3,17 @@
 Port of train.py, the same surface:
 
   python -m mmt_tpu_torch.train --config configs/eccv20/X.json
-      [--resume EXPDIR] [--load_checkpoint PTH] [--only_eval]
+      [--resume EXPDIR | --resume EXPDIR/checkpoint-epochN.msgpack]
+      [--load_checkpoint PTH_OR_MSGPACK] [--txt_bert_init P] [--only_eval]
       [--device cuda|cpu] [-v]
 
 Builds tokenizer -> data loaders -> model -> loss -> optimizer ->
 schedule -> visualizer -> trainer, then trains and runs the final eval,
 writing the JAX CLI's artifacts (``.pth`` checkpoints in place of
-``.msgpack``).  ``--device`` is a torch device and defaults to ``cuda``;
-without a card, pass ``--device cpu``: the port never falls back to the
-CPU by itself.
+``.msgpack``).  The JAX CLI's ``.msgpack`` checkpoints and inits are read
+too.  ``--device`` is a torch device and defaults to ``cuda``; without a
+card, pass ``--device cpu``: the port never falls back to the CPU by
+itself.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-# Default location of converted pretrained text-BERT weights, as in
-# train.py (the JAX package's msgpack asset).
-TXT_BERT_INIT_DEFAULT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
-    "txt_bert_init.msgpack")
+# Where the pretrained text-BERT init is looked for when none is named:
+# python -m mmt_tpu_torch.hf_bert's default output, then the JAX
+# package's (scripts/convert_hf_bert.py, as in train.py).
+_DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+TXT_BERT_INIT_DEFAULTS = (os.path.join(_DATA, "txt_bert_init.pth"),
+                          os.path.join(_DATA, "txt_bert_init.msgpack"))
 
 
 def build_data_loaders(config, expert_dims, tokenizer):
@@ -50,36 +54,53 @@ def build_data_loaders(config, expert_dims, tokenizer):
 
 
 def resolve_txt_bert_init(config, arch_value, txt_agg, custom_geometry=False):
-  """Locate pretrained text-BERT init weights for a bertftn run, in
-  train.py's order (MMT_TPU_TXT_BERT_INIT env > arch.args
-  "txt_bert_init" > the default asset, if present).  Returns a path or
-  None; with none found (and no resume) it warns that the text tower
-  starts from random weights, as train.py does."""
+  """Locate pretrained text-BERT init weights for bertftn / bertfrz runs
+  (train.py:resolve_txt_bert_init).
+
+  The reference builds only those text towers from pretrained
+  bert-base-cased (model/model.py:150-162); the converted weights are
+  resolved in priority order: CLI ``--txt_bert_init`` >
+  ``MMT_TPU_TXT_BERT_INIT`` > arch.args ``txt_bert_init`` > the default
+  assets ``TXT_BERT_INIT_DEFAULTS`` (if present, and only at the stock
+  geometry).  For a non-pretrained tower a CLI / config request raises
+  (it contradicts the architecture) while an ambient environment variable
+  is ignored with a log line.  Returns a path or None; with none found
+  (and no resume) it warns that the text tower starts from random
+  weights."""
   from mmt_tpu_torch.config import TxtAggSpec
 
   spec = TxtAggSpec.parse(txt_agg) if txt_agg[:4] == "bert" else None
+  cli_value = getattr(config, "txt_bert_init", None)
   env_value = os.environ.get("MMT_TPU_TXT_BERT_INIT")
   if spec is None or spec.state not in ("ftn", "frz"):
-    if arch_value:
+    if cli_value or arch_value:
       raise ValueError(
-          f"txt_bert_init={arch_value!r} conflicts with txt_agg={txt_agg!r}: "
-          "only bertftn/bertfrz towers start from pretrained weights "
-          "(model/model.py:150-162)")
+          f"txt_bert_init={cli_value or arch_value!r} conflicts with "
+          f"txt_agg={txt_agg!r}: only bertftn/bertfrz towers start from "
+          "pretrained weights (model/model.py:150-162)")
+    if env_value:
+      logger.info("MMT_TPU_TXT_BERT_INIT ignored: txt_agg=%s stays "
+                  "randomly initialized, as in the reference", txt_agg)
     return None
-  explicit = env_value or arch_value
+  explicit = cli_value or env_value or arch_value
   if explicit:
     if not os.path.isfile(explicit):
       raise FileNotFoundError(f"txt_bert_init not found: {explicit}")
     return explicit
   if custom_geometry:
+    # The default assets are bert-base-cased; a model with an overridden
+    # text_bert_geometry cannot load them: only a named path applies.
     return None
-  if os.path.isfile(TXT_BERT_INIT_DEFAULT):
-    return TXT_BERT_INIT_DEFAULT
+  for default in TXT_BERT_INIT_DEFAULTS:
+    if os.path.isfile(default):
+      return default
   if config.resume is None:
     logger.warning(
         "txt_agg=%s: no pretrained text-BERT weights found — txt_bert is "
         "RANDOMLY initialized (the reference always starts from pretrained "
-        "bert-base-cased).", txt_agg)
+        "bert-base-cased).  Convert them once with python -m "
+        "mmt_tpu_torch.hf_bert (default output %s) or pass "
+        "--txt_bert_init.", txt_agg, TXT_BERT_INIT_DEFAULTS[0])
   return None
 
 
@@ -170,9 +191,18 @@ def main(argv=None):
   parser.add_argument("--config", default=None, type=str,
                       help="config file path")
   parser.add_argument("--resume", default=None, type=str,
-                      help="path to the experiment dir to resume")
+                      help="path to the experiment dir to resume, or to "
+                           "one of its checkpoints (a JAX experiment's "
+                           ".msgpack is resumed by naming it)")
   parser.add_argument("--load_checkpoint", default=None, type=str,
-                      help="checkpoint (.pth) path for a warm start")
+                      help="checkpoint (.pth, or the JAX CLI's .msgpack) "
+                           "path for a warm start")
+  parser.add_argument("--txt_bert_init", default=None, type=str,
+                      help="converted pretrained text-BERT weights "
+                           "(python -m mmt_tpu_torch.hf_bert, or the JAX "
+                           "package's scripts/convert_hf_bert.py msgpack); "
+                           "defaults to data/txt_bert_init.pth, then "
+                           "data/txt_bert_init.msgpack, when present")
   parser.add_argument("--device", default="cuda", type=str,
                       help="torch device (default cuda; cpu runs the plain "
                            "PyTorch versions of the kernels)")

@@ -115,6 +115,7 @@ class Config:
     self._raw = raw
     self.resume = resume          # checkpoint path to load, or None
     self.only_eval = only_eval
+    self.txt_bert_init = None     # CLI --txt_bert_init (set by from_args)
 
     if "exp_name" in raw:
       self.exper_name = raw["exp_name"]
@@ -192,7 +193,17 @@ def from_args(args) -> Config:
     assert getattr(args, "load_checkpoint", None) is None, (
         "If resuming an experiment then no checkpoint should be provided")
     exp_dir = pathlib.Path(args.resume)
-    resume = last_checkpoint_path(exp_dir)
+    if exp_dir.is_file():
+      # A checkpoint named explicitly: how a JAX experiment is resumed,
+      # since auto-resume picks up .pth checkpoints only.
+      resume, exp_dir = str(exp_dir), exp_dir.parent
+    else:
+      resume = last_checkpoint_path(exp_dir)
+      if resume is None and any(exp_dir.glob("checkpoint-epoch*.msgpack")):
+        raise FileNotFoundError(
+            f"{exp_dir} holds no .pth checkpoint, only the JAX CLI's "
+            f".msgpack ones: name the one to resume from, as --resume "
+            f"{exp_dir / 'checkpoint-epochN.msgpack'}")
     cfg_fname = exp_dir / "config.json"
   else:
     assert getattr(args, "config", None) is not None, (
@@ -207,6 +218,7 @@ def from_args(args) -> Config:
                config_path=cfg_fname,
                resume=resume,
                only_eval=bool(getattr(args, "only_eval", False)))
+  cfg.txt_bert_init = getattr(args, "txt_bert_init", None)
   cfg.prepare_dirs()
   cfg.dump()
   return cfg

@@ -7,7 +7,10 @@ scale/bias become weight/bias, BatchNorm batch_stats mean/var become
 running_mean/running_var.  It is the flagship subset of
 scripts/convert_checkpoint.py:export_state_dict (no pooler, no
 position_ids buffer: the port's CENet has neither), and raises on any
-leaf it cannot place.
+leaf it cannot place.  ``checkpoint_from_flax`` carries a whole JAX
+checkpoint (``serialization.msgpack_restore`` of a ``.msgpack`` the JAX
+trainer wrote) over to the port's checkpoint layout, its optax Adam
+state included (``optimizer_state_from_flax``).
 
 ``shard_state_dict`` cuts a whole state dict (from it or from a
 single-device model) to one tensor-parallel rank's shards, in the layout
@@ -17,12 +20,15 @@ puts the ranks' shards back together, for checks.
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
 
 _BERT_SUB = {"query": "attention.self.query", "key": "attention.self.key",
              "value": "attention.self.value",
@@ -82,24 +88,90 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
   return flat
 
 
+def _tensor(arr, transpose=False):
+  """A tensor of its own (C-ordered) from a numpy array."""
+  return torch.from_numpy((arr.T if transpose else arr).copy())
+
+
+def _by_port_name(tree: Mapping, what: str):
+  """Flax params-shaped tree -> {port name: tensor}, kernels transposed;
+  a leaf with no port name raises."""
+  out = {}
+  for path, arr in _flatten(tree).items():
+    entry = _param_name(path)
+    if entry is None:
+      raise KeyError(f"no port name for flax {what} {path}")
+    out[entry[0]] = _tensor(arr, entry[1])
+  return out
+
+
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping):
   """Flax {params, batch_stats} (nested dicts of numpy arrays) -> the
   port's CENet state dict of torch tensors."""
-  sd = {}
-  for path, arr in _flatten(params).items():
-    entry = _param_name(path)
-    if entry is None:
-      raise KeyError(f"no port name for flax parameter {path}")
-    name, transpose = entry
-    sd[name] = arr.T if transpose else arr
+  sd = _by_port_name(params, "parameter")
   for path, arr in _flatten(batch_stats).items():
     m = re.match(r"^text_gu_(\w+)/cg/batch_norm/bn/(mean|var)$", path)
     if m is None:
       raise KeyError(f"no port name for flax batch stat {path}")
     base = f"text_GU.{m[1]}.cg.batch_norm"
-    sd[f"{base}.running_{m[2]}"] = arr
-    sd[f"{base}.num_batches_tracked"] = np.asarray(0, np.int64)
-  return {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
+    sd[f"{base}.running_{m[2]}"] = _tensor(arr)
+    sd[f"{base}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+  return sd
+
+
+def _adam_state(opt_state: Mapping):
+  """The ``ScaleByAdamState`` (count, mu, nu) of an optax
+  ``inject_hyperparams(adam | adamw)`` state, or None for another."""
+  inner = opt_state.get("inner_state", {}).get("0", {})
+  return inner if "mu" in inner and "nu" in inner else None
+
+
+def optimizer_state_from_flax(opt_state: Mapping):
+  """The JAX trainer's ``optax.inject_hyperparams`` state of Adam / AdamW
+  (mmt_tpu/train/optim.py) -> a torch Adam / AdamW state dict keyed by
+  the port's parameter names: ``exp_avg`` (mu), ``exp_avg_sq`` (nu), each
+  transposed like its kernel, and ``step`` (count) per parameter, and one
+  param group holding the names and the last learning rate.
+  ``train.checkpoint.optimizer_state_by_position`` puts it in the order
+  of an optimizer's parameters."""
+  adam = _adam_state(opt_state)
+  if adam is None:
+    raise ValueError("opt_state is not an optax Adam / AdamW state")
+  state = {}
+  for key, tree in (("exp_avg", adam["mu"]), ("exp_avg_sq", adam["nu"])):
+    for name, t in _by_port_name(tree, f"{key} of").items():
+      state.setdefault(name, {})[key] = t
+  step = float(np.asarray(adam["count"]))
+  for entry in state.values():
+    entry["step"] = torch.tensor(step)
+  lr = float(np.asarray(opt_state["hyperparams"]["learning_rate"]))
+  return {"state": state, "param_groups": [{"params": list(state), "lr": lr}]}
+
+
+def checkpoint_from_flax(raw: Mapping):
+  """A JAX checkpoint tree -> the port's checkpoint layout:
+  ``state_dict`` from ``params`` and ``batch_stats``, ``optimizer`` from
+  an Adam / AdamW ``opt_state`` (another optimizer's state is left out,
+  with a warning), and the counters and config as they are.  The JAX
+  ``rng`` key cannot seed a torch generator: the port's dropout generator
+  keeps its own state."""
+  out = {"state_dict": state_dict_from_flax(raw.get("params", {}),
+                                            raw.get("batch_stats", {}))}
+  for key in ("epoch", "monitor_best", "n_samples", "n_steps", "config",
+              "arch"):
+    if key in raw:
+      out[key] = raw[key]
+  opt_state = raw.get("opt_state")
+  if opt_state is not None and _adam_state(opt_state) is not None:
+    out["optimizer"] = optimizer_state_from_flax(opt_state)
+  elif opt_state is not None:
+    logger.warning("JAX checkpoint: its optimizer state is not Adam's; "
+                   "not carried over")
+  if raw.get("rng") is not None:
+    logger.info("JAX checkpoint: its rng key is not carried over; the "
+                "dropout generator keeps its own state (jax.random and "
+                "torch streams never match)")
+  return out
 
 
 def shard_state_dict(state_dict: Mapping[str, torch.Tensor], tp,

@@ -15,11 +15,13 @@ Port of scripts/serve.py, the same flags plus ``--device``:
       --index index.npz --listen 8080
 
 ``--checkpoint`` is a ``.pth`` in the reference's save format (a
-``state_dict`` under the reference's names): one the port's trainer
+``state_dict`` under the reference's names: one the port's trainer
 wrote, or one scripts/export_checkpoint.py wrote from a JAX-trained
-msgpack.  It is loaded strictly.  ``--device`` is a torch device and
-defaults to ``cuda``; without a card pass ``--device cpu``: the port never
-falls back to the CPU by itself.
+msgpack) or the JAX trainer's ``.msgpack`` itself.  It is loaded
+strictly.  ``--index`` reads the ``.npz`` this CLI builds or the JAX
+CLI's ``.msgpack`` index; ``--build_index`` writes ``.npz``.
+``--device`` is a torch device and defaults to ``cuda``; without a card
+pass ``--device cpu``: the port never falls back to the CPU by itself.
 """
 
 from __future__ import annotations
@@ -105,10 +107,13 @@ def main(argv=None):
                                                "serving")
   parser.add_argument("--config", required=True)
   parser.add_argument("--checkpoint", required=True,
-                      help="model .pth (the reference's state-dict names)")
+                      help="model .pth (the reference's state-dict names) "
+                           "or the JAX trainer's .msgpack")
   parser.add_argument("--build_index", default=None,
                       help="write the index (.npz) here and exit")
-  parser.add_argument("--index", default=None, help="prebuilt index path")
+  parser.add_argument("--index", default=None,
+                      help="prebuilt index path (.npz, or the JAX CLI's "
+                           ".msgpack)")
   parser.add_argument("--query", action="append", default=[],
                       help="text query (repeatable)")
   parser.add_argument("--topk", type=int, default=5)

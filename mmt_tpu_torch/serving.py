@@ -10,12 +10,12 @@ top-k on the device:
   engine = RetrievalEngine(model, tokenizer, index)
   hits = engine.search(["a man cooking pasta"], topk=5)
 
-The index is saved with ``numpy.savez`` (the JAX package writes flax
-msgpack, which this package does not read).  ``quantize="int8"`` serves
-from a per-row int8 copy of the index; its product is the library's
-int8 GEMM (``torch._int_mm``) on the card, as it was a plain XLA
-dot_general in the JAX package.  An index sharded over ranks (the JAX
-engine's ``mesh=``) is ROADMAP.md A10.
+The index is saved with ``numpy.savez``; ``RetrievalIndex.load`` also
+reads the flax msgpack the JAX package writes (serialization.py).
+``quantize="int8"`` serves from a per-row int8 copy of the index; its
+product is the library's int8 GEMM (``torch._int_mm``) on the card, as
+it was a plain XLA dot_general in the JAX package.  An index sharded
+over ranks (the JAX engine's ``mesh=``) is ROADMAP.md A10.
 """
 
 from __future__ import annotations
@@ -223,10 +223,19 @@ class RetrievalIndex:
 
   @classmethod
   def load(cls, path) -> "RetrievalIndex":
-    with np.load(path, allow_pickle=False) as raw:
-      vid_embds = raw["vid_embds"]
-      vid_weights = raw["vid_weights"]
-      video_ids, paths = str(raw["video_ids"]), str(raw["paths"])
+    """An index ``save`` wrote (``.npz``), or one the JAX package's
+    ``RetrievalIndex.save`` wrote (``.msgpack``, the same four fields)."""
+    if str(path).endswith(".msgpack"):
+      from mmt_tpu_torch import serialization
+      raw = serialization.msgpack_restore(path)
+      vid_embds = np.asarray(raw["vid_embds"])
+      vid_weights = np.asarray(raw["vid_weights"])
+      video_ids, paths = raw["video_ids"], raw["paths"]
+    else:
+      with np.load(path, allow_pickle=False) as raw:
+        vid_embds = raw["vid_embds"]
+        vid_weights = raw["vid_weights"]
+        video_ids, paths = str(raw["video_ids"]), str(raw["paths"])
     # "".split("\n") == [""], so an EMPTIED index (remove() can legally
     # drain it) would round-trip into one phantom "" id desynchronized
     # from the 0 embedding rows; condition the parse on the row count.

@@ -18,6 +18,11 @@ utils/util.py:71-82 semantics):
 * cross-config transfer zero-pads the ``vid_bert`` position-embedding
   rows so a 32-slot pretrain loads into a 102-slot finetune model
   (base/base_trainer.py:391-406).
+
+``load_checkpoint`` also reads the JAX package's ``.msgpack`` checkpoints
+(``serialization.msgpack_restore``, then ``convert.checkpoint_from_flax``)
+into the same layout; ``last_checkpoint`` and the purge stay ``.pth``
+only, so a JAX experiment is resumed by naming its file.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-# .pth only: the JAX package's .msgpack checkpoints in an exp dir cannot
-# be loaded by this runtime, so auto-resume must never pick one up.
+# .pth only: auto-resume and the purge never pick up (or delete) the JAX
+# package's .msgpack checkpoints sharing an exp dir.
 CKPT_RE = r"checkpoint-epoch(\d+)\.pth$"
 BEST_NAME = "trained_model.pth"
 POS_EMB = "vid_bert.embeddings.position_embeddings.weight"
@@ -133,10 +138,64 @@ class AsyncCheckpointWriter:
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
-  """A checkpoint written by ``save_checkpoint``, its tensors on the CPU
-  (tensors, containers and plain values only: nothing else is
-  unpickled)."""
+  """A checkpoint, its tensors on the CPU: a ``.pth`` written by
+  ``save_checkpoint`` (tensors, containers and plain values only: nothing
+  else is unpickled), or a ``.msgpack`` the JAX trainer wrote, in the same
+  layout (``convert.checkpoint_from_flax``: its ``optimizer`` keyed by
+  parameter name, see ``optimizer_state_by_position``)."""
+  if str(path).endswith(".msgpack"):
+    from mmt_tpu_torch import convert, serialization
+    return convert.checkpoint_from_flax(serialization.msgpack_restore(path))
   return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_txt_bert_init(path) -> Dict[str, torch.Tensor]:
+  """The text tower of a pretrained-init asset, as {``txt_bert.*``:
+  tensor}: a ``.pth`` in the port's layout (``hf_bert``'s output, or a
+  checkpoint), or a ``.msgpack`` (the JAX converter's ``{"params":
+  {"txt_bert": tree}}``, a JAX checkpoint, or a bare tower tree, read as
+  the JAX trainer reads them)."""
+  path = str(path)
+  if path.endswith(".msgpack"):
+    from mmt_tpu_torch import convert, serialization
+    tree = serialization.msgpack_restore(path)
+    tree = tree.get("params", tree)
+    tree = tree.get("txt_bert", tree)
+    return convert.state_dict_from_flax({"txt_bert": tree}, {})
+  raw = torch.load(path, map_location="cpu", weights_only=True)
+  if "state_dict" not in raw:
+    raise ValueError(f"txt_bert_init {path}: no state_dict; an HF "
+                     "checkpoint is converted first, with python -m "
+                     "mmt_tpu_torch.hf_bert")
+  return {k: v for k, v in raw["state_dict"].items()
+          if k.startswith("txt_bert.")}
+
+
+def optimizer_state_by_position(state, model, optimizer):
+  """``state`` for ``optimizer.load_state_dict``: one keyed by parameter
+  name (a JAX checkpoint's) is re-keyed by each parameter's position in
+  ``optimizer`` (whose parameters are ``model``'s), its group taking the
+  optimizer's hyperparameters with the saved learning rate; a state keyed
+  by position is returned as it is."""
+  saved = state["param_groups"]
+  if not any(isinstance(p, str) for g in saved for p in g["params"]):
+    return state
+  if len(saved) != 1 or len(optimizer.param_groups) != 1:
+    raise ValueError("a state keyed by name loads into one param group")
+  position = {id(p): i for i, p in
+              enumerate(optimizer.param_groups[0]["params"])}
+  names = {name: position[id(p)] for name, p in model.named_parameters()
+           if id(p) in position}
+  unknown = [n for n in state["state"] if n not in names]
+  if unknown:
+    raise KeyError(f"optimizer state for {len(unknown)} parameters the "
+                   f"model does not have (first: {unknown[0]})")
+  group = {k: v for k, v in optimizer.param_groups[0].items()
+           if k != "params"}
+  group.update({k: v for k, v in saved[0].items() if k != "params"},
+               params=list(range(len(position))))
+  return {"state": {names[n]: v for n, v in state["state"].items()},
+          "param_groups": [group]}
 
 
 def last_checkpoint(exp_dir) -> Optional[str]:

@@ -19,10 +19,11 @@ trainer/trainer.py:55-493 semantics), single process:
   without tensorboardX), final-eval artifacts (sims .npy, challenge CSV,
   HTML ranking pages, exp_results.json + completion flag).
 
-Not ported (each raises NotImplementedError): the data mesh, tensor
-parallelism (``model_parallel``) and host-staged embeddings (ROADMAP.md
-A10), and the pretrained text-tower init (``txt_bert_init``, which reads
-the JAX package's msgpack assets).
+The pretrained text-tower init (``txt_bert_init``) is merged strictly
+into the text tower before any resume or warm start, so a checkpoint wins
+over it.  Not ported (each raises NotImplementedError): the data mesh,
+tensor parallelism (``model_parallel``) and host-staged embeddings
+(ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -195,10 +196,7 @@ class Trainer:
     self._init_state()
 
     if txt_bert_init is not None:
-      raise NotImplementedError(
-          f"txt_bert_init {txt_bert_init}: the pretrained text-tower init "
-          "reads the JAX package's msgpack assets, which the port cannot "
-          "read yet (ROADMAP.md, queue A)")
+      self._load_txt_bert_init(txt_bert_init)
 
     if config.resume is not None:
       self._resume_checkpoint(config.resume)
@@ -730,6 +728,43 @@ class Trainer:
     self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(self._state_dict()),
                            epoch, save_best=save_best)
 
+  def _load_txt_bert_init(self, path):
+    """Initialize the text tower from converted pretrained BERT weights
+    (mmt_tpu/train/trainer.py:_load_txt_bert_init; the reference's
+    ``from_pretrained`` for bertftn / bertfrz towers, model/model.py:
+    150-162).  The merge is strict: every parameter of ``txt_bert`` must
+    be in the asset with its shape, else it raises naming the first one
+    (a pretrained encoder over a random word table is the worst silent
+    failure).  Parameters only: the tower's buffers keep their values."""
+    logger.info("Initializing txt_bert from %s", path)
+    if not hasattr(self.model, "txt_bert"):
+      logger.warning("txt_bert_init given but the model has no txt_bert "
+                     "tower; ignored")
+      return
+    loaded = ckpt_lib.load_txt_bert_init(path)
+    params = {f"txt_bert.{n}": p
+              for n, p in self.model.txt_bert.named_parameters()}
+    stats = {}
+    merged = ckpt_lib.merge_params(
+        {k: p.detach() for k, p in params.items()}, loaded, stats=stats)
+    if not stats.get("matched"):
+      raise ValueError(
+          f"txt_bert_init {path}: no leaf matched the model's txt_bert "
+          "parameters: wrong geometry or not a text-tower init (convert one "
+          "with python -m mmt_tpu_torch.hf_bert)")
+    if stats.get("skipped"):
+      raise ValueError(
+          f"txt_bert_init {path}: {len(stats['skipped'])} txt_bert leaves "
+          f"could not be initialized from the asset (first: "
+          f"{stats['skipped'][0]}): the tower geometry does not match the "
+          "converted weights; fix text_bert_geometry / the vocab, or "
+          "convert the right model")
+    with torch.no_grad():
+      for name, p in params.items():
+        p.copy_(merged[name])
+    logger.info("txt_bert init: %d/%d leaves loaded from %s",
+                stats["matched"], len(params), path)
+
   def _resume_checkpoint(self, resume_path):
     resume_path = str(resume_path)
     logger.info("Loading checkpoint from %s", resume_path)
@@ -749,7 +784,8 @@ class Trainer:
         same_optim = (loaded_cfg.get("optimizer", {}).get("type")
                       == self.config.raw.get("optimizer", {}).get("type"))
         if same_optim:
-          self.optimizer.load_state_dict(raw["optimizer"])
+          self.optimizer.load_state_dict(ckpt_lib.optimizer_state_by_position(
+              raw["optimizer"], self.model, self.optimizer))
         else:
           logger.warning("Optimizer type changed; not resuming its state")
       self.loaded_epoch = int(raw.get("epoch", 0))

@@ -1,0 +1,498 @@
+"""The JAX package's ``.msgpack`` files in the port, on the CPU.
+
+``mmt_tpu_torch.serialization.msgpack_restore`` against
+``flax.serialization.msgpack_restore``, bitwise (dtype, shape, bits), on
+files the JAX package writes: a trainer checkpoint with ``opt_state`` and
+``rng``, scripts/convert_hf_bert.py's init, ``mmt_tpu.serving``'s index
+(also emptied), single leaves (bfloat16, a numpy scalar, a complex, a
+0-size array), a chunked leaf, and every msgpack type.  Then the JAX
+files through the port's entry points, from one JAX CLI run of the
+whole-run parity config (every dropout rate 0, the text tower drawn at
+``initializer_range`` 0.5): ``--load_checkpoint X.msgpack --only_eval``
+gives the JAX CLI's sims (1e-5), ``serve --checkpoint X.msgpack`` with
+the JAX CLI's ``.msgpack`` index gives scripts/serve.py's exact scores
+(1e-5), and a restart from the JAX run's epoch-1 checkpoint trains the
+next epoch with the JAX CLI's own resumed loss (1e-4 relative), its Adam
+moments carried over.  Loading all of it imports none of jax, flax,
+optax, msgpack, safetensors or mmt_tpu.  Last, both CLIs train from one
+HF-style asset at the config's ``initializer_range`` 0.02, the JAX CLI
+from convert_hf_bert's msgpack and the port's from hf_bert's .pth
+(tests/test_torch_txt_bert_init.py:asset_runs); the JAX CLI runs of this
+file share one process's JAX compile caches.
+"""
+
+import argparse
+import contextlib
+import importlib.util
+import io
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mmt_tpu_torch import cli, convert, serialization
+from mmt_tpu_torch.data import synthetic
+from mmt_tpu_torch.train import checkpoint as ckpt_lib
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from test_torch_serving import QUERIES, assert_hits_match  # noqa: E402
+from test_torch_trainer import (  # noqa: E402
+    CONFIG_INIT_RANGE, LOSS_RTOL, SIMS_TOL as PARITY_SIMS_TOL, _epoch_losses,
+    _sims, moved_by_one_rounding, parity_config, parity_gaps, port_run,
+    write_config)
+from test_torch_txt_bert_init import (  # noqa: E402
+    asset_runs, assert_same_tensors, make_workspace)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SIMS_TOL, EXACT_TOL = 1e-5, 1e-5
+GUARDED = ("jax", "jaxlib", "flax", "optax", "msgpack", "safetensors",
+           "mmt_tpu")
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+  """The corpus and the HF-style asset of tests/test_torch_txt_bert_init.py
+  (hf_bert's .pth, convert_hf_bert's msgpack), plus the asset as an HF
+  model.safetensors."""
+  from safetensors.torch import save_file
+  space = make_workspace(tmp_path_factory.mktemp("torch_serialization"))
+  root, pth = space[0], space[3]
+  (root / "hf_st").mkdir()
+  save_file({f"bert.{k[len('txt_bert.'):]}": v
+             for k, v in ckpt_lib.load_txt_bert_init(pth).items()},
+            str(root / "hf_st" / "model.safetensors"))
+  return space
+
+
+@pytest.fixture(scope="module")
+def jax_exp(workspace):
+  """One JAX CLI run of the whole-run parity config (2 epochs, both epoch
+  checkpoints kept, the Adam state included): (root, its exp dir, its
+  config)."""
+  import train as jax_cli
+
+  root, data_dir = workspace[:2]
+  cfg = parity_config(root, data_dir, root / "jax")
+  cfg["trainer"]["num_keep_ckpts"] = 2
+  cfg_path = write_config(root, "jax", cfg)
+  jax_cli.main(["--config", str(cfg_path)])
+  return root, root / "jax", cfg_path
+
+
+# ---------------------------------------------------------------------------
+# The reader, bitwise against flax
+# ---------------------------------------------------------------------------
+
+
+def assert_restored_equal(got, want, path="/"):
+  """Same tree, key order included; same types; arrays of the same dtype
+  and shape with the same bytes (bfloat16: a torch tensor against flax's
+  ml_dtypes array, compared as int16)."""
+  if isinstance(want, dict):
+    assert isinstance(got, dict) and list(got) == list(want), path
+    for key in want:
+      assert_restored_equal(got[key], want[key], f"{path}{key}/")
+  elif isinstance(want, list):
+    assert isinstance(got, list) and len(got) == len(want), path
+    for i, (g, w) in enumerate(zip(got, want)):
+      assert_restored_equal(g, w, f"{path}{i}/")
+  elif getattr(want, "dtype", None) is not None and want.dtype.name == \
+      "bfloat16":
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16, path
+    assert tuple(got.shape) == want.shape, path
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          np.asarray(want).view(np.int16)), path
+  elif isinstance(want, (np.ndarray, np.generic)):
+    assert type(got) is type(want), (path, type(got), type(want))
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    assert got.tobytes() == want.tobytes(), path
+    assert np.array_equal(got, want, equal_nan=want.dtype.kind in "fc"), path
+  else:
+    assert type(got) is type(want), (path, type(got), type(want))
+    assert got == want or (got != got and want != want), path
+
+
+def _index(n, seed=0):
+  from mmt_tpu.serving import RetrievalIndex
+  rng = np.random.RandomState(seed)
+  return RetrievalIndex(rng.randn(n, 3, 8).astype(np.float32),
+                        rng.rand(n, 3).astype(np.float32),
+                        [f"video{i}" for i in range(n)],
+                        [f"/data/v{i}.mp4" for i in range(n)])
+
+
+def _case_checkpoint(jax_exp, tmp_path, monkeypatch):
+  return (jax_exp[1] / "checkpoint-epoch1.msgpack").read_bytes()
+
+
+def _case_hf_init(jax_exp, tmp_path, monkeypatch):
+  return (jax_exp[0] / "txt_bert_init.msgpack").read_bytes()
+
+
+def _case_index(jax_exp, tmp_path, monkeypatch):
+  _index(5).save(tmp_path / "index.msgpack")
+  return (tmp_path / "index.msgpack").read_bytes()
+
+
+def _case_emptied_index(jax_exp, tmp_path, monkeypatch):
+  index = _index(3)
+  index.remove(list(index.video_ids))
+  index.save(tmp_path / "index.msgpack")
+  return (tmp_path / "index.msgpack").read_bytes()
+
+
+def _serialize(tree):
+  from flax import serialization
+  return serialization.msgpack_serialize(tree)
+
+
+def _case_bfloat16(jax_exp, tmp_path, monkeypatch):
+  import jax.numpy as jnp
+  return _serialize({"w": jnp.linspace(-3, 3, 35, dtype=jnp.bfloat16)
+                     .reshape(5, 7), "empty": jnp.zeros((0,), jnp.bfloat16)})
+
+
+def _case_numpy_scalar(jax_exp, tmp_path, monkeypatch):
+  import jax.numpy as jnp
+  return _serialize({"f": np.float32(2.5), "i": np.int64(-7),
+                     "u": np.uint32(4_000_000_000), "b": np.bool_(True),
+                     "bf": jnp.bfloat16(1.5)})
+
+
+def _case_complex(jax_exp, tmp_path, monkeypatch):
+  return _serialize({"z": complex(1.25, -2.5), "arr": np.array(
+      [1 + 2j, -3j], np.complex64)})
+
+
+def _case_zero_size(jax_exp, tmp_path, monkeypatch):
+  return _serialize({"a": np.zeros((0, 3), np.float32),
+                     "b": np.zeros((4, 0), np.int32), "c": np.zeros(0)})
+
+
+def _case_chunked(jax_exp, tmp_path, monkeypatch):
+  """flax chunks every leaf over MAX_CHUNK_SIZE bytes; at a few KB a small
+  array is chunked (the fp32 index at 100,000 videos is at 2^30)."""
+  import flax.serialization
+  import jax.numpy as jnp
+  monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 4096)
+  rng = np.random.RandomState(1)
+  return _serialize({
+      "vid_embds": rng.randn(100, 7, 3).astype(np.float32),
+      "nested": {"bf": jnp.arange(5000, dtype=jnp.bfloat16),
+                 "exact": rng.randn(1024).astype(np.float32)},
+      "small": np.arange(3)})
+
+
+def _case_msgpack_types(jax_exp, tmp_path, monkeypatch):
+  """Every msgpack type flax's reader takes: each int width, float 32 and
+  64, str / bin / array / map at each length width, nil and bool."""
+  import msgpack
+  ints = [0, 1, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32,
+          2**64 - 1, -1, -32, -33, -128, -129, -2**15, -2**15 - 1,
+          -2**31 - 1, -2**63]
+  tree = {"ints": ints, "floats": [1.5, -0.0, float("inf"), 0.1],
+          "str": ["", "a" * 31, "b" * 32, "c" * 300, "d" * 70_000, "ü"],
+          "bin": [b"", b"x" * 300, b"y" * 70_000],
+          "array16": list(range(20)), "array32": [0] * 70_000,
+          "map16": {str(i): i for i in range(20)},
+          "map32": {str(i): None for i in range(70_000)},
+          "const": [None, True, False]}
+  # A two-element array: the tree with float 32s, then with float 64s.
+  return (b"\x92" + msgpack.packb(tree, use_single_float=True)
+          + msgpack.packb(tree, use_bin_type=True))
+
+
+READER_CASES = {name[len("_case_"):]: fn for name, fn in globals().items()
+                if name.startswith("_case_")}
+
+
+@pytest.mark.parametrize("case", sorted(READER_CASES))
+def test_reader_is_bitwise_flax(case, jax_exp, tmp_path, monkeypatch):
+  from flax import serialization as flax_serialization
+  blob = READER_CASES[case](jax_exp, tmp_path, monkeypatch)
+  want = flax_serialization.msgpack_restore(blob)
+  assert_restored_equal(serialization.msgpack_restore(blob), want)
+  if case == "chunked":
+    assert serialization.CHUNKED.encode() in blob
+  path = tmp_path / "file.msgpack"
+  path.write_bytes(blob)
+  assert_restored_equal(serialization.msgpack_restore(path), want)
+  assert_restored_equal(serialization.msgpack_restore(str(path)), want)
+
+
+def test_reader_refuses_what_flax_does_not_write():
+  with pytest.raises(ValueError, match="ext type 5"):
+    serialization.msgpack_restore(b"\xd4\x05\x00")
+  with pytest.raises(ValueError, match="ends inside"):
+    serialization.msgpack_restore(b"\x92\x01")
+  with pytest.raises(ValueError, match="extra data"):
+    serialization.msgpack_restore(b"\x01\x02")
+  with pytest.raises(ValueError, match="0xc1"):
+    serialization.msgpack_restore(b"\xc1")
+
+
+# ---------------------------------------------------------------------------
+# A JAX checkpoint in the port's layout
+# ---------------------------------------------------------------------------
+
+
+def test_jax_checkpoint_in_the_port_layout(jax_exp):
+  """params and batch_stats through state_dict_from_flax, the counters and
+  config as they are, the Adam moments transposed like their kernels and
+  keyed by parameter name, the rng dropped."""
+  from flax import serialization as flax_serialization
+  path = jax_exp[1] / "checkpoint-epoch1.msgpack"
+  raw = flax_serialization.msgpack_restore(path.read_bytes())
+  got = ckpt_lib.load_checkpoint(path)
+  assert sorted(got) == ["arch", "config", "epoch", "monitor_best",
+                         "n_samples", "n_steps", "optimizer", "state_dict"]
+  for key in ("arch", "config", "epoch", "monitor_best", "n_samples",
+              "n_steps"):
+    assert got[key] == raw[key] and type(got[key]) is type(raw[key]), key
+  want = convert.state_dict_from_flax(raw["params"], raw["batch_stats"])
+  assert sorted(got["state_dict"]) == sorted(want)
+  for name, t in want.items():
+    assert torch.equal(got["state_dict"][name], t), name
+  adam = raw["opt_state"]["inner_state"]["0"]
+  state = got["optimizer"]["state"]
+  assert sorted(state) == sorted(n for n in want if "running_" not in n
+                                 and "num_batches" not in n)
+  name = "txt_bert.encoder.layer.0.attention.self.query.weight"
+  mu = adam["mu"]["txt_bert"]["encoder"]["layer_0"]["query"]["kernel"]
+  assert torch.equal(state[name]["exp_avg"], torch.from_numpy(mu.T.copy()))
+  for entry in state.values():
+    assert float(entry["step"]) == int(adam["count"]) > 0
+  group = got["optimizer"]["param_groups"][0]
+  assert group["params"] == list(state)
+  assert group["lr"] == float(raw["opt_state"]["hyperparams"]["learning_rate"])
+
+
+def test_non_adam_state_is_left_out(caplog):
+  """An SGD state (optax trace) is not carried over: no ``optimizer``
+  entry, a warning; asking for it as Adam's raises."""
+  import logging
+  from flax import serialization as flax_serialization
+  from mmt_tpu.train.optim import build_optimizer
+  params = {"txt_bert": {"embeddings_ln": {"scale": np.ones(4, np.float32)}}}
+  tx, _ = build_optimizer({"type": "SGD", "args": {"lr": 0.1,
+                                                   "momentum": 0.9}})
+  opt_state = flax_serialization.to_state_dict(tx.init(params))
+  with caplog.at_level(logging.WARNING):
+    got = convert.checkpoint_from_flax({"params": params,
+                                        "opt_state": opt_state})
+  assert "optimizer" not in got and "not Adam's" in caplog.text
+  assert list(got["state_dict"]) == ["txt_bert.embeddings.LayerNorm.weight"]
+  with pytest.raises(ValueError, match="not an optax Adam"):
+    convert.optimizer_state_from_flax(opt_state)
+
+
+def test_unmapped_moment_raises():
+  opt_state = {"hyperparams": {"learning_rate": np.float32(1e-3)},
+               "inner_state": {"0": {"count": np.int32(1),
+                                     "mu": {"nope": np.zeros(2)},
+                                     "nu": {"nope": np.zeros(2)}}}}
+  with pytest.raises(KeyError, match="exp_avg of nope"):
+    convert.optimizer_state_from_flax(opt_state)
+
+
+# ---------------------------------------------------------------------------
+# JAX files through the port's entry points
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def port_on_jax_files(jax_exp):
+  """scripts/serve.py builds its .msgpack index from the JAX checkpoint and
+  answers QUERIES; then one process runs the port on the JAX files (the
+  reader, the converters, --only_eval --load_checkpoint X.msgpack with
+  --txt_bert_init <the JAX converter's msgpack>, serve --checkpoint
+  X.msgpack --index <the JAX index>) and lists the modules it imported."""
+  root, exp, cfg_path = jax_exp
+  spec = importlib.util.spec_from_file_location(
+      "jax_serve_script", REPO / "scripts" / "serve.py")
+  jax_serve = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(jax_serve)
+  common = ["--config", str(cfg_path), "--topk", "4",
+            "--checkpoint", str(exp / "trained_model.msgpack")]
+  for q in QUERIES:
+    common += ["--query", q]
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    jax_serve.main(common + ["--build_index", str(root / "jax_index.msgpack")])
+  want = [json.loads(l) for l in out.getvalue().splitlines()
+          if l.startswith("{")]
+
+  cfg = json.loads(cfg_path.read_text())
+  cfg["trainer"]["save_dir"] = str(root / "port_eval")
+  eval_cfg = write_config(root, "port_eval", cfg)
+  code = f"""
+import json, sys
+before = set(sys.modules)
+from mmt_tpu_torch import cli, serialization, serve
+from mmt_tpu_torch.train import checkpoint
+serialization.msgpack_restore({str(exp / "checkpoint-epoch1.msgpack")!r})
+checkpoint.load_checkpoint({str(exp / "checkpoint-epoch1.msgpack")!r})
+import runpy
+sys.argv = ["hf_bert", "--hf_dir", {str(root / "hf_st")!r},
+            "--out", {str(root / "hf.pth")!r}]
+runpy.run_module("mmt_tpu_torch.hf_bert", run_name="__main__")
+checkpoint.load_txt_bert_init({str(root / "txt_bert_init.msgpack")!r})
+cli.main(["--config", {str(eval_cfg)!r}, "--device", "cpu", "--only_eval",
+          "--load_checkpoint", {str(exp / "trained_model.msgpack")!r},
+          "--txt_bert_init", {str(root / "txt_bert_init.msgpack")!r}])
+hits = serve.main({common!r} + ["--device", "cpu",
+                  "--index", {str(root / "jax_index.msgpack")!r}])
+print("HITS", json.dumps(hits))
+print("BAD", json.dumps(sorted(m for m in set(sys.modules) - before
+                               if m.split(".")[0] in {GUARDED!r})))
+"""
+  proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=str(REPO)))
+  assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+  lines = dict(l.split(" ", 1) for l in proc.stdout.splitlines()
+               if l.startswith(("HITS ", "BAD ")))
+  return (want, json.loads(lines["HITS"]), json.loads(lines["BAD"]),
+          root / "port_eval")
+
+
+def test_loading_jax_files_imports_no_jax_flax_or_msgpack(
+    workspace, port_on_jax_files):
+  """The process that read the JAX files, ran python -m
+  mmt_tpu_torch.hf_bert on a model.safetensors and served imported
+  none of the guarded packages; its conversion is the asset's."""
+  assert port_on_jax_files[2] == []
+  root, pth = workspace[0], workspace[3]
+  assert_same_tensors(ckpt_lib.load_checkpoint(root / "hf.pth")["state_dict"],
+                      ckpt_lib.load_txt_bert_init(pth))
+
+
+def test_only_eval_from_a_jax_checkpoint_gives_the_jax_sims(
+    jax_exp, port_on_jax_files):
+  """--only_eval --load_checkpoint trained_model.msgpack (over a different
+  text-tower init: the checkpoint wins) gives the sims the JAX CLI's final
+  eval of that checkpoint saved."""
+  want, got = _sims(jax_exp[1]), _sims(port_on_jax_files[3])
+  np.testing.assert_array_equal(got["query_masks"], want["query_masks"])
+  np.testing.assert_allclose(got["sims"], want["sims"], rtol=0,
+                             atol=SIMS_TOL)
+
+
+def test_serve_from_a_jax_checkpoint_and_index(port_on_jax_files):
+  """serve --checkpoint X.msgpack --index <scripts/serve.py's index>
+  answers as scripts/serve.py does."""
+  want, got = port_on_jax_files[:2]
+  assert [r["query"] for r in got] == [r["query"] for r in want] == QUERIES
+  assert_hits_match([r["hits"] for r in want], [r["hits"] for r in got],
+                    EXACT_TOL)
+
+
+def test_index_msgpack_matches_the_jax_reader(jax_exp, port_on_jax_files):
+  """RetrievalIndex.load of the JAX package's index: the same arrays, ids
+  and paths as mmt_tpu.serving.RetrievalIndex.load; an emptied index
+  comes back empty (scripts/serve.py built the index)."""
+  from mmt_tpu.serving import RetrievalIndex as JaxIndex
+  from mmt_tpu_torch.serving import RetrievalIndex
+  root = jax_exp[0]
+  path = root / "jax_index.msgpack"
+  want, got = JaxIndex.load(path), RetrievalIndex.load(path)
+  np.testing.assert_array_equal(got.vid_embds, want.vid_embds)
+  np.testing.assert_array_equal(got.vid_weights, want.vid_weights)
+  assert (got.video_ids, got.paths) == (want.video_ids, want.paths)
+  empty = _index(2)
+  empty.remove(list(empty.video_ids))
+  empty.save(root / "empty.msgpack")
+  got = RetrievalIndex.load(root / "empty.msgpack")
+  assert len(got) == 0 and got.video_ids == [] and got.paths == []
+
+
+def _copy_epoch1(exp, dst):
+  dst.mkdir()
+  shutil.copy(exp / "checkpoint-epoch1.msgpack", dst)
+  cfg = json.loads((exp / "config.json").read_text())
+  cfg["trainer"]["save_dir"] = str(dst)
+  (dst / "config.json").write_text(json.dumps(cfg))
+
+
+def test_resume_restarts_a_jax_experiment(jax_exp, tmp_path):
+  """A restart from the JAX run's epoch-1 checkpoint, named with
+  --resume: the weights and Adam moments carried over, the counters
+  resumed, and the resumed epoch's loss within 1e-4 relative of the JAX
+  CLI's own restart from the same checkpoint (its build_trainer and
+  train, as train.py --resume runs them)."""
+  import train as jax_cli
+  from mmt_tpu import config as jax_config
+  from mmt_tpu_torch import config as config_lib
+
+  exp = jax_exp[1]
+  for name in ("jax", "port"):
+    _copy_epoch1(exp, tmp_path / name)
+  with pytest.raises(FileNotFoundError, match="only the JAX CLI.s .msgpack"):
+    cli.main(["--resume", str(tmp_path / "port"), "--device", "cpu"])
+  jax_trainer = jax_cli.build_trainer(jax_config.from_args(argparse.Namespace(
+      resume=str(tmp_path / "jax"), config=None, load_checkpoint=None,
+      only_eval=False, txt_bert_init=None)))
+  jax_trainer.train()
+
+  ckpt = tmp_path / "port" / "checkpoint-epoch1.msgpack"
+  config = config_lib.from_args(argparse.Namespace(
+      resume=str(ckpt), config=None, load_checkpoint=None, only_eval=False,
+      txt_bert_init=None))
+  port = cli.build_trainer(config, device="cpu")
+  loaded = ckpt_lib.load_checkpoint(ckpt)
+  assert (port.start_epoch, port.n_steps, port.n_samples) == (
+      2, loaded["n_steps"], loaded["n_samples"])
+  params = dict(port.model.named_parameters())
+  for name, want in loaded["optimizer"]["state"].items():
+    got = port.optimizer.state[params[name]]
+    assert torch.equal(got["exp_avg"], want["exp_avg"]), name
+    assert torch.equal(got["exp_avg_sq"], want["exp_avg_sq"]), name
+    assert float(got["step"]) == float(want["step"]), name
+  port.train()
+
+  want, got = _epoch_losses(tmp_path / "jax"), _epoch_losses(tmp_path / "port")
+  assert len(got) == len(want) >= 1
+  np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+  assert (port.n_steps, port.n_samples) == (jax_trainer.n_steps,
+                                            jax_trainer.n_samples)
+
+
+# ---------------------------------------------------------------------------
+# Both CLIs from the JAX converter's init and hf_bert's, at range 0.02
+# ---------------------------------------------------------------------------
+
+
+def test_parity_gap_from_the_same_asset_is_rounding_sized(workspace):
+  """Both packages start the text tower from the same asset, each
+  through its own init path, at initializer_range 0.02.  The pretrained
+  tower was predicted to make the run as well conditioned as at range
+  0.5; with this asset it does not: the port from its initial weights
+  moved by one rounding (each times 1 + u, |u| <= 2^-24; three draws)
+  already differs from the unmoved port by more than whole-run parity's
+  tolerances, so the JAX CLI is held to that moved gap, as the
+  BatchNorm trap's 0.02 case is (ROADMAP.md C)."""
+  root, data_dir, _, pth = workspace
+  exps = root / "parity_asset"
+  exps.mkdir()
+  jax_trainer, port, init = asset_runs(workspace, exps)
+  assert_same_tensors({k: v for k, v in init.items()
+                       if k.startswith("txt_bert.")},
+                      ckpt_lib.load_txt_bert_init(pth))
+  assert (port.n_steps, port.n_samples) == (jax_trainer.n_steps,
+                                            jax_trainer.n_samples)
+  moved = []
+  for draw in range(3):
+    port_run((root, data_dir), exps, f"moved{draw}",
+             moved_by_one_rounding(init, draw), CONFIG_INIT_RANGE)
+    moved.append(parity_gaps(exps / f"moved{draw}", exps / "port"))
+  loss_moved, sims_moved = map(max, zip(*moved))
+  loss_jax, sims_jax = parity_gaps(exps / "port", exps / "jax")
+  assert loss_moved > LOSS_RTOL and sims_moved > PARITY_SIMS_TOL, moved
+  assert loss_jax <= loss_moved, (loss_jax, moved)
+  assert sims_jax <= sims_moved, (sims_jax, moved)

@@ -6,7 +6,9 @@
 Phases, each of which raises (exit code 1, no final line) on failure:
 
 1. Build the CUDA kernels from mmt_tpu_torch/csrc/ with nvcc (sm_90a),
-   one nvcc process per source, all at once.
+   one nvcc process per source, all at once; then the host libraries of
+   the loader's native path (mmt_tpu_torch/native/assembler.cc and
+   wordpiece.cc) with $CXX (default g++).
 2. Kernel phase: each eval kernel against its plain PyTorch version on
    the card, at the flagship eval shapes (FFN block: video 10,900 x 512
    and text 1,500 x 768 rows with I = 3072, bf16 and fp32, plus a ragged
@@ -143,6 +145,19 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    data-loading, step and total ms (the trainer's timers) against phase
    8's staged b32 step, and each 1,000-video eval's embed / similarity
    / metrics seconds and videos/s against phase 6's staged eval-1k.
+   The loader runs its default, native path (the C++ assembler and
+   WordPiece fast path): before the runs, one train and one eval batch
+   from the same seed (``num_workers=0``) must be bitwise equal on the
+   native and the Python path; after them the loop's data loading,
+   window mean and median step and eval-1k through the loader are
+   printed beside run D, the recorded Python-path run (PERF.md, RUN_D
+   below).  The 2-epoch run is
+   made twice more, with the same launch counts: on the Python path
+   (``MMT_TPU_NATIVE_ASSEMBLY=0``, ``MMT_TPU_DISABLE_NATIVE=1``) and on
+   the native path with ``"async_checkpoint": false``; each run's
+   tokenizer must have taken only its own path.  The three runs' loop
+   numbers (epoch 2's first three steps among them) are printed side by
+   side, with native / Python in this call.
    (d) The pretrained text-tower init: a synthetic asset under HF
    BertForPreTraining names at bert-base-cased's geometry (197 tensors,
    107,719,680 parameters, 431 MB fp32, plus the pooler, position_ids and
@@ -154,6 +169,13 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    and ``--only_eval --load_checkpoint <that run's checkpoint>
    --txt_bert_init <a zero asset>`` (every entry the checkpoint's: the
    checkpoint wins).  Prints the asset's load and merge seconds.
+   (e) Before the CLI runs, on the card's host alone:
+   ``mmt_tpu_torch.bench_loader``'s protocol (the flagship's 7 experts
+   at their widths, b32, 30 of up to 40 rows, 200 videos): train and
+   eval samples/s at 0, 1, 2 and 8 workers, Python and native path,
+   cold and warm record cache; the tokenizer's texts/s on the corpus's
+   captions and on serving's query strings (native ids equal to the
+   Python path's); the host's cores and thread pools.
 12. Serve phase, in three parts.  (a) Before phase 11's directory is
    removed, ``mmt_tpu_torch.serve.main`` on its trained_model.pth and
    config: --build_index over the eval set (32 videos) with 4 --query
@@ -1879,6 +1901,110 @@ CLI_COUNTED = {"ffn_block": "ffn_block_cuda",
                "ffn_train_bwd": "ffn_train_bwd_cuda"}
 
 
+# Phase 11 (e) and the real loop against run D, the recorded run of
+# phase 11 on the Python path (H100 80GB HBM3, 700.00 W; PERF.md).
+RUN_D = {"window_ms": 377.012, "median_ms": 173.112,
+         "data_loading_ms": 40.763, "eval_s": 3.8675}
+LOADER_BENCH_ARGV = []              # mmt_tpu_torch.bench_loader's defaults
+LOADER_BENCH_LIMIT_S = 60.0
+EPOCH2_STEPS = 3                    # epoch 2's first steps, printed
+
+
+def loader_bench_phase(card):
+  """Phase 11 (e): ``python -m mmt_tpu_torch.bench_loader`` on the card's
+  host (no card work).  Returns its result."""
+  from mmt_tpu_torch import bench_loader
+
+  tic = time.perf_counter()
+  res = bench_loader.run(bench_loader.parse_args(LOADER_BENCH_ARGV),
+                         out=lambda line: print(f"{line} card: {card}",
+                                                flush=True))
+  sec = time.perf_counter() - tic
+  rows = {(r["mode"], r["workers"], r["path"]): r for r in res["loader"]}
+  for (mode, workers, path), r in sorted(rows.items()):
+    if path == "native":
+      py = rows[(mode, workers, "python")]
+      print(f"loader bench: {mode} workers={workers} native / python: "
+            f"cold {r['cold'] / py['cold']:.3f}x, warm "
+            f"{r['warm'] / py['warm']:.3f}x card: {card}", flush=True)
+  print(f"loader bench: {json.dumps(res)}", flush=True)
+  print(f"loader bench: {sec:.1f} s", flush=True)
+  if sec > LOADER_BENCH_LIMIT_S:
+    print(f"loader bench: took over {LOADER_BENCH_LIMIT_S:.0f} s",
+          flush=True)
+  return res
+
+
+def loader_paths_equal(cfg, dims, vocab):
+  """One train and one eval batch of the config's loaders from the same
+  seed, ``num_workers=0``, on the native and the Python path: every
+  array bitwise equal, or raise."""
+  import numpy as np
+
+  from mmt_tpu_torch import bench_loader
+  from mmt_tpu_torch.data import native_assembler as nasm
+  from mmt_tpu_torch.data.loader import ExpertDataLoader
+
+  toks = bench_loader.tokenizers(vocab)
+  for key, training in (("train_sets", True),
+                        ("continuous_eval_sets", False)):
+    args = cfg[key][0]["args"]
+    got = {}
+    for path in ("python", "native"):
+      nasm.set_enabled(path == "native")
+      try:
+        np.random.seed(0)
+        ldr = ExpertDataLoader(mix=args["mix"], num_workers=0,
+                               batch_size=args["batch_size"],
+                               raw_input_dims=dims, training=training,
+                               tokenizer=toks[path], loaded_data={})
+        got[path] = next(iter(ldr["loader"]))
+      finally:
+        nasm.set_enabled(None)
+    arrays = 0
+    for name, want in got["python"].items():
+      have = got["native"][name]
+      pairs = ([(f"{name}/{m}", want[m], have[m]) for m in want]
+               if isinstance(want, dict) else [(name, want, have)])
+      for what, a, b in pairs:
+        if isinstance(a, np.ndarray):
+          arrays += 1
+          if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError(f"train-cli: {key} batch, {what}: the native "
+                               "path differs from the Python path")
+    print(f"train-cli: {key} first batch (b{args['batch_size']}, "
+          f"num_workers 0): native and Python path bitwise equal in all "
+          f"{arrays} arrays", flush=True)
+
+
+def check_tokenizer_path(trainer, native, what):
+  """The run's tokenizer took only the path it was meant to."""
+  texts = trainer.tokenizer.texts
+  if texts["python" if native else "native"] or not sum(texts.values()):
+    raise RuntimeError(f"train-cli {what}: the tokenizer's texts by path "
+                       f"{texts}")
+
+
+def loop_summary(seen, step0, eval0, steps):
+  """One 2-epoch run's loop numbers from the trainer's timers: its
+  ``steps`` step timers from ``step0`` and its 3 continuous evals from
+  ``eval0``."""
+  ms = {k: [x * 1e3 for x in seen[f"train_batch.{k}"][step0:step0 + steps]]
+        for k in ("data_loading", "total")}
+  per_epoch = CLI_SAMPLES_PER_EPOCH // 32
+  parts = [[seen[k][i] for k in ("valid.embds", "valid.conf_mat",
+                                 "valid.metrics")]
+           for i in range(eval0, eval0 + 3)]
+  eval_s = statistics.median(sum(p) for p in parts)
+  embed_sim = statistics.median(p[0] + p[1] for p in parts)
+  return {"data_loading_ms": statistics.median(ms["data_loading"]),
+          "window_ms": statistics.mean(ms["total"]),
+          "median_ms": statistics.median(ms["total"]),
+          "epoch2_ms": [round(x, 3) for x in
+                        ms["total"][per_epoch:per_epoch + EPOCH2_STEPS]],
+          "eval_s": eval_s, "videos_s": CLI_TRAIN_VIDEOS / embed_sim}
+
+
 def cli_config(data_dir, save_dir, epochs):
   """The flagship config with only the data, splits, compute dtype,
   epochs, samples per epoch and save_dir changed."""
@@ -2009,7 +2135,9 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
 
   import numpy as np
 
+  from mmt_tpu_torch import bench_loader
   from mmt_tpu_torch.data import datasets, synthetic
+  from mmt_tpu_torch.data import native_assembler as nasm
   from mmt_tpu_torch.experts import compute_dims
   from mmt_tpu_torch.train import trainer as trainer_lib
   from mmt_tpu_torch.utils import timing
@@ -2069,6 +2197,8 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
     exp = root / "exp"
     cfg_path = root / "flagship_c.json"
     cfg_path.write_text(json.dumps(cli_config(data_dir, exp, 2)))
+    loader_paths_equal(cli_config(data_dir, exp, 2), dims,
+                       root / "vocab.txt")
 
     per_eval = -(-CLI_TRAIN_VIDEOS // 32)        # 32 batches, the last 8
     final_batches = -(-CLI_VAL_VIDEOS // 32)
@@ -2113,6 +2243,7 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
                           allow_pickle=True)[()]["sims"]
     results = json.loads((exp / "exp_results.json").read_text())["perfs"]
     print(f"train-cli: final eval {json.dumps(results)}", flush=True)
+    check_tokenizer_path(trainer, True, "--resume to 3 epochs")
     # The counted runs' timers, before the breakdown adds its own.
     seen = {k: list(v) for k, v in RecordingMeter.seen.items()}
     cli_loop_breakdown(torch, trainer, card)
@@ -2173,6 +2304,54 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
           f"{staged_eval_s:.6f} s (phase 6, embed + similarity + ranks); "
           f"videos/s through the loader {CLI_TRAIN_VIDEOS / (e + c):.1f} "
           f"card: {card}", flush=True)
+    loading = statistics.median(seen["train_batch.data_loading"]) * 1e3
+    print(f"train-cli: the native path against run D (the Python path; "
+          f"H100 80GB HBM3, 700.00 W): data_loading median "
+          f"{loading:.3f} ms (run D {RUN_D['data_loading_ms']}); b32 step "
+          f"window mean {total:.3f} ms (run D {RUN_D['window_ms']}), median "
+          f"{median:.3f} (run D {RUN_D['median_ms']}), staged "
+          f"{staged_step_ms:.3f}; eval-1k through the loader "
+          f"{e + c + m:.6f} s, {CLI_TRAIN_VIDEOS / (e + c):.1f} videos/s "
+          f"(run D {RUN_D['eval_s']} s), staged {staged_eval_s:.6f} s "
+          f"card: {card}", flush=True)
+
+    # Two more 2-epoch runs in this call, held to the same launches: the
+    # Python path (the two switches) and the native path with the
+    # checkpoint written inline (A14.3); each summarised as the first.
+    runs = {"native path": loop_summary(seen, 0, 0, steps)}
+    for what, native, async_ckpt in (
+        ("Python path", False, True),
+        ("native path, async_checkpoint false", True, False)):
+      cfg = cli_config(data_dir, root / "exp_more", 2)
+      cfg["trainer"]["async_checkpoint"] = async_ckpt
+      (root / "flagship_c_more.json").write_text(json.dumps(cfg))
+      at = {k: len(v) for k, v in RecordingMeter.seen.items()}
+      path = (contextlib.nullcontext() if native
+              else bench_loader.python_path())
+      with path:
+        if nasm.enabled() != native:
+          raise RuntimeError(f"train-cli {what}: the assembler's path")
+        more = cli_run(ffn, similarity, ["--config",
+                                         str(root / "flagship_c_more.json"),
+                                         "--device", "cuda"],
+                       first, f"2 epochs, {what}")
+      check_tokenizer_path(more, native, what)
+      shutil.rmtree(root / "exp_more", ignore_errors=True)
+      runs[what] = loop_summary(RecordingMeter.seen, at["train_batch.total"],
+                                at["valid.embds"], steps)
+    for what, r in runs.items():
+      print(f"train-cli loop, {what} (2 epochs, {steps} steps): "
+            f"data_loading median {r['data_loading_ms']:.3f} ms; b32 step "
+            f"window mean {r['window_ms']:.3f} ms, median "
+            f"{r['median_ms']:.3f}; epoch 2's first {EPOCH2_STEPS} steps "
+            f"{r['epoch2_ms']} ms; eval-1k through the loader (median of "
+            f"3) {r['eval_s']:.6f} s, {r['videos_s']:.1f} videos/s card: "
+            f"{card}", flush=True)
+    nat, py = runs["native path"], runs["Python path"]
+    print("train-cli: native path / Python path in this call: "
+          + ", ".join(f"{k} {nat[k] / py[k]:.4f}x" for k in
+                      ("data_loading_ms", "window_ms", "median_ms", "eval_s"))
+          + f" card: {card}", flush=True)
     txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
                         per_eval, final_batches, card)
     return first, (then(cfg_path, exp) if then is not None else None)
@@ -2953,6 +3132,11 @@ def main():
       print(f"  ptxas: {line.split(chr(39))[1]}")
     elif "registers" in line or "spill" in line:
       print(f"  ptxas:   {line.strip()}")
+  for source in ("assembler.cc", "wordpiece.cc"):
+    tic = time.perf_counter()
+    host_lib = _build.build_host(source)
+    print(f"build: {host_lib.name} (host, {os.environ.get('CXX') or 'g++'}) "
+          f"in {time.perf_counter() - tic:.1f} s", flush=True)
   clock.done("build")
 
   dev = torch.device("cuda", 0)
@@ -3059,6 +3243,9 @@ def main():
   tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
   del sims, step_ref
   clock.done("tp")
+
+  loader_bench_phase(card)
+  clock.done("loader-bench")
 
   def serve_cli(cfg_path, exp):
     clock.done("train-cli")

@@ -16,7 +16,10 @@ forward and their tensor-parallel partials (ops/ffn.py,
 csrc/ffn_block.cu), its backward (csrc/ffn_train_bwd.cu), the fused MoE
 similarity (ops/similarity.py, csrc/moe_similarity.cu) and the fused
 ranks (ops/ranking.py, csrc/fused_ranks.cu).  _build.py compiles them
-with nvcc at first use.  The package imports torch and never jax.
+with nvcc at first use, and with $CXX the host C++ of the loader's native
+path (native/assembler.cc for data/native_assembler.py,
+native/wordpiece.cc for tokenization.py).  The package imports torch and
+never jax.
 """
 
 __version__ = "0.1.0"

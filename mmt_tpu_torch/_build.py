@@ -1,12 +1,18 @@
-"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+"""Build the port's native code and load it through ctypes.
 
-The sources under ``csrc/`` compile, one nvcc process each and all at
-once, into one shared library with a plain C interface (no PyTorch
-headers, so the build takes seconds).  The library is built at first use
-into ``build/mmt_tpu_torch/`` beside the package, named by a hash of the
-sources, headers and flags, so an edited source rebuilds and an unchanged
-one loads the cached build.  There is no fallback: without ``nvcc`` or a
-card, ``load_library`` raises.
+Two builders, both at first use into ``build/mmt_tpu_torch/`` beside the
+package, each library named by a hash of its sources and flags, so an
+edited source rebuilds and an unchanged one loads the cached build:
+
+- ``build``: the CUDA kernels under ``csrc/`` compile, one nvcc process
+  each and all at once, into one shared library with a plain C interface
+  (no PyTorch headers, so the build takes seconds).
+- ``build_host``: a host library from one C++ source under ``native/``
+  (the batch assembler and the WordPiece tokenizer), compiled by ``$CXX``
+  (default ``g++``) with ``HOST_FLAGS``.  It needs no nvcc and no card.
+
+There is no fallback: without ``nvcc`` or a card ``load_library`` raises,
+and without a working C++ compiler ``build_host`` raises.
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu",
            "fused_ranks.cu")
 HEADERS = ("ffn_common.cuh", "ffn_gemm.cuh", "sim_tile.cuh")
+NATIVE = CSRC.parent / "native"
 BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,6 +119,47 @@ def build() -> pathlib.Path:
     (BUILD_DIR / "build.log").write_text("".join(log))
     if failed:
       raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n" + "".join(log))
+    os.replace(lib, target)
+  return target
+
+
+def env_switch(name: str, default: bool) -> bool:
+  """The environment switch ``name``: 1 / on / true, 0 / off / false, or
+  ``default`` when unset or empty; any other value raises."""
+  value = os.environ.get(name, "").strip().lower()
+  if not value:
+    return default
+  if value in ("1", "on", "true"):
+    return True
+  if value in ("0", "off", "false"):
+    return False
+  raise ValueError(f"{name}={value!r}: use 1 or 0")
+
+
+def build_host(source: str) -> pathlib.Path:
+  """Compile ``native/<source>`` into a shared library (if not built yet)
+  and return its path.  The name hashes the compiler, the flags and the
+  source.  A missing compiler or a failed compile raises, naming the
+  command and its output."""
+  cxx = os.environ.get("CXX") or "g++"
+  src = NATIVE / source
+  h = hashlib.sha256(" ".join((cxx,) + HOST_FLAGS).encode())
+  h.update(src.read_bytes())
+  target = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+  if target.exists():
+    return target
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    lib = os.path.join(tmp, "lib.so")
+    cmd = [cxx, *HOST_FLAGS, "-o", lib, str(src)]
+    try:
+      proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+      raise RuntimeError(f"{' '.join(cmd)}: cannot run the C++ compiler "
+                         f"({e}); set CXX to one") from e
+    if proc.returncode:
+      raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                         + proc.stdout + proc.stderr)
     os.replace(lib, target)
   return target
 

@@ -8,9 +8,10 @@ subsampling, avg/max pooling, missing-expert zero fill + indicator masks,
 tokenization + crop/pad — emitting exactly the batch schema of
 base/base_dataset.py:876-896.
 
-A copy of mmt_tpu/data/sample.py's Python assembly path.  The JAX
-package's native assembler (native/assembler.cc) is not carried over; its
-tests pin that path bit-exact to this one, so the batches are the same.
+A copy of mmt_tpu/data/sample.py, both of its assembly paths: the
+native one (the default; descriptors gathered by one C call per (batch,
+expert) in data/native_assembler.py) and the Python one
+(``MMT_TPU_NATIVE_ASSEMBLY=0``), bit-exact to each other.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from mmt_tpu_torch.data import native_assembler as nasm
 from mmt_tpu_torch.data import stop_words
 
 # Budget for the per-record padded-temporal-block memo (make_sample):
@@ -209,6 +211,21 @@ def _stack0(lst):
   return lst[0][None] if len(lst) == 1 else np.stack(lst, 0)
 
 
+# Shared descriptor for a missing modality under the native assembler
+# (the zero block is synthesized in C; _missing_block stays the Python-
+# path equivalent).
+_MISSING_SLOT = nasm.FeatSlot(0, 0, None, None, None, None, 0.0, 1.0)
+
+
+def _row_slot(row: np.ndarray) -> "nasm.RowSlot":
+  """Wrap a pooled row for the native row-copy (coercing exotic dtypes
+  or non-contiguous layouts the C kernel doesn't handle)."""
+  if not (row.flags.c_contiguous
+          and row.dtype in (np.float32, np.float64)):
+    row = np.ascontiguousarray(row, np.float32)
+  return nasm.RowSlot(2, row)
+
+
 def _cat0(lst):
   return lst[0] if len(lst) == 1 else np.concatenate(lst, 0)
 
@@ -257,6 +274,12 @@ def make_sample(record, tokenizer, experts: Dict[str, int],
 
   token_ids_list, query_masks_list = [], []
   raw_captions_list = []
+  # Native-assembler mode: emit per-expert descriptors (FeatSlot/RowSlot
+  # referencing the cached record arrays) instead of materialized blocks;
+  # collate() gathers/casts/pads them in one C call per expert.  The
+  # numpy RNG draws below happen at the SAME stream positions either way,
+  # so both paths give the same batches.
+  lazy = nasm.enabled()
   feats = {e: [] for e in experts}
   feats_t = {e: [] for e in experts}
   feats_ind = {e: [] for e in experts}
@@ -318,6 +341,11 @@ def make_sample(record, tokenizer, experts: Dict[str, int],
         if clip_length == float("inf"):
           f_sel = f
           f_t_raw = f_t
+          if not lazy:
+            # temporal encoding starts at 2 s (base/base_dataset.py:776-781);
+            # lazy mode defers the affine — the C kernel applies the same
+            # (t - start) / window + 2 per gathered row.
+            f_t_sel = (f_t - feat_start) / opts.temporal_encoding_window + 2
         else:
           keep = np.logical_and(feat_start <= f_t, f_t <= feat_end)
           if keep.sum() > 0:
@@ -326,10 +354,13 @@ def make_sample(record, tokenizer, experts: Dict[str, int],
                        / opts.temporal_encoding_window + 2)
 
       if f_sel is None:
-        z, zt, zi = _missing_block(opts.max_expert_tokens, raw_dim)
-        feats[expert].append(z)
-        feats_t[expert].append(zt)
-        feats_ind[expert].append(zi)
+        if lazy:
+          feats[expert].append(_MISSING_SLOT)
+        else:
+          z, zt, zi = _missing_block(opts.max_expert_tokens, raw_dim)
+          feats[expert].append(z)
+          feats_t[expert].append(zt)
+          feats_ind[expert].append(zi)
         avg = mx = _zero_row(raw_dim)
       else:
         # Parity with base/base_dataset.py:809-810: the on-disk feature
@@ -364,44 +395,88 @@ def make_sample(record, tokenizer, experts: Dict[str, int],
         cache_key = (expert, opts.max_expert_tokens,
                      opts.temporal_encoding_window, training)
         block = record.feat_blocks.get(cache_key) if cacheable else None
+        raw_slot = None
         if block is None:
           global _feat_block_bytes
-          if f_t_sel is None:
-            # temporal encoding starts at 2 s (base/base_dataset.py:776-781)
-            f_t_sel = ((f_t_raw - feat_start)
-                       / opts.temporal_encoding_window + 2)
-          block = choose_or_pad_features(
-              f_sel, f_t_sel, opts.max_expert_tokens, training,
-              shuffle=opts.shuffle_feats_t, seed=idx)
-          size = sum(a.nbytes for a in block)
-          if (cacheable and _FEAT_BLOCK_CACHE_MB
-              and _feat_block_bytes + size
-              <= _FEAT_BLOCK_CACHE_MB * 1024 * 1024):
-            for arr in block:
-              arr.flags.writeable = False   # samples alias these (cache!)
-            record.feat_blocks[cache_key] = block
-            _feat_block_bytes += size
-        sub, sub_t, sub_ind = block
-        feats[expert].append(sub)
-        feats_t[expert].append(sub_t)
-        feats_ind[expert].append(sub_ind)
+          want_cache = (cacheable and _FEAT_BLOCK_CACHE_MB
+                        and _feat_block_bytes
+                        < _FEAT_BLOCK_CACHE_MB * 1024 * 1024)
+          if (lazy and not want_cache and f_t_raw is not None
+              and not (opts.shuffle_feats_t and training)
+              and nasm.raw_slot_ok(f_sel, f_t_raw)):
+            # Raw descriptor: the C kernel gathers `keep` rows (the
+            # choose_or_pad_features pick, drawn here so the RNG stream
+            # position is unchanged), casts, applies the temporal affine,
+            # and pads — no per-sample block is ever materialized.  This
+            # is the steady-state path for training picks (len > max),
+            # which the block memo can never cache.
+            n_src = len(f_sel)
+            keep_n = min(n_src, opts.max_expert_tokens)
+            if keep_n == n_src:
+              pick = None
+            elif training:
+              pick = np.sort(np.random.choice(
+                  n_src, size=keep_n, replace=False)).astype(
+                      np.int64, copy=False)
+            else:
+              pick = np.sort(_eval_pick(n_src, keep_n)).astype(
+                  np.int64, copy=False)
+            raw_slot = nasm.FeatSlot(2, keep_n, f_sel, f_t_raw, None,
+                                     pick, feat_start,
+                                     opts.temporal_encoding_window)
+          else:
+            if f_t_sel is None:
+              f_t_sel = ((f_t_raw - feat_start)
+                         / opts.temporal_encoding_window + 2)
+            block = choose_or_pad_features(
+                f_sel, f_t_sel, opts.max_expert_tokens, training,
+                shuffle=opts.shuffle_feats_t, seed=idx)
+            size = sum(a.nbytes for a in block)
+            if (cacheable and _FEAT_BLOCK_CACHE_MB
+                and _feat_block_bytes + size
+                <= _FEAT_BLOCK_CACHE_MB * 1024 * 1024):
+              for arr in block:
+                arr.flags.writeable = False   # samples alias these (cache!)
+              record.feat_blocks[cache_key] = block
+              _feat_block_bytes += size
+        if lazy:
+          feats[expert].append(
+              raw_slot if raw_slot is not None
+              else nasm.FeatSlot(1, 0, *block, None, 0.0, 1.0))
+        else:
+          sub, sub_t, sub_ind = block
+          feats[expert].append(sub)
+          feats_t[expert].append(sub_t)
+          feats_ind[expert].append(sub_ind)
       if record.features_avgpool.get(expert) is not None:
         avg = np.asarray(record.features_avgpool[expert]).reshape(1, -1)
       if record.features_maxpool.get(expert) is not None:
         mx = np.asarray(record.features_maxpool[expert]).reshape(1, -1)
-      feats_avg[expert].append(avg)
-      feats_max[expert].append(mx)
+      if lazy:
+        feats_avg[expert].append(_row_slot(avg))
+        feats_max[expert].append(_row_slot(mx))
+      else:
+        feats_avg[expert].append(avg)
+        feats_max[expert].append(mx)
 
     paths.append(path)
     sources.append(source)
 
-  vid_tensors = {
-      "features": {e: _stack0(feats[e]) for e in experts},
-      "features_t": {e: _stack0(feats_t[e]) for e in experts},
-      "features_ind": {e: _stack0(feats_ind[e]) for e in experts},
-      "features_avgpool": {e: _cat0(feats_avg[e]) for e in experts},
-      "features_maxpool": {e: _cat0(feats_max[e]) for e in experts},
-  }
+  if lazy:
+    vid_tensors = {
+        "feat_slots": feats,        # expert -> [FeatSlot per pair]
+        "avg_slots": feats_avg,     # expert -> [RowSlot per pair]
+        "max_slots": feats_max,
+        "feat_T": opts.max_expert_tokens,
+    }
+  else:
+    vid_tensors = {
+        "features": {e: _stack0(feats[e]) for e in experts},
+        "features_t": {e: _stack0(feats_t[e]) for e in experts},
+        "features_ind": {e: _stack0(feats_ind[e]) for e in experts},
+        "features_avgpool": {e: _cat0(feats_avg[e]) for e in experts},
+        "features_maxpool": {e: _cat0(feats_max[e]) for e in experts},
+    }
   return {
       "text_tensors": {
           "token_ids": _stack0(token_ids_list),
@@ -425,12 +500,34 @@ def collate(samples, experts) -> Dict:
         [s["text_tensors"][key] for s in samples], 0).astype(
             np.int32, copy=False)
   vid = {}
-  for key in samples[0]["vid_tensors"]:
-    # dtype= makes the concat write float32 directly (single pass) —
-    # .astype after a float64 concat did the copy twice.
-    vid[key] = {e: np.concatenate(
-        [s["vid_tensors"][key][e] for s in samples], 0, dtype=np.float32)
-        for e in experts}
+  if "feat_slots" in samples[0]["vid_tensors"]:
+    # Native-assembler mode (native_assembler.enabled()): samples carry
+    # descriptors; one C call per expert writes each batch tensor.
+    T = samples[0]["vid_tensors"]["feat_T"]
+    if any(s["vid_tensors"]["feat_T"] != T for s in samples):
+      raise ValueError("mixed max_expert_tokens in one batch")
+    for name in ("features", "features_t", "features_ind",
+                 "features_avgpool", "features_maxpool"):
+      vid[name] = {}
+    for e in experts:
+      dim = experts[e]
+      slots = [sl for s in samples
+               for sl in s["vid_tensors"]["feat_slots"][e]]
+      (vid["features"][e], vid["features_t"][e],
+       vid["features_ind"][e]) = nasm.assemble_features(slots, T, dim)
+      vid["features_avgpool"][e] = nasm.assemble_rows(
+          [sl for s in samples for sl in s["vid_tensors"]["avg_slots"][e]],
+          dim)
+      vid["features_maxpool"][e] = nasm.assemble_rows(
+          [sl for s in samples for sl in s["vid_tensors"]["max_slots"][e]],
+          dim)
+  else:
+    for key in samples[0]["vid_tensors"]:
+      # dtype= makes the concat write float32 directly (single pass) —
+      # .astype after a float64 concat did the copy twice.
+      vid[key] = {e: np.concatenate(
+          [s["vid_tensors"][key][e] for s in samples], 0, dtype=np.float32)
+          for e in experts}
   lists = {}
   for key in samples[0]["lists"]:
     out = []

@@ -1,20 +1,34 @@
 """Self-contained WordPiece tokenizer (no HuggingFace dependency).
 
-Port of mmt_tpu/tokenization.py's Python path: the reference uses
+Port of mmt_tpu/tokenization.py: the reference uses
 ``transformers.BertTokenizer('bert-base-cased', do_lower_case=True)``
 (utils/nlp_utils.py:19-42), reimplemented here from the algorithm itself
 — BERT basic tokenization (lower-casing, accent stripping, punctuation
 splitting, CJK spacing) + greedy longest-match WordPiece with '##'
-continuation pieces, driven by a vocab.txt file.  The JAX package's C++
-fast path (native/wordpiece.cc) and its word-embedding tokenizer
-(``WeTokenizer``, for the wo2v/grvl text inputs) are not ported.
+continuation pieces, driven by a vocab.txt file.
+
+ASCII text without NUL goes through the C++ fast path, the port's copy of
+native/wordpiece.cc (``native/wordpiece.cc`` of this package, compiled at
+first use by ``_build.build_host``); any other text, and a text whose
+pieces overflow the output buffer, through the Python path, which gives
+the same pieces.  The fast path is the default and never falls back
+silently: if the library cannot be built or loaded, building a tokenizer
+raises.  ``MMT_TPU_DISABLE_NATIVE=1`` selects the Python path for every
+text (``0`` or unset the fast path; another value raises).  The JAX
+package's word-embedding tokenizer (``WeTokenizer``, for the wo2v/grvl
+text inputs) is not ported.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import threading
 import unicodedata
+import weakref
 from typing import Dict, List, Optional, Sequence
+
+from mmt_tpu_torch import _build
 
 PAD_TOKEN = "[PAD]"
 UNK_TOKEN = "[UNK]"
@@ -189,6 +203,13 @@ class WordPieceTokenizer:
     self.wordpiece = WordPiece(self.vocab)
     self.vocab_size = len(self.vocab)
     self._specials = [t for t in SPECIAL_TOKENS if t in self.vocab]
+    self._native = (None if _build.env_switch("MMT_TPU_DISABLE_NATIVE",
+                                              False)
+                    else _NativeWordPiece(vocab_file, do_lower_case))
+    # Texts (chunks between special tokens) by the path that tokenized
+    # them; the loader's threads share a tokenizer.
+    self.texts = {"native": 0, "python": 0}
+    self._texts_lock = threading.Lock()
 
   def tokenize(self, text: str) -> List[str]:
     # Special-token literals pass through verbatim, matched anywhere in
@@ -204,6 +225,17 @@ class WordPieceTokenizer:
     return self._tokenize_chunk(text)
 
   def _tokenize_chunk(self, text: str) -> List[str]:
+    # The native path implements the ASCII subset of BERT basic
+    # tokenization and reads a NUL-terminated string; other text takes
+    # the full-Unicode Python path, as does an overflow (None).
+    if self._native is not None and text.isascii() and "\0" not in text:
+      native = self._native.tokenize(text)
+      if native is not None:
+        with self._texts_lock:
+          self.texts["native"] += 1
+        return native
+    with self._texts_lock:
+      self.texts["python"] += 1
     out: List[str] = []
     for tok in self.basic.tokenize(text):
       out.extend(self.wordpiece.tokenize(tok))
@@ -226,6 +258,48 @@ class WordPieceTokenizer:
       if special_tokens:
         tokens[-1] = self.sep_token
     return self.convert_tokens_to_ids(tokens)
+
+
+_NATIVE_LIB = None
+
+
+def _native_lib() -> ctypes.CDLL:
+  global _NATIVE_LIB
+  if _NATIVE_LIB is None:
+    lib = ctypes.CDLL(str(_build.build_host("wordpiece.cc")))
+    lib.wp_create.restype = ctypes.c_void_p
+    lib.wp_create.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.wp_tokenize.restype = ctypes.c_int
+    lib.wp_tokenize.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_char_p, ctypes.c_int]
+    lib.wp_destroy.restype = None
+    lib.wp_destroy.argtypes = [ctypes.c_void_p]
+    _NATIVE_LIB = lib
+  return _NATIVE_LIB
+
+
+class _NativeWordPiece:
+  """ctypes wrapper around native/wordpiece.cc: one vocab handle, freed
+  with the wrapper."""
+
+  def __init__(self, vocab_file, do_lower_case: bool):
+    self._lib = _native_lib()
+    self._handle = self._lib.wp_create(str(vocab_file).encode(),
+                                       int(do_lower_case))
+    if not self._handle:
+      raise RuntimeError(f"wp_create could not read {vocab_file}")
+    weakref.finalize(self, self._lib.wp_destroy, self._handle)
+
+  def tokenize(self, text: str) -> Optional[List[str]]:
+    """The pieces of an ASCII ``text``, or None when the C side refuses
+    it (non-ASCII, or more output than the buffer holds)."""
+    data = text.encode()
+    buf = ctypes.create_string_buffer(4 * len(data) + 4096)
+    n = self._lib.wp_tokenize(self._handle, data, buf, len(buf))
+    if n < 0:
+      return None
+    raw = buf.value.decode("ascii")
+    return raw.split("\x01") if raw else []
 
 
 def create_tokenizer(tokenizer_type: str, vocab_file=None):

@@ -9,7 +9,8 @@ setup(
                  "video-text retrieval, with a PyTorch/CUDA port"),
     packages=find_packages(include=["mmt_tpu", "mmt_tpu.*",
                                     "mmt_tpu_torch", "mmt_tpu_torch.*"]),
-    package_data={"mmt_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"mmt_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                     "native/*.cc"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "h5py"],
     extras_require={"test": ["pytest", "scipy", "torch", "transformers"],

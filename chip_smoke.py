@@ -206,6 +206,23 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    numerator; these are the ``serving_shapes`` of the ``ffn_block`` and
    ``moe_similarity`` entries of the kernel line, whose
    ``serving_launches`` are (a)'s counts.
+13. Matrix phase (run in phase 11's scope, after 12 (a), on its corpus):
+   three configs through ``cli.main`` at the flagship widths, bf16,
+   b32, one epoch of 12 steps and the evals on the 32 val videos: (a)
+   bertfrz4 over bertftn input, ordr, mnp, vid_wgh emb, Ranger (k 6);
+   (b) collaborative gating (vid_inp agg, vid_wgh nrm), bertftnmxp, gem,
+   missing modalities dropped; (c) wo2vfrz word vectors (a seeded
+   300-wide word2vec text file over the corpus's words) into NetVLAD.
+   Each: its first step on the kernel path against the plain path from
+   the same weights, batch and dropout seed (phase 8's tolerances; the
+   plain path takes the kernel path's max-pool routing, and the share
+   of maxima the rounding reorders is printed); the launches of the
+   counted run exactly (per step 16 / 12 / 4 B2 and B3 and 1 B4; per
+   eval batch 16 / 12 / 4 B1 and per eval 1 B4); the frozen parameters
+   bitwise unmoved and without a gradient ((c): the word table the
+   file's, rows 0-1 zero); a line with the median step ms, the final
+   eval's seconds and the launches.  The launches are the
+   ``matrix_launches`` of the kernel line's B1, B2, B3 and B4 entries.
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -3077,6 +3094,237 @@ def serve_kernel_cases(torch, ffn, similarity, dev, card):
   return ffn_shapes, sim_shapes
 
 
+# Phase 13: the config matrix through the port's CLI on phase 11's corpus.
+MATRIX_STEPS = 12                       # one epoch of b32 steps a run
+MATRIX_WE_DIM = 300                     # the registry's speech / ocr width
+MATRIX_RUNS = {
+    # name: (arch.args, optimizer or None, per-step B2 / B3, B1 per eval
+    # batch, the frozen parameters' name prefixes)
+    "a": ({"txt_agg": "bertfrz4", "txt_inp": "bertftn", "pos_enc": "ordr",
+           "out_tok": "mnp", "vid_wgh": "emb"},
+          {"type": "Ranger", "args": {"lr": 5e-5, "k": 6}}, 16, 16,
+          tuple(f"txt_bert.encoder.layer.{i}." for i in range(4))),
+    "b": ({"vid_cont": "coll", "vid_inp": "agg", "vid_wgh": "nrm",
+           "txt_agg": "bertftnmxp", "txt_pro": "gem",
+           "keep_missing_modalities": False}, None, 12, 12, ()),
+    "c": ({"txt_inp": "wo2vfrz", "txt_agg": "vlad"}, None, 4, 4,
+          ("word_embeddings.",)),
+}
+
+
+def matrix_config(data_dir, save_dir, name):
+  """Phase 11's config for run ``name``: one epoch of MATRIX_STEPS b32
+  steps, both evals on the val split, the run's switches."""
+  args, optimizer, *_ = MATRIX_RUNS[name]
+  cfg = cli_config(data_dir, save_dir, 1)
+  mix = cfg["continuous_eval_sets"][0]["args"]["mix"][0]
+  mix["split_name"] = "val"
+  cfg["arch"]["args"].update(args)
+  if optimizer is not None:
+    cfg["optimizer"] = optimizer
+  cfg["trainer"].update(max_samples_per_epoch=32 * MATRIX_STEPS,
+                        skip_first_n_saves=1)
+  return cfg
+
+
+def write_word_vectors(path, data_dir, seed=13):
+  """A seeded MATRIX_WE_DIM-wide word2vec text file over the corpus's
+  caption words."""
+  import numpy as np
+  from mmt_tpu_torch.data import synthetic
+  words = sorted(set(synthetic.TOPICS + synthetic.FILLER))
+  rng = np.random.RandomState(seed)
+  vecs = rng.randn(len(words), MATRIX_WE_DIM).astype(np.float32)
+  with open(path, "w") as f:
+    f.write(f"{len(words)} {MATRIX_WE_DIM}\n")
+    for w, v in zip(words, vecs):
+      f.write(w + " " + " ".join(f"{x:.6f}" for x in v) + "\n")
+  return len(words)
+
+
+def matrix_first_step(torch, ops, cfg_path, card, name):
+  """The first train step of run ``name`` on the kernel path against the
+  plain path (phase 8's check), from one trainer's initial weights, its
+  first batch and one dropout seed; returns CPU copies of the initial
+  weights of the run's frozen parameters and the trainer's tokenizer."""
+  import argparse
+
+  from mmt_tpu_torch import cli, config as config_lib
+  from mmt_tpu_torch.data import loader as loader_lib
+  from mmt_tpu_torch.models.cenet import similarity_from_outputs
+  from mmt_tpu_torch.train.trainer import model_batch
+
+  ns = argparse.Namespace(config=str(cfg_path), resume=None,
+                          load_checkpoint=None, only_eval=False,
+                          txt_bert_init=None)
+  trainer = cli.build_trainer(config_lib.from_args(ns), device="cuda")
+  model = trainer.model.train()
+  frozen = MATRIX_RUNS[name][4]
+  init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
+          if n.startswith(frozen)}
+  entry = trainer.data_loaders["train_sets"][0]
+  batch = next(loader_lib.device_prefetch(
+      iter([model_batch(next(iter(entry["loader"])))]), trainer.device))
+  state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+  # The max-pools (txt_agg bert*mxp) route each gradient to one token: a
+  # bf16 rounding between the paths that reorders two near-equal values
+  # moves a whole gradient entry to another token.  The plain path takes
+  # the kernel path's routing (max values gathered at its indices) so that
+  # the check holds the kernels' arithmetic; the reordered share is shown.
+  amax, routes = torch.Tensor.amax, []
+
+  def recording_amax(t, dim, keepdim=False):
+    routes.append(t.detach().argmax(dim, keepdim=True))
+    return amax(t, dim, keepdim)
+
+  def replaying_amax(t, dim, keepdim=False):
+    idx = routes.pop(0)
+    flips[0] += int((t.detach().argmax(dim, keepdim=True) != idx).sum())
+    flips[1] += idx.numel()
+    out = t.gather(dim, idx)
+    return out if keepdim else out.squeeze(dim)
+
+  flips = [0, 0]
+
+  def step(plain):
+    model.load_state_dict(state0)
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=trainer.device).manual_seed(17)
+    torch.Tensor.amax = replaying_amax if plain else recording_amax
+    try:
+      with ops.plain_versions() if plain else contextlib.nullcontext():
+        out = model(batch, train=True, generator=gen)
+        loss = trainer.loss_fn(similarity_from_outputs(out, merge="avg"))
+        loss.backward()
+    finally:
+      torch.Tensor.amax = amax
+    torch.cuda.synchronize()
+    return float(loss), {n: p.grad.clone() for n, p in
+                         model.named_parameters() if p.requires_grad}
+
+  loss_k, grads_k = step(False)
+  loss_p, grads_p = step(True)
+  print(f"matrix {name}: the plain path's own max-pool argmax differs from "
+        f"the kernel path's at {flips[0]} of {flips[1]} maxima (routing "
+        "held to the kernel path's below)", flush=True)
+  check_step(torch, f"matrix {name} first step kernel vs plain", loss_k,
+             loss_p, grads_k, grads_p)
+  if any(p.grad is not None for n, p in model.named_parameters()
+         if not p.requires_grad):
+    raise RuntimeError(f"matrix {name}: a frozen parameter holds a gradient")
+  tokenizer = trainer.tokenizer
+  del trainer, model, batch, state0, grads_k, grads_p
+  torch.cuda.empty_cache()
+  return init, tokenizer
+
+
+def matrix_phase(torch, ops, ffn, similarity, cfg_path, card):
+  """Phase 13: three short runs of ``mmt_tpu_torch.cli`` at the flagship
+  widths on phase 11's corpus (7 experts, cut c), bf16, b32, one epoch of
+  MATRIX_STEPS steps, then the evals: (a) bertfrz4 over bertftn input,
+  ordr, mnp, vid_wgh emb, Ranger k 6; (b) collaborative gating over the
+  pooled experts (vid_inp agg, vid_wgh nrm), bertftnmxp, gem, missing
+  modalities dropped; (c) wo2vfrz word vectors (300 wide) into NetVLAD.
+  Each: its first step on the kernel path against the plain path, the
+  exact launches of the counted run (set to 0 just before it), the frozen
+  parameters bitwise unmoved and without a gradient, and a line with the
+  median step ms, the eval seconds and the launches.  Runs inside phase
+  11 (its corpus, vocab and expert names).  Returns {run: launches}."""
+  import numpy as np
+
+  from mmt_tpu_torch.train import trainer as trainer_lib
+  from mmt_tpu_torch.utils import timing
+
+  class RecordingMeter(timing.AverageMeter):
+    seen = {}
+
+    def update(self, key, val, n=1):
+      super().update(key, val, n)
+      RecordingMeter.seen.setdefault(key, []).append(val)
+
+  cfg = json.loads(pathlib.Path(cfg_path).read_text())
+  data_dir = cfg["train_sets"][0]["args"]["mix"][0]["data_dir"]
+  root = pathlib.Path(cfg_path).parent / "matrix"
+  root.mkdir()
+  vectors = root / "vectors.txt"
+  n_words = write_word_vectors(vectors, data_dir)
+  prev_meter = trainer_lib.AverageMeter
+  prev_vectors = os.environ.get("MMT_TPU_WORD_VECTORS")
+  os.environ["MMT_TPU_WORD_VECTORS"] = str(vectors)
+  trainer_lib.AverageMeter = RecordingMeter
+  out = {}
+  try:
+    for name, (_, _, per_step, per_eval_batch, frozen) in \
+        MATRIX_RUNS.items():
+      tic = time.perf_counter()
+      cfg_run = root / f"{name}.json"
+      cfg_run.write_text(json.dumps(matrix_config(
+          data_dir, root / f"probe_{name}", name)))
+      init, tokenizer = matrix_first_step(torch, ops, cfg_run, card, name)
+      shutil.rmtree(root / f"probe_{name}", ignore_errors=True)
+      exp = root / f"exp_{name}"
+      cfg_run.write_text(json.dumps(matrix_config(data_dir, exp, name)))
+      eval_bs = cfg["final_eval_sets"][0]["args"]["batch_size"]
+      eval_batches = 3 * -(-CLI_VAL_VIDEOS // eval_bs)   # epochs 0, 1, final
+      want = {"ffn_block": per_eval_batch * eval_batches,
+              "ffn_train_fwd": per_step * MATRIX_STEPS,
+              "ffn_train_bwd": per_step * MATRIX_STEPS,
+              "moe_similarity": MATRIX_STEPS + 3}
+      RecordingMeter.seen = {}
+      trainer = cli_run(ffn, similarity, ["--config", str(cfg_run),
+                                          "--device", "cuda"],
+                        want, f"matrix {name}")
+      if trainer.n_steps != MATRIX_STEPS:
+        raise RuntimeError(f"matrix {name}: n_steps {trainer.n_steps}")
+      params = dict(trainer.model.named_parameters())
+      moved = [n for n, t in init.items() if not torch.equal(
+          params[n].detach().cpu(), t)]
+      held = [n for n in init if params[n].grad is not None
+              or params[n].requires_grad]
+      if (frozen and not init) or moved or held:
+        raise RuntimeError(f"matrix {name}: frozen parameters {len(init)}, "
+                           f"moved {moved[:3]}, with a gradient {held[:3]}")
+      if name == "c":
+        table = params["word_embeddings.word_embeddings.weight"]
+        table = table.detach().cpu().numpy()
+        if (table.shape != (n_words + 2, MATRIX_WE_DIM)
+            or not np.array_equal(table, tokenizer.weights)
+            or table[:2].any()):
+          raise RuntimeError("matrix c: the word table is not the file's")
+      losses = [json.loads(line)["loss"]
+                for line in (exp / "perf_log.txt").read_text().splitlines()]
+      if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"matrix {name}: epoch losses {losses}")
+      results = json.loads((exp / "exp_results.json").read_text())["perfs"]
+      finals = [v for d in results.values() for v in d.values()]
+      if not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"matrix {name}: final eval {results}")
+      seen = RecordingMeter.seen
+      step_ms = statistics.median(seen["train_batch.total"]) * 1e3
+      eval_s = sum(seen[k][-1] for k in ("valid.embds", "valid.conf_mat",
+                                         "valid.metrics"))
+      print(f"matrix {name}: {json.dumps(MATRIX_RUNS[name][0])}; "
+            f"{len(init)} frozen parameters unmoved; epoch losses {losses}; "
+            f"median step {step_ms:.3f} ms over {MATRIX_STEPS} steps (all "
+            f"{[round(x * 1e3, 3) for x in seen['train_batch.total']]}); "
+            f"final eval {eval_s:.6f} s; launches {json.dumps(want)}; "
+            f"run {time.perf_counter() - tic:.1f} s card: {card}",
+            flush=True)
+      out[name] = want
+      shutil.rmtree(exp, ignore_errors=True)
+      del trainer, params
+      torch.cuda.empty_cache()
+    return out
+  finally:
+    trainer_lib.AverageMeter = prev_meter
+    if prev_vectors is None:
+      os.environ.pop("MMT_TPU_WORD_VECTORS", None)
+    else:
+      os.environ["MMT_TPU_WORD_VECTORS"] = prev_vectors
+    shutil.rmtree(root, ignore_errors=True)
+
+
 class PhaseClock:
   """Seconds of each phase: ``done(name)`` ends the phase that began at
   the last call (or at construction) and prints its seconds."""
@@ -3249,13 +3497,16 @@ def main():
 
   def serve_cli(cfg_path, exp):
     clock.done("train-cli")
-    return serve_cli_phase(torch, ffn, similarity, cfg_path, exp)
+    served_cli = serve_cli_phase(torch, ffn, similarity, cfg_path, exp)
+    clock.done("serve-cli")
+    return served_cli, matrix_phase(torch, ops, ffn, similarity, cfg_path,
+                                    card)
 
-  cli_launches, serve_launches = train_cli_phase(
+  cli_launches, (serve_launches, matrix_launches) = train_cli_phase(
       torch, ops, ffn, similarity, staged_step_ms, k_s, card, then=serve_cli)
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
         flush=True)
-  clock.done("serve-cli")
+  clock.done("matrix")
   served = serve_scale_phase(torch, ops, ffn, similarity, flagship, dev,
                              card)
   clock.done("serve")
@@ -3269,6 +3520,11 @@ def main():
     entries[name]["launches"] = train_launches[name]
   for name, n in tp_launches.items():
     entries[name]["launches"] = n
+  # Phase 13: each config-matrix run's launches.
+  for name in ("ffn_block", "ffn_train_fwd", "ffn_train_bwd",
+               "moe_similarity"):
+    entries[name]["matrix_launches"] = {
+        run: want[name] for run, want in matrix_launches.items()}
   # Phase 12: the serving path's own launches and shapes.
   for name, shapes in (("ffn_block", ffn_shapes),
                        ("moe_similarity", sim_shapes)):

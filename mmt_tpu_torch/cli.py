@@ -115,9 +115,44 @@ def _is_custom_text_geometry(geom):
   return any(stock.get(k) != v for k, v in dict(geom).items())
 
 
+def freeze_parameters(model, txt_agg: str, txt_inp: str):
+  """Turn off ``requires_grad`` of the parameters a run freezes and
+  return their names (train.py:frozen_param_mask, the reference's
+  model/model.py:164-193): ``bertfrz`` the whole text encoder,
+  ``bertfrz<N>`` its layers 0..N-1, and a ``*frz`` txt_inp (bertfrz /
+  wo2vfrz / grvlfrz) the text tower's embeddings and the word-vector
+  table.  Gradients still flow through frozen layers to the trainable
+  ones below them.  The JAX package zeroes the frozen leaves' updates
+  after the optimizer (``optax.masked(set_to_zero)``); here they hold no
+  gradient and stay out of the optimizer, so their update is zero,
+  decoupled weight decay included."""
+  from mmt_tpu_torch.config import TxtAggSpec
+
+  spec = TxtAggSpec.parse(txt_agg) if txt_agg[:4] == "bert" else None
+  prefixes = []
+  if spec is not None and spec.state == "frz":
+    if spec.freeze_until is None:
+      prefixes.append("txt_bert.encoder.")
+    else:
+      prefixes += [f"txt_bert.encoder.layer.{i}."
+                   for i in range(spec.freeze_until)]
+  if txt_inp.endswith("frz"):
+    prefixes += ["txt_bert.embeddings.", "word_embeddings."]
+  names = []
+  for name, param in model.named_parameters():
+    if name.startswith(tuple(prefixes)):
+      param.requires_grad_(False)
+      names.append(name)
+  if names:
+    logger.info("Frozen (txt_agg=%s, txt_inp=%s): %d parameters", txt_agg,
+                txt_inp, len(names))
+  return names
+
+
 def build_trainer(config, device="cuda"):
   """Construct the fully-wired Trainer for ``config`` on ``device``
-  (model, loaders, optimizer, schedule) without running it."""
+  (model, loaders, freeze mask, optimizer over the trainable parameters,
+  schedule) without running it."""
   from mmt_tpu_torch.experts import compute_dims
   from mmt_tpu_torch.models.cenet import CENet, cenet_kwargs_from_arch_args
   from mmt_tpu_torch.registry import build, get
@@ -152,8 +187,10 @@ def build_trainer(config, device="cuda"):
 
   loss_fn = build("loss", config["loss"])
   metrics = [(name, get("metric", name)) for name in config["metrics"]]
-  optimizer, base_lr = build_optimizer(config["optimizer"],
-                                       model.parameters())
+  freeze_parameters(model, arch_args.get("txt_agg", ""),
+                    arch_args.get("txt_inp", ""))
+  optimizer, base_lr = build_optimizer(
+      config["optimizer"], [p for p in model.parameters() if p.requires_grad])
   sched_args = config.get("lr_scheduler", {"args": {}}).get("args", {})
   lr_schedule = step_lr(base_lr, sched_args.get("step_size", 1),
                         sched_args.get("gamma", 1.0))

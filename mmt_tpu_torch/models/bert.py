@@ -3,7 +3,9 @@
 Port of mmt_tpu/models/bert.py: post-LN blocks, erf-GELU, the additive
 -10000 mask, fp32 LayerNorm statistics with the fast-variance form.  The
 FFN sub-block goes through ``ops.ffn.ffn_block`` in eval mode and
-``ops.ffn.ffn_block_train`` in train mode (the fused kernels on the card).
+``ops.ffn.ffn_block_train`` in train mode (the fused kernels on the card);
+with ``hidden_act`` relu or swish it is the plain FFN in PyTorch, as the
+JAX package routes them (no kernel computes those activations).
 Train mode (``train=True`` with a ``torch.Generator``) adds dropout where
 JAX has it: after the embeddings' LayerNorm, on the attention
 probabilities, on the attention output before the residual, and as the
@@ -45,11 +47,11 @@ from mmt_tpu_torch.parallel import mesh as tp_lib
 class Linear(nn.Linear):
   """nn.Linear that keeps its weight and bias cast to a compute dtype.
 
-  Without autograd (``no_grad`` / ``inference_mode``) the cast copy is
-  made on first use and remade only when the parameters change (a load,
-  an in-place update or a move), never on every call.  Under autograd the
-  copy is made in the graph on every call, so that gradients reach the
-  fp32 parameters.
+  Without autograd (``no_grad`` / ``inference_mode``, or frozen
+  parameters) the cast copy is made on first use and remade only when the
+  parameters change (a load, an in-place update or a move), never on
+  every call.  Under autograd the copy is made in the graph on every call,
+  so that gradients reach the fp32 parameters.
   """
 
   def __init__(self, in_features, out_features, *, device=None):
@@ -62,9 +64,19 @@ class Linear(nn.Linear):
       return w.to(dtype), b.to(dtype)
     key = (dtype, w.data_ptr(), w._version, b.data_ptr(), b._version)
     if self._cast is None or self._cast[0] != key:
-      self._cast = (key, w.detach().to(dtype).contiguous(),
-                    b.detach().to(dtype))
+      # Made as normal tensors even under inference_mode: a frozen
+      # layer's training step (grad on, its weights without) saves them
+      # for backward, which an inference tensor refuses.
+      with torch.inference_mode(False):
+        self._cast = (key, w.detach().to(dtype).contiguous(),
+                      b.detach().to(dtype))
     return self._cast[1], self._cast[2]
+
+
+# The hidden_act values no kernel computes: they take the plain FFN, as in
+# the JAX package (mmt_tpu/models/bert.py:activation).  "gelu" goes
+# through the FFN kernels.
+PLAIN_ACTIVATIONS = {"relu": F.relu, "swish": F.silu}
 
 
 def _container(**children):
@@ -96,8 +108,12 @@ class TransformerLayer(nn.Module):
   def __init__(self, cfg: BertParams, ln_name: str, *, compute_dtype,
                device=None, tp=None):
     super().__init__()
-    if cfg.hidden_act != "gelu":
-      raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
+    if cfg.hidden_act != "gelu" and cfg.hidden_act not in PLAIN_ACTIVATIONS:
+      raise ValueError(f"unknown activation {cfg.hidden_act!r}")
+    if tp is not None and tp.size > 1 and cfg.hidden_act != "gelu":
+      raise NotImplementedError(
+          f"hidden_act {cfg.hidden_act!r} under tensor parallelism: the "
+          "sharded FFN is the GELU kernel's; ROADMAP.md A10")
     h, i = cfg.hidden_size, cfg.intermediate_size
     self.cfg, self.ln_name, self.compute_dtype = cfg, ln_name, compute_dtype
     mp = tp.size if tp is not None else 1
@@ -169,6 +185,16 @@ class TransformerLayer(nn.Module):
     inter, out = self.intermediate.dense, self.output.dense
     ffn_ln = getattr(self.output, self.ln_name)
     ffn_tp = tp if self.ffn_tp else None
+    if cfg.hidden_act != "gelu":
+      # No kernel computes relu / swish: the plain FFN, as the JAX
+      # package routes them (mmt_tpu/models/bert.py, ``fusable``).
+      w1, b1 = inter.cast(cd)
+      w2, b2 = out.cast(cd)
+      act = PLAIN_ACTIVATIONS[cfg.hidden_act]
+      y = F.linear(act(F.linear(hidden.to(cd), w1, b1)), w2, b2)
+      y = dropout(y, p_hidden, generator)
+      return ffn_ops.layer_norm(y.float() + hidden.float(), ffn_ln.weight,
+                                ffn_ln.bias, eps=cfg.layer_norm_eps)
     if train:
       drop = dropout_mask(hidden.shape, p_hidden, generator, hidden.device)
       return ffn_ops.ffn_block_train(
@@ -221,29 +247,36 @@ class TransformerEncoder(nn.Module):
 class FeatureBert(nn.Module):
   """Video BERT: embeddings = token type + position + continuous features
   (no word table), then LayerNorm.  Reference names: ``embeddings.
-  {position_embeddings, token_type_embeddings, layer_norm}``."""
+  {position_embeddings, token_type_embeddings, layer_norm}``.  Without
+  ``positions`` (pos_enc 'none') there is no position table, as in the
+  JAX package's tree."""
 
   def __init__(self, cfg: BertParams, *, compute_dtype, device=None,
-               tp=None):
+               tp=None, positions=True):
     super().__init__()
     h = cfg.hidden_size
     self.cfg, self.compute_dtype = cfg, compute_dtype
+    tables = dict(token_type_embeddings=nn.Embedding(
+        cfg.type_vocab_size, h, device=device))
+    if positions:
+      tables["position_embeddings"] = nn.Embedding(
+          cfg.max_position_embeddings, h, device=device)
     self.embeddings = _container(
-        position_embeddings=nn.Embedding(cfg.max_position_embeddings, h,
-                                         device=device),
-        token_type_embeddings=nn.Embedding(cfg.type_vocab_size, h,
-                                           device=device),
+        **tables,
         layer_norm=nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device))
     self.encoder = TransformerEncoder(cfg, "layer_norm",
                                       compute_dtype=compute_dtype,
                                       device=device, tp=tp)
 
-  def forward(self, features, attention_mask, token_type_ids, position_ids,
-              *, train=False, generator=None):
+  def forward(self, features, attention_mask, token_type_ids,
+              position_ids=None, *, train=False, generator=None):
+    """``position_ids`` None (pos_enc 'none') adds no position
+    embedding."""
     cd, emb = self.compute_dtype, self.embeddings
     x = emb.token_type_embeddings.weight[token_type_ids].to(cd)
     x = x + features.to(cd)
-    x = x + emb.position_embeddings.weight[position_ids].to(cd)
+    if position_ids is not None:
+      x = x + emb.position_embeddings.weight[position_ids].to(cd)
     x = ffn_ops.layer_norm(x, emb.layer_norm.weight, emb.layer_norm.bias,
                            eps=self.cfg.layer_norm_eps)
     return _encode(self, x, attention_mask, train, generator)

@@ -1,11 +1,20 @@
-"""Normalisations and the batched per-modality heads.
+"""Normalisations, the batched per-modality heads, the collaborative
+gating units and the word-embedding text path.
 
-Port of mmt_tpu/models/components.py:24-46 and :314-416.  The per-modality
-modules are parameter holders under the reference's names
-(``text_GU.{mod}.fc``, ``text_GU.{mod}.cg.fc``,
-``text_GU.{mod}.cg.batch_norm``, ``video_dim_reduce.{mod}.fc``); the
-forward runs all modalities at once over stacked weights.  Heads run in
-fp32, as in the JAX package.
+Port of mmt_tpu/models/components.py.  The per-modality heads are
+parameter holders under the reference's names (``text_GU.{mod}.fc``,
+``text_GU.{mod}.cg.fc``, ``text_GU.{mod}.cg.batch_norm``,
+``video_dim_reduce.{mod}.fc``); the forward runs all modalities at once
+over stacked weights.  ``GatedEmbeddingUnitReasoning`` (vid_cont coll),
+``NetVLAD``, ``LSTMPooler`` and ``TxtEmbeddings`` (the word-embedding
+text path) are modules with a forward.  Heads run in fp32, as in the JAX
+package.
+
+Every BatchNorm here is flax's (mmt_tpu/models/components.py:
+TorchBatchNorm): batch moments over all leading rows in train mode, with
+the fast biased variance, and running buffers updated to 0.9 * old + 0.1
+* batch.  ``nn.BatchNorm1d`` is only the holder of the parameters and
+buffers: its own forward (unbiased running variance) is never called.
 """
 
 from __future__ import annotations
@@ -28,22 +37,174 @@ def l1_normalize(x, dim=-1, eps=1e-12):
   return x / x.abs().sum(dim, keepdim=True).clamp_min(eps)
 
 
+def safe_norm(x, dim=-1, eps=1e-12):
+  """||x|| along ``dim``, clamped below by eps (a finite gradient at 0)."""
+  return torch.sqrt((x * x).sum(dim).clamp_min(eps * eps))
+
+
+def _update_running(bn, mean, var):
+  """flax's running update: buffer = 0.9 * buffer + 0.1 * batch."""
+  with torch.no_grad():
+    for buf, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+      buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * batch)
+    bn.num_batches_tracked += 1
+
+
+def batch_norm(x, bn, *, train):
+  """flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5) over x's last dim with
+  ``bn``'s parameters; train mode takes the moments over every leading
+  row, var = max(0, mean(x^2) - mean^2), and updates ``bn``'s buffers."""
+  if train:
+    flat = x.reshape(-1, x.shape[-1])
+    mean = flat.mean(0)
+    var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
+    _update_running(bn, mean, var)
+  else:
+    mean, var = bn.running_mean, bn.running_var
+  return (x - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+
+
 class ContextGating(nn.Module):
-  """Holder: ``fc`` and ``batch_norm`` (x * sigmoid(BN(fc(x))))."""
+  """Holder: ``fc`` and, with ``use_bn``, ``batch_norm``
+  (x * sigmoid(BN(fc(x))))."""
+
+  def __init__(self, dim, *, use_bn=True, device=None):
+    super().__init__()
+    self.fc = nn.Linear(dim, dim, device=device)
+    if use_bn:
+      self.batch_norm = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
+
+
+class GatedEmbeddingUnit(nn.Module):
+  """Holder: ``fc`` then ``cg`` (a ContextGating; without BatchNorm for
+  txt_pro 'gem')."""
+
+  def __init__(self, in_dim, out_dim, *, use_bn=True, device=None):
+    super().__init__()
+    self.fc = nn.Linear(in_dim, out_dim, device=device)
+    self.cg = ContextGating(out_dim, use_bn=use_bn, device=device)
+
+
+class ContextGatingReasoning(nn.Module):
+  """x * sigmoid(BN(mask) + BN2(fc(x))) (mmt_tpu/models/components.py:
+  ContextGatingReasoning; ``batch_norm`` gates the mask, ``batch_norm2``
+  fc(x))."""
 
   def __init__(self, dim, *, device=None):
     super().__init__()
     self.fc = nn.Linear(dim, dim, device=device)
     self.batch_norm = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
+    self.batch_norm2 = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
+
+  def forward(self, x, mask, *, train=False):
+    gate = (batch_norm(mask, self.batch_norm, train=train)
+            + batch_norm(self.fc(x), self.batch_norm2, train=train))
+    return x * torch.sigmoid(gate)
 
 
-class GatedEmbeddingUnit(nn.Module):
-  """Holder: ``fc`` then ``cg`` (a ContextGating)."""
+class GatedEmbeddingUnitReasoning(nn.Module):
+  """``cg`` (a ContextGatingReasoning), then the L2 norm: one modality's
+  output unit of the collaborative gating (vid_cont 'coll')."""
 
-  def __init__(self, in_dim, out_dim, *, device=None):
+  def __init__(self, dim, *, device=None):
     super().__init__()
-    self.fc = nn.Linear(in_dim, out_dim, device=device)
-    self.cg = ContextGating(out_dim, device=device)
+    self.cg = ContextGatingReasoning(dim, device=device)
+
+  def forward(self, x, mask, *, train=False):
+    return l2_normalize(self.cg(x, mask, train=train))
+
+
+class NetVLAD(nn.Module):
+  """NetVLAD over x [B, N, D] -> [B, D * K] (mmt_tpu/models/components.py:
+  NetVLAD): soft assignment x @ clusters, BatchNorm over all B * N token
+  rows (padded ones included, as the JAX package's ``flat`` is), softmax
+  over the K clusters, residuals against ``clusters2`` summed per cluster,
+  the intra norm over D, then a global L2 norm."""
+
+  def __init__(self, cluster_size, feature_size, *, device=None):
+    super().__init__()
+    self.cluster_size, self.feature_size = cluster_size, feature_size
+    self.clusters = nn.Parameter(
+        torch.empty(feature_size, cluster_size, device=device))
+    self.clusters2 = nn.Parameter(
+        torch.empty(1, feature_size, cluster_size, device=device))
+    self.batch_norm = nn.BatchNorm1d(cluster_size, eps=BN_EPS, device=device)
+
+  def init_weights(self, generator):
+    """Clusters ~ N(0, 1/sqrt(D)), as the JAX package draws them."""
+    with torch.no_grad():
+      for p in (self.clusters, self.clusters2):
+        p.normal_(0.0, self.feature_size ** -0.5, generator=generator)
+
+  @property
+  def out_dim(self):
+    return self.cluster_size * self.feature_size
+
+  def forward(self, x, *, train=False):
+    b, n, d = x.shape
+    x = x.float()
+    assignment = batch_norm(x.reshape(-1, d) @ self.clusters,
+                            self.batch_norm, train=train)
+    assignment = torch.softmax(assignment, 1).reshape(b, n, -1)
+    a = assignment.sum(1, keepdim=True) * self.clusters2       # [B, D, K]
+    vlad = torch.einsum("bnk,bnd->bdk", assignment, x) - a
+    vlad = l2_normalize(vlad, dim=1)                            # over D
+    return l2_normalize(vlad.reshape(b, -1))
+
+
+class LSTMPooler(nn.Module):
+  """One-direction LSTM over the padded tokens, then ``fc`` of the last
+  valid hidden state (mmt_tpu/models/components.py:LSTMPooler).
+
+  torch's LSTM runs over the whole padded sequence: it is causal, so its
+  output at step length - 1 is the state the JAX package's
+  ``nn.RNN(seq_lengths=)`` carries out.  A row of length 0 (a padded
+  caption slot) reads step -1 there (flax's ``_select_last_carry`` takes
+  index ``seq_lengths - 1``): the state after all T padded steps, so here
+  too (``pack_padded_sequence`` would refuse the row).  Gates i, f, g, o
+  as flax's OptimizedLSTMCell (convert.py fuses its per-gate kernels).
+  """
+
+  def __init__(self, input_dim, hidden_dim, output_dim, num_layers=1, *,
+               device=None):
+    super().__init__()
+    self.lstm = nn.LSTM(input_dim, hidden_dim, num_layers, batch_first=True,
+                        device=device)
+    self.fc = nn.Linear(hidden_dim, output_dim, device=device)
+    # flax's cell has one bias a gate, the hidden side's (bias_hh): the
+    # input side's stays zero and frozen, so a step moves each gate's bias
+    # once, as in the JAX package.
+    for layer in range(num_layers):
+      getattr(self.lstm, f"bias_ih_l{layer}").requires_grad_(False)
+
+  def init_weights(self, generator):
+    """Every weight ~ N(0, 1/fan_in), zero biases."""
+    with torch.no_grad():
+      for name, p in self.named_parameters():
+        if name.endswith("bias"):
+          p.zero_()
+        else:
+          p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+
+  def forward(self, x, lengths):
+    out, _ = self.lstm(x.float())
+    step = (lengths.long() - 1) % x.shape[1]            # length 0: step T-1
+    return self.fc(out[torch.arange(x.shape[0], device=x.device), step])
+
+
+class TxtEmbeddings(nn.Module):
+  """``word_embeddings``, a word-vector table whose row 0 ([PAD]) reads
+  as zero in the forward whatever the table holds (padding_idx 0 of the
+  reference; the JAX package's ``table.at[0].set(0.0)``)."""
+
+  def __init__(self, vocab_size, emb_dim, *, device=None):
+    super().__init__()
+    self.word_embeddings = nn.Embedding(vocab_size, emb_dim, device=device)
+
+  def forward(self, input_ids):
+    emb = self.word_embeddings.weight[input_ids]
+    return torch.where((input_ids == 0)[..., None], torch.zeros_like(emb),
+                       emb)
 
 
 class ReduceDim(nn.Module):
@@ -64,11 +225,13 @@ def init_heads_(module: nn.Module, generator: torch.Generator):
         mod.bias.zero_()
 
 
-def batched_gated_embedding(x, geus, *, train=False):
-  """All modalities' GatedEmbeddingUnits, followed by the L2 norm.
-  x [B, D_in] -> [B, M, D_out].
+def batched_gated_embedding(x, geus, *, train=False, use_bn=True,
+                            normalize=True):
+  """All modalities' GatedEmbeddingUnits, followed by the L2 norm (unless
+  ``normalize`` is off).  x [B, D_in] -> [B, M, D_out].
 
-  Eval mode normalises the gate with the BatchNorm running statistics.
+  Without ``use_bn`` (txt_pro 'gem') the gate is sigmoid(fc(h)).  Eval
+  mode normalises the gate with the BatchNorm running statistics.
   Train mode (mmt_tpu/models/components.py:_batched_torch_bn) uses the
   batch moments, with the fast biased variance mean(g^2) - mean^2, and
   updates the running buffers in place to 0.9 * old + 0.1 * batch: flax's
@@ -79,24 +242,37 @@ def batched_gated_embedding(x, geus, *, train=False):
   b1 = torch.stack([g.fc.bias for g in geus])                # [M, Do]
   wc = torch.stack([g.cg.fc.weight for g in geus])           # [M, Do, Do]
   bc = torch.stack([g.cg.fc.bias for g in geus])
-  bns = [g.cg.batch_norm for g in geus]
   h = torch.einsum("bd,med->bme", x, w1) + b1
   gate = torch.einsum("bme,mfe->bmf", h, wc) + bc
+  if use_bn:
+    gate = _batched_bn(gate, [g.cg.batch_norm for g in geus], train=train)
+  out = h * torch.sigmoid(gate)
+  return l2_normalize(out) if normalize else out
+
+
+def _batched_bn(gate, bns, *, train):
+  """The per-modality BatchNorms of gate [B, M, D] (the JAX package's
+  _batched_torch_bn: no clamp of the variance)."""
   if train:
     mean = gate.mean(0)                                      # [M, Do]
     var = (gate * gate).mean(0) - mean * mean
-    with torch.no_grad():
-      for i, bn in enumerate(bns):
-        for buf, batch in ((bn.running_mean, mean), (bn.running_var, var)):
-          buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * batch[i])
-        bn.num_batches_tracked += 1
+    for i, bn in enumerate(bns):
+      _update_running(bn, mean[i], var[i])
   else:
     mean = torch.stack([bn.running_mean for bn in bns])
     var = torch.stack([bn.running_var for bn in bns])
   scale = torch.stack([bn.weight for bn in bns])
   shift = torch.stack([bn.bias for bn in bns])
-  gate = (gate - mean) * torch.rsqrt(var + BN_EPS) * scale + shift
-  return l2_normalize(h * torch.sigmoid(gate))
+  return (gate - mean) * torch.rsqrt(var + BN_EPS) * scale + shift
+
+
+def batched_reduce_dim(x, reducers, normalize=True):
+  """All modalities' ReduceDims over one shared input x [B, D_in] ->
+  [B, M, D_out] (txt_pro 'lin')."""
+  w = torch.stack([r.fc.weight for r in reducers])           # [M, Do, Di]
+  b = torch.stack([r.fc.bias for r in reducers])
+  out = torch.einsum("bd,med->bme", x, w) + b
+  return l2_normalize(out) if normalize else out
 
 
 def batched_reduce_dim_ragged(xs, reducers):

@@ -381,21 +381,30 @@ ffn_train_bwd_cuda.launches = 0
 
 
 def ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter, *, eps,
-                           compute_dtype):
+                           compute_dtype, need=(True,) * 6):
   """dW1 [I, H], db1 [I], dW2 [H, I], db2 [H], dgamma [H], dbeta [H], all
   fp32, from the forward's residuals and B3's outputs.  The products take
   the compute-dtype-rounded operands with fp32 accumulation, as the JAX
-  package's dot_generals with preferred_element_type=float32."""
+  package's dot_generals with preferred_element_type=float32.  ``need``
+  says which of the six to compute; the others are None (the weights of
+  a frozen layer: no GEMM is spent on them)."""
   cd = compute_dtype
-  dy = dy.float()
-  zhat, _ = _zhat(z.float(), eps)
-  dffn = dz.float() * drop.float()
-  gelu_out = gelu_erf(inter.float()).to(cd).float()
+  out = [None] * 6
   dinter = dinter.float()
-  dw2 = dffn.to(cd).float().T @ gelu_out
-  dw1 = dinter.T @ x.to(cd).float()
-  return (dw1, dinter.sum(0), dw2, dffn.sum(0), (dy * zhat).sum(0),
-          dy.sum(0))
+  dffn = dz.float() * drop.float()
+  if need[0]:
+    out[0] = dinter.T @ x.to(cd).float()
+  if need[1]:
+    out[1] = dinter.sum(0)
+  if need[2]:
+    out[2] = dffn.to(cd).float().T @ gelu_erf(inter.float()).to(cd).float()
+  if need[3]:
+    out[3] = dffn.sum(0)
+  if need[4]:
+    out[4] = (dy.float() * _zhat(z.float(), eps)[0]).sum(0)
+  if need[5]:
+    out[5] = dy.float().sum(0)
+  return tuple(out)
 
 
 class FFNBlockTrain(torch.autograd.Function):
@@ -445,8 +454,11 @@ class FFNBlockTrain(torch.autograd.Function):
                          compute_dtype=ctx.cd, add_dz=ctx.tp is None)
     if ctx.tp is not None:
       dx = ctx.tp.all_reduce(dx) + dz.float()
+    # Only the gradients autograd asks for: a frozen layer (bertfrz<N>)
+    # still gets B3's dx, but no weight GEMM.
     grads = ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter,
-                                   eps=ctx.eps, compute_dtype=ctx.cd)
+                                   eps=ctx.eps, compute_dtype=ctx.cd,
+                                   need=ctx.needs_input_grad[2:8])
     return (dx, None, *grads, None, None, None)
 
 

@@ -14,9 +14,12 @@ pieces overflow the output buffer, through the Python path, which gives
 the same pieces.  The fast path is the default and never falls back
 silently: if the library cannot be built or loaded, building a tokenizer
 raises.  ``MMT_TPU_DISABLE_NATIVE=1`` selects the Python path for every
-text (``0`` or unset the fast path; another value raises).  The JAX
-package's word-embedding tokenizer (``WeTokenizer``, for the wo2v/grvl
-text inputs) is not ported.
+text (``0`` or unset the fast path; another value raises).
+
+The word-embedding tokenizer of the wo2v / grvl text inputs
+(``WeTokenizer`` over ``read_word2vec``: word2vec ``.bin``, word2vec text
+with a header, GloVe text without one) is the JAX package's, without
+gensim; its word vectors are named by ``MMT_TPU_WORD_VECTORS``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import threading
 import unicodedata
 import weakref
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from mmt_tpu_torch import _build
 
@@ -302,19 +307,100 @@ class _NativeWordPiece:
     return raw.split("\x01") if raw else []
 
 
-def create_tokenizer(tokenizer_type: str, vocab_file=None):
+# ---------------------------------------------------------------------------
+# Word-embedding tokenizer (word2vec / GloVe), gensim-free
+# ---------------------------------------------------------------------------
+
+
+def read_word2vec(path):
+  """(words, float32 vectors [n, dim]) of a word2vec ``.bin``, or of a
+  text file: word2vec's with a "<count> <dim>" header line, or GloVe's
+  without one (mmt_tpu/tokenization.py:read_word2vec)."""
+  path = str(path)
+  if path.endswith(".bin"):
+    with open(path, "rb") as f:
+      n_words, dim = (int(v) for v in f.readline().split()[:2])
+      words, vecs = [], np.empty((n_words, dim), dtype=np.float32)
+      for i in range(n_words):
+        chars = []
+        while True:
+          ch = f.read(1)
+          if ch == b" ":
+            break
+          if ch != b"\n":
+            chars.append(ch)
+        words.append(b"".join(chars).decode("utf-8", errors="replace"))
+        vecs[i] = np.frombuffer(f.read(4 * dim), dtype=np.float32)
+    return words, vecs
+  with open(path, encoding="utf-8") as f:
+    first = f.readline().rstrip("\n").split(" ")
+    has_header = len(first) == 2 and all(p.isdigit() for p in first)
+    words, rows = [], []
+    if not has_header:
+      words.append(first[0])
+      rows.append(np.asarray(first[1:], dtype=np.float32))
+    for line in f:
+      parts = line.rstrip("\n").split(" ")
+      words.append(parts[0])
+      rows.append(np.asarray(parts[1:], dtype=np.float32))
+  return words, np.stack(rows)
+
+
+class WeTokenizer:
+  """Whitespace tokenizer over a word-vector vocabulary
+  (mmt_tpu/tokenization.py:WeTokenizer; the reference's
+  model/txt_embeddings.py:64-113): zero rows for [PAD] and [UNK] are
+  prepended to the vectors (``weights``, the ``word_embeddings`` table);
+  ``tokenize`` lower-cases, keeps each word's alphanumerics and drops the
+  words out of the vocabulary ([UNK] when none is left).  [CLS] and [SEP]
+  read as [PAD]: the caption path has no special tokens."""
+
+  cls_token = PAD_TOKEN
+  sep_token = PAD_TOKEN
+  pad_token = PAD_TOKEN
+  unk_token = UNK_TOKEN
+
+  def __init__(self, we_filepath, freeze: bool = False):
+    words, vecs = read_word2vec(we_filepath)
+    self.text_dim = vecs.shape[1]
+    self.weights = np.concatenate(
+        [np.zeros((2, self.text_dim), dtype=np.float32),
+         vecs.astype(np.float32)])
+    self.words = [PAD_TOKEN, UNK_TOKEN] + list(words)
+    self._index = {w: i for i, w in enumerate(self.words)}
+    self.freeze = freeze
+    self.vocab_size = len(self.words)
+
+  def tokenize(self, text: str) -> List[str]:
+    words = ["".join(e for e in w if e.isalnum())
+             for w in text.lower().split(" ")]
+    words = [w for w in words if w in self._index]
+    return words or [UNK_TOKEN]
+
+  def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+    return [self._index.get(t, 1) for t in tokens]
+
+  def convert_ids_to_tokens(self, ids: Sequence[int]) -> List[str]:
+    return [self.words[int(i)] for i in ids]
+
+
+def create_tokenizer(tokenizer_type: str, vocab_file=None, we_filepath=None):
   """Tokenizer factory (utils/nlp_utils.py:19-42 semantics).
 
   ``bert*`` -> WordPiece over ``vocab_file`` (defaults to the env var
-  MMT_TPU_BERT_VOCAB or data/bert-base-cased-vocab.txt).  ``wo2v*`` /
-  ``grvl*`` (the word-embedding tokenizer) is not ported.
+  MMT_TPU_BERT_VOCAB or data/bert-base-cased-vocab.txt); ``wo2v*`` /
+  ``grvl*`` -> WeTokenizer over ``we_filepath`` (defaults to the env var
+  MMT_TPU_WORD_VECTORS), frozen for ``*frz``.
   """
   if tokenizer_type.startswith("bert"):
     vocab_file = (vocab_file or os.environ.get("MMT_TPU_BERT_VOCAB")
                   or "data/bert-base-cased-vocab.txt")
     return WordPieceTokenizer(vocab_file, do_lower_case=True)
   if tokenizer_type.startswith(("wo2v", "grvl")):
-    raise NotImplementedError(
-        f"tokenizer {tokenizer_type!r}: the word-embedding tokenizer "
-        "(WeTokenizer) is not ported yet (ROADMAP.md, queue A)")
+    we_filepath = we_filepath or os.environ.get("MMT_TPU_WORD_VECTORS")
+    if not we_filepath:
+      raise ValueError(
+          f"tokenizer {tokenizer_type!r} reads word vectors: name a "
+          "word2vec / GloVe file in MMT_TPU_WORD_VECTORS")
+    return WeTokenizer(we_filepath, freeze=tokenizer_type.endswith("frz"))
   return None

@@ -176,7 +176,10 @@ def optimizer_state_by_position(state, model, optimizer):
   name (a JAX checkpoint's) is re-keyed by each parameter's position in
   ``optimizer`` (whose parameters are ``model``'s), its group taking the
   optimizer's hyperparameters with the saved learning rate; a state keyed
-  by position is returned as it is."""
+  by position is returned as it is.  The state of a parameter the
+  optimizer does not hold (a frozen one: a JAX freeze mask zeroes the
+  update after the optimizer, whose moments still cover it) is dropped,
+  with an info log."""
   saved = state["param_groups"]
   if not any(isinstance(p, str) for g in saved for p in g["params"]):
     return state
@@ -184,17 +187,24 @@ def optimizer_state_by_position(state, model, optimizer):
     raise ValueError("a state keyed by name loads into one param group")
   position = {id(p): i for i, p in
               enumerate(optimizer.param_groups[0]["params"])}
-  names = {name: position[id(p)] for name, p in model.named_parameters()
+  params = dict(model.named_parameters())
+  names = {name: position[id(p)] for name, p in params.items()
            if id(p) in position}
-  unknown = [n for n in state["state"] if n not in names]
+  unknown = [n for n in state["state"] if n not in params]
   if unknown:
     raise KeyError(f"optimizer state for {len(unknown)} parameters the "
                    f"model does not have (first: {unknown[0]})")
+  frozen = [n for n in state["state"] if n not in names]
+  if frozen:
+    logger.info("optimizer state of %d frozen parameters dropped (first: "
+                "%s): the optimizer does not hold them", len(frozen),
+                frozen[0])
   group = {k: v for k, v in optimizer.param_groups[0].items()
            if k != "params"}
   group.update({k: v for k, v in saved[0].items() if k != "params"},
                params=list(range(len(position))))
-  return {"state": {names[n]: v for n, v in state["state"].items()},
+  return {"state": {names[n]: v for n, v in state["state"].items()
+                    if n in names},
           "param_groups": [group]}
 
 

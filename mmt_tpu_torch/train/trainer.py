@@ -20,8 +20,11 @@ trainer/trainer.py:55-493 semantics), single process:
   HTML ranking pages, exp_results.json + completion flag).
 
 The pretrained text-tower init (``txt_bert_init``) is merged strictly
-into the text tower before any resume or warm start, so a checkpoint wins
-over it.  Not ported (each raises NotImplementedError): the data mesh,
+into the text tower, and a word-embedding tokenizer's vectors are copied
+into the word table, before any resume or warm start, so a checkpoint
+wins over both.  The optimizer's state (Adam's, AdamW's, Ranger's with
+its slow buffer) goes through the checkpoints with
+``include_optim_in_ckpts``.  Not ported (each raises NotImplementedError): the data mesh,
 tensor parallelism (``model_parallel``) and host-staged embeddings
 (ROADMAP.md A10).
 """
@@ -195,6 +198,9 @@ class Trainer:
         config.seed)
     self._init_state()
 
+    if getattr(tokenizer, "weights", None) is not None and hasattr(
+        model, "word_embeddings"):
+      self._load_word_vectors(tokenizer.weights)
     if txt_bert_init is not None:
       self._load_txt_bert_init(txt_bert_init)
 
@@ -727,6 +733,17 @@ class Trainer:
     # place); serialization + write happen on the writer thread.
     self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(self._state_dict()),
                            epoch, save_best=save_best)
+
+  def _load_word_vectors(self, weights):
+    """The tokenizer's word vectors ([PAD] and [UNK] rows zero) into the
+    word-embedding table (train.py:236-239; the reference's
+    TxtEmbeddings.from_pretrained).  Before any resume or warm start, so a
+    checkpoint's table wins over it (the JAX CLI writes the vectors after
+    its resume, over a resumed table: ROADMAP.md C4)."""
+    table = self.model.word_embeddings.word_embeddings.weight
+    with torch.no_grad():
+      table.copy_(torch.as_tensor(np.asarray(weights, np.float32)))
+    logger.info("word_embeddings: %d x %d word vectors loaded", *table.shape)
 
   def _load_txt_bert_init(self, path):
     """Initialize the text tower from converted pretrained BERT weights

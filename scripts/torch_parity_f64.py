@@ -13,10 +13,15 @@ one JSON line per case: the largest relative gap of the trained epochs'
 mean losses and the largest absolute gap of the final sims of each
 float32 run against the float64 run, and of the two float32 runs
 against each other.  The float32 run farther from the float64 one is
-the one that strays.
+the one that strays.  With ``--matrix NAME`` the one case is instead a
+config of tests/test_torch_config_matrix.py (``coll``, ``wo2v_vlad``,
+...) in its parity setup at Adam's eps ``--eps`` (default the config's
+1e-8), with the port also run from the initial weights moved by one
+rounding (three draws).
 
   JAX_PLATFORMS=cpu python scripts/torch_parity_f64.py \\
       [--ranges 0.02] [--seeds 4] [--threads 1] [--asset]
+      [--matrix coll [--eps 1e-8]]
 """
 
 import argparse
@@ -81,6 +86,32 @@ def report(workspace, exps, init, init_range, **case):
       **({"port_vs_moved": moved} if moved else {})}), flush=True)
 
 
+def matrix_report(root, name, eps):
+  """``--matrix``: the config matrix case ``name`` at Adam's ``eps``:
+  the JAX CLI, the port, three moved ports and the port in float64."""
+  import test_torch_config_matrix as matrix
+  data_dir, env = matrix.make_workspace(root)
+  os.environ.update(env)
+  workspace = (root, data_dir)
+  exps = root / f"{name}_eps{eps}"
+  exps.mkdir()
+  _, _, init = matrix.jax_and_port_runs(workspace, exps, name, eps)
+  for draw in range(3):
+    matrix.port_run(workspace, exps, f"moved{draw}",
+                    moved_by_one_rounding(init, draw), name, eps)
+  with float64_port():
+    trainer = matrix.port_run(workspace, exps, "port64", init, name, eps)
+    dtype = str(next(trainer.model.parameters()).dtype)
+  print(json.dumps({
+      "matrix": name, "adam_eps": eps, "threads": torch.get_num_threads(),
+      "f64_param_dtype": dtype,
+      "port_vs_f64": parity_gaps(exps / "port", exps / "port64"),
+      "jax_vs_f64": parity_gaps(exps / "jax", exps / "port64"),
+      "port_vs_jax": parity_gaps(exps / "port", exps / "jax"),
+      "port_vs_moved": [parity_gaps(exps / f"moved{d}", exps / "port")
+                        for d in range(3)]}), flush=True)
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--ranges", type=float, nargs="+", default=[0.02])
@@ -88,10 +119,17 @@ def main():
   parser.add_argument("--threads", type=int, default=1)
   parser.add_argument("--asset", action="store_true",
                       help="both CLIs from one HF-style asset at range 0.02")
+  parser.add_argument("--matrix", default=None,
+                      help="a config of tests/test_torch_config_matrix.py")
+  parser.add_argument("--eps", type=float, default=1e-8,
+                      help="Adam's eps of the --matrix case")
   args = parser.parse_args()
   torch.set_num_threads(args.threads)
   with tempfile.TemporaryDirectory() as tmp:
     root = pathlib.Path(tmp)
+    if args.matrix:
+      matrix_report(root, args.matrix, args.eps)
+      return
     if args.asset:
       space = make_workspace(root)
       workspace = space[:2]

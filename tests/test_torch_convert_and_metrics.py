@@ -190,7 +190,11 @@ def test_copied_config_and_flagship_batch_match_jax():
 
 
 def test_non_flagship_switch_raises(tiny_arch):
-  with pytest.raises(NotImplementedError, match="vid_cont"):
-    CENet(**tiny_arch, vid_cont="coll")
+  """Every switch value the JAX package accepts builds (the parity of
+  each is tests/test_torch_cenet_switches.py); an unknown value raises
+  ValueError, an unknown argument TypeError."""
+  CENet(**tiny_arch, device="cpu", vid_cont="coll", vid_inp="agg")
+  with pytest.raises(ValueError, match="vid_cont"):
+    CENet(**tiny_arch, device="cpu", vid_cont="bogus")
   with pytest.raises(TypeError):
-    CENet(**tiny_arch, no_such_switch=1)
+    CENet(**tiny_arch, device="cpu", no_such_switch=1)

@@ -125,13 +125,22 @@ def test_tokenizer_ids_equal_the_jax_tokenizer(tmp_path, vocab):
     assert pt.encode(text, max_len=12) == jt.encode(text, max_len=12), text
 
 
-def test_create_tokenizer_refuses_the_word_embedding_tokenizer(tmp_path):
+def test_create_tokenizer_refuses_the_word_embedding_tokenizer(tmp_path,
+                                                             monkeypatch):
+  """bert* builds WordPiece; wo2v* / grvl* build the word-embedding
+  tokenizer from MMT_TPU_WORD_VECTORS and refuse to start without it."""
   jax_synthetic.write_vocab(tmp_path / "vocab.txt")
   tok = port_tok.create_tokenizer("bertftn", tmp_path / "vocab.txt")
   assert isinstance(tok, port_tok.WordPieceTokenizer)
+  monkeypatch.delenv("MMT_TPU_WORD_VECTORS", raising=False)
   for kind in ("wo2vftn", "grvlfrz"):
-    with pytest.raises(NotImplementedError, match="WeTokenizer"):
+    with pytest.raises(ValueError, match="MMT_TPU_WORD_VECTORS"):
       port_tok.create_tokenizer(kind)
+  (tmp_path / "vectors.txt").write_text("a 1 2\nb 3 4\n")
+  monkeypatch.setenv("MMT_TPU_WORD_VECTORS", str(tmp_path / "vectors.txt"))
+  tok = port_tok.create_tokenizer("grvlfrz")
+  assert isinstance(tok, port_tok.WeTokenizer) and tok.freeze
+  assert tok.vocab_size == 4 and tok.text_dim == 2
 
 
 def _mix(data_dir, cut, split, training):

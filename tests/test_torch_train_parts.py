@@ -95,8 +95,14 @@ def test_adam_weight_decay_is_decoupled():
 
 
 def test_unported_optimizer_raises():
-  with pytest.raises(NotImplementedError, match="Ranger"):
-    optim.build_optimizer({"type": "Ranger", "args": {"lr": 1e-3}},
+  """Every optimizer of the JAX registry builds (Ranger's parity is
+  tests/test_torch_ranger_freeze.py); an unknown one raises KeyError, as
+  the JAX registry does."""
+  opt, lr = optim.build_optimizer({"type": "Ranger", "args": {"lr": 1e-3}},
+                                  [torch.nn.Parameter(torch.zeros(2))])
+  assert isinstance(opt, optim.Ranger) and lr == 1e-3
+  with pytest.raises(KeyError, match="Adagrad"):
+    optim.build_optimizer({"type": "Adagrad", "args": {"lr": 1e-3}},
                           [torch.nn.Parameter(torch.zeros(2))])
 
 

@@ -336,9 +336,9 @@ def test_flagship_config_builds_the_port_cenet(tmp_path):
       batch, 2, torch.zeros(2, 7, 32),
       [torch.zeros(2, 30, 32) for _ in model.modalities])
   assert seq[0].shape == (2, 1 + 7 * (1 + 30), 32)
-  with pytest.raises(NotImplementedError, match="l2renorm"):
-    CENet(expert_dims=dims, vid_bert_params=kwargs["vid_bert_params"],
-          same_dim=32, device="cpu", l2renorm=True)
+  # l2renorm is inert, as in the JAX package and the reference: stored.
+  assert CENet(expert_dims=dims, vid_bert_params=kwargs["vid_bert_params"],
+               same_dim=32, device="cpu", l2renorm=True).l2renorm is True
   with pytest.raises(ValueError, match="compute_dtype"):
     cenet_kwargs_from_arch_args(dict(args, compute_dtype="fp8"), None)
 

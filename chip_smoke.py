@@ -13,7 +13,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    the card, at the flagship eval shapes (FFN block: video 10,900 x 512
    and text 1,500 x 768 rows with I = 3072, bf16 and fp32, plus a ragged
    row count, and in bf16 a width off the GEMM route, 1,013 x 192 with
-   I = 768, which keeps the WMMA kernel; similarity: 1000 x 1000 with
+   I = 768, which keeps the WMMA kernel; and in bf16 the train CLI's
+   eval rows, b32 and its last batch of 8, whole (phase 11) and a DP
+   rank's half (phase 14); similarity: 1000 x 1000 with
    M = 7, D = 512, plus a ragged
    37 x 53 case with all-zero weight rows), with the max abs error and
    both times.  Tolerances: FFN fp32 atol 1e-4; FFN bf16 atol 3e-2 and
@@ -223,6 +225,39 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    file's, rows 0-1 zero); a line with the median step ms, the final
    eval's seconds and the launches.  The launches are the
    ``matrix_launches`` of the kernel line's B1, B2, B3 and B4 entries.
+14. Data-parallel phase: two ranks share the card over gloo (a
+   correctness path at full width: its times are printed with no claim
+   of speed).  (a) After the tensor-parallel phase: B2 and B3 at a rank's
+   rows of the b32 step (3,488 x 512 and 480 x 768, bf16) against their
+   plain versions by phase 4's rules; then ``parallel.spawn`` starts the
+   ranks, each with phase 8's state, batch (its 16 rows) and dropout
+   seed: exactly 16 B2, 16 B3, 1 B4 and no other launch per rank; the
+   loss and the summed gradients within phase 8's tolerances of its
+   kernel step; after 3 steps every parameter and buffer bitwise equal
+   on both ranks; the step's wall, one gloo all-reduce of the gradient
+   buffer and the gathers of its outputs.  (b) In the same ranks: seeded
+   fp32 embeddings of 20,001 videos x 2 captions x 7 x 512 (one pad
+   video), every rank holding them on the host, each counting its
+   candidate shard with B5 (1 + 2 launches) and all-reducing the counts:
+   the t2v and v2t ranks equal to the single-process kernel ranks on the
+   same embeddings (else the first differing query's similarities from
+   both tiles are printed); each rank's B5 counts against the plain
+   version on its staged shard by phase 3's rules; each B5 call's ms.
+   (c) In phase 11's scope, after phase 13, on its corpus and config at
+   one epoch of 8 b32 steps and the continuous eval of the 1,000 train
+   videos fused: two ``mmt_tpu_torch.train`` processes over the
+   MMT_TPU_* variables (``dp_cli_rank``; the shipped loader workers,
+   which the group runs at 0) against ``cli.main`` in one process (0
+   workers): per rank and in the one process exactly 16 x 65 B1, 128 B2
+   and B3, 9 B4 and 4 B5; the continuous eval host-staged; every host
+   batch of both ranks the one process's (``recorded_run``'s digests);
+   the step losses the same on both ranks, step 1's within phase 8's
+   1e-4 of the one process's, every step's gap printed; the epoch loss
+   within 1e-3 relative and the final sims within 2e-2 of the one
+   process's; one set of artifacts (rank 1's log.p1.txt beside them).
+   B1 at a rank's eval rows is held to its plain version in phase 2.
+   The launches per rank of (a), (b) and (c) are the ``dp_launches`` of
+   the B1-B5 entries.
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -479,7 +514,7 @@ def host_ms(torch, fn, reps=50, rounds=5):
 def ffn_phase(torch, ops, ffn, dev, gen, card):
   """Each FFN case: kernel vs plain version, at the eval shapes of the
   staged eval-1k and of the train CLI's evals (phase 11, its ragged last
-  batch included); returns the kernel's line entries (the bf16 cases'
+  batch included; and a DP rank's rows of them, phase 14); returns the kernel's line entries (the bf16 cases'
   worst error, and the video-shape bf16 times and bound: no single
   PyTorch call computes the block) and the bf16 kernel time of each
   (rows, H)."""
@@ -493,6 +528,12 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
                                                torch.bfloat16),
            (1744, 512, 3072, torch.bfloat16), (240, 768, 3072,
                                                torch.bfloat16),
+           # The same evals under data parallelism (phase 14 (c)): a
+           # rank's 16 of each b32 batch and 4 of the last batch of 8.
+           (3488, 512, 3072, torch.bfloat16), (480, 768, 3072,
+                                               torch.bfloat16),
+           (872, 512, 3072, torch.bfloat16), (120, 768, 3072,
+                                              torch.bfloat16),
            (10900, 512, 3072, torch.float32), (1500, 768, 3072,
                                                torch.float32),
            (1013, 768, 3072, torch.float32)]
@@ -1183,8 +1224,9 @@ def check_counts_witness(torch, ranking, what, args, got, want,
                        for s in fp32]).amax(0)
   gap = (s64 + colbias.double() - gt[rows].double()[:, None]).abs()
   own = gtcol[rows].long()
-  gap[torch.arange(rows.numel(), device=gap.device)[own >= 0],
-      own[own >= 0]] = float("inf")
+  held = (own >= 0) & (own < cands.shape[0])   # a shard's GT may lie outside
+  gap[torch.arange(rows.numel(), device=gap.device)[held],
+      own[held]] = float("inf")
   n_near = (gap <= 2 * noise[:, None]).sum(1)
   ok = bool((diff[rows] <= n_near).all())
   print(f"  {what}: {rows.numel()} queries' counts differ (largest by "
@@ -1839,6 +1881,325 @@ def tp_phase(torch, parallel, ranking, ref_sims, step_ref, dev, card):
   return {"ffn_partial": results[0]["eval_launches"]["ffn_partial"],
           "ffn_train_fwd_partial":
               results[0]["step_launches"]["ffn_train_fwd_partial"]}
+
+
+# Phase 14: data parallelism, two ranks sharing the card over gloo.
+DP_SIZE = 2
+DP_TIMEOUT = 900.0
+# B2 and B3 at a rank's rows of the b32 step: 16 videos x 218 tokens and
+# 16 captions x 30 tokens.
+DP_SHAPES = ((TRAIN_BATCH // DP_SIZE * 218, 512),
+             (TRAIN_BATCH // DP_SIZE * 30, 768))
+DP_TIMED_STEPS = 3
+# (b): seeded fp32 embeddings, an uneven corpus, so one video pads.
+DP_RANK_VIDEOS, DP_RANK_CAPS, DP_RANK_SEED = 20_001, 2, 14
+# The launch counters a DP rank reads, by the names of the kernels line.
+DP_COUNTED = {"ffn_block": ("ffn", "ffn_block_cuda"),
+              "ffn_partial": ("ffn", "ffn_partial_cuda"),
+              "ffn_train_fwd": ("ffn", "ffn_train_fwd_cuda"),
+              "ffn_train_fwd_partial": ("ffn", "ffn_train_fwd_partial_cuda"),
+              "ffn_train_bwd": ("ffn", "ffn_train_bwd_cuda"),
+              "moe_similarity": ("similarity", "sim_cuda"),
+              "fused_ranks": ("ranking", "fused_counts_cuda")}
+
+
+def dp_counters():
+  """{kernels-line name: wrapper} of every counted kernel."""
+  from mmt_tpu_torch.ops import ffn, ranking, similarity
+  mods = {"ffn": ffn, "similarity": similarity, "ranking": ranking}
+  return {n: getattr(mods[m], f) for n, (m, f) in DP_COUNTED.items()}
+
+
+def dp_kernel_cases(torch, ffn, dropout, dev, gen, card):
+  """Phase 14 (a): B2 and B3 (add_dz on) at a DP rank's row counts, bf16,
+  against their plain versions (and the WMMA kernel, every row tile
+  bitwise equal) by phase 4's rules.  Returns the worst error of each."""
+  errs = {"ffn_train_fwd": 0.0, "ffn_train_bwd": 0.0}
+  cd, i = torch.bfloat16, TRAIN_I
+  for r, h in DP_SHAPES:
+    fargs, dy = train_inputs(torch, dropout, r, h, cd, dev, gen)
+    _, drop, w1, _, w2, _, gamma, _ = fargs
+    kw = dict(eps=1e-12, compute_dtype=cd)
+    tag = f"R={r} H={h} I={i} bfloat16 (a DP rank's rows, tile " \
+          f"{ffn.pick_gemm_tile(r, h, torch.cuda.get_device_properties(dev).multi_processor_count)})"
+    _, err_f = check_train_kernel(torch, ffn, f"dp ffn_train_fwd {tag}",
+                                  "ffn_train_fwd", cd, fargs, kw)
+    _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
+    _, err_b = check_train_kernel(
+        torch, ffn, f"dp ffn_train_bwd {tag}", "ffn_train_bwd", cd,
+        (dy, z, inter, drop, w1, w2, gamma), dict(kw, add_dz=True))
+    errs["ffn_train_fwd"] = max(errs["ffn_train_fwd"], err_f)
+    errs["ffn_train_bwd"] = max(errs["ffn_train_bwd"], err_b)
+    print(f"dp kernels at {r} x {h}: B2 max_abs_err={err_f:.3e} B3 "
+          f"max_abs_err={err_b:.3e} card: {card}", flush=True)
+  return errs
+
+
+def dp_rank_inputs(torch, dev, videos):
+  """(b)'s corpus on ``dev`` from DP_RANK_SEED: unit-norm fp32 text [V *
+  caps, 7, 512] and video [V, 7, 512] embeddings, L1 weights, and query
+  masks with about a fifth of the second caption slots masked."""
+  gen = torch.Generator(device=dev).manual_seed(DP_RANK_SEED)
+  m, d, caps = 7, 512, DP_RANK_CAPS
+
+  def unit(n):
+    x = torch.randn(n, m, d, generator=gen, device=dev)
+    return x / x.norm(dim=-1, keepdim=True)
+
+  def weights(n):
+    w = torch.rand(n, m, generator=gen, device=dev)
+    return w / w.sum(1, keepdim=True)
+
+  te, ve = unit(videos * caps), unit(videos)
+  tw, vw = weights(videos * caps), weights(videos)
+  masks = (torch.rand(videos, caps, generator=gen, device=dev) > 0.2).float()
+  masks[:, 0] = 1.0
+  return te, ve, tw, vw, masks
+
+
+def dp_rank(dp, device, tiny, videos):
+  """One rank of phase 14 (run by ``parallel.spawn``): (a) the b32 step of
+  the train-step phase from its state, batch and dropout seed on this
+  rank's 16 rows, 3 steps, then the step's wall time, one all-reduce of
+  the gradients' flat buffer and the gathers of the step's outputs; (b)
+  the candidate-sharded fused ranks of ``videos`` seeded videos, then
+  this rank's counts against the plain version on its staged shard.
+  Returns numpy arrays and Python values (the gradients on rank 0
+  only)."""
+  import hashlib
+
+  import torch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  from mmt_tpu_torch import bench, flagship
+  from mmt_tpu_torch.ops import ranking, similarity
+  from mmt_tpu_torch.parallel import mesh as mesh_lib
+  from mmt_tpu_torch.train import losses, optim, step
+
+  dev = torch.device(device)
+  counters = dp_counters()
+
+  def reset():
+    for fn in counters.values():
+      fn.launches = 0
+
+  def counts():
+    return {n: fn.launches for n, fn in counters.items()}
+
+  def sync():
+    if dev.type == "cuda":
+      torch.cuda.synchronize(dev)
+
+  def timed(fn):
+    sync()
+    tic = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - tic
+
+  out = {}
+  arch = flagship.flagship_arch(tiny=tiny)
+  model = flagship.flagship_model(device=dev, compute_dtype=torch.bfloat16,
+                                  seed=0, tiny=tiny, train=True)
+  vocab = dict(vocab=bench.TINY_VOCAB) if tiny else {}
+  batch = flagship.batch_to_torch(mesh_lib.local_rows(flagship.make_batch(
+      arch["expert_dims"], TRAIN_BATCH, seed=101, **vocab), dp), dev)
+  opt = optim.build_optimizer({"type": "Adam", "args": {
+      "lr": TRAIN_LR, "weight_decay": 0}}, model.parameters())[0]
+  loss_fn = losses.max_margin_ranking_loss(0.05, True)
+
+  def run(seed):
+    return step.train_step(model, opt, batch, loss_fn=loss_fn, lr=TRAIN_LR,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed), dp=dp)
+
+  reset()
+  out["loss"] = float(run(7))      # the train-step phase's counted step
+  sync()
+  out["step_launches"] = counts()
+  out["grads"] = ({n: p.grad.cpu().numpy()
+                   for n, p in model.named_parameters()}
+                  if dp.primary else None)
+  for seed in (8, 9):
+    run(seed)
+  sync()
+  out["state"] = {
+      n: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+      for n, t in [*model.named_parameters(), *model.named_buffers()]}
+  out["step_wall_s"] = [timed(lambda i=i: run(100 + i))
+                        for i in range(DP_TIMED_STEPS)]
+  with torch.no_grad():
+    outputs = model(batch)
+  flat = torch.ones(sum(p.numel() for p in model.parameters()), device=dev)
+  out["reduce_s"] = min(timed(lambda: dp.reduce_(flat)) for _ in range(3))
+  out["gather_s"] = min(timed(lambda: [dp.all_gather(v)
+                                       for v in outputs.values()])
+                        for _ in range(3))
+  out["params"] = flat.numel()
+  del model, opt, batch, outputs, flat
+  torch.cuda.empty_cache()
+
+  # (b) Every rank holds the whole corpus on the host and counts its
+  # candidate shard; B5 timed by CUDA events around each counts call.
+  te, ve, tw, vw, masks = (x.cpu().numpy()
+                           for x in dp_rank_inputs(torch, dev, videos))
+  torch.cuda.empty_cache()
+  events, calls = [], []
+  plain_counts = ranking.fused_counts
+
+  def timed_counts(*args):
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    res = plain_counts(*args)
+    end.record()
+    events.append((start, end))
+    calls.append((args, res))
+    return res
+
+  reset()
+  ranking.fused_counts = timed_counts
+  try:
+    tic = time.perf_counter()
+    t2v = ranking.sharded_t2v_ranks(te, ve, tw, vw, dp, dev)
+    v2t = ranking.sharded_v2t_ranks(te, ve, tw, vw, masks, dp, dev)
+    sync()
+    out["ranks_wall_s"] = time.perf_counter() - tic
+  finally:
+    ranking.fused_counts = plain_counts
+  out["rank_launches"] = counts()
+  out["b5_ms"] = [s.elapsed_time(e) for s, e in events]
+  out["t2v"], out["v2t"] = t2v.cpu().numpy(), v2t.cpu().numpy()
+  # This rank's counts against the plain version on the same staged shard
+  # (its pad, and GT columns outside the shard), by phase 3's rules.
+  out["shard_worst"] = 0.0
+  for n_call, (args, got) in enumerate(calls):
+    want = ranking.fused_counts_plain(*args)
+    what = (f"dp rank {dp.rank} shard counts call {n_call} "
+            f"({args[0].shape[0]} x {args[1].shape[0]})")
+    out["shard_worst"] = max(out["shard_worst"], check_rank_rule(
+        torch, f"{what} kernel vs plain", got[0] + got[1] / 2,
+        want[0] + want[1] / 2))
+    check_counts_witness(torch, ranking, what, args, got, want,
+                         similarity.sim_cuda)
+  return out
+
+
+def check_dp_launches(results):
+  """Per rank, (a): exactly 16 B2, 16 B3 and 1 B4, no other kernel; (b):
+  1 + caps B5 and no other kernel."""
+  none = {n: 0 for n in DP_COUNTED}
+  want_st = dict(none, ffn_train_fwd=FFN_LAYERS, ffn_train_bwd=FFN_LAYERS,
+                 moe_similarity=1)
+  want_rk = dict(none, fused_ranks=1 + DP_RANK_CAPS)
+  for rank, r in enumerate(results):
+    st, rk = r["step_launches"], r["rank_launches"]
+    print(f"dp rank {rank} launches: step {st}; sharded ranks {rk}",
+          flush=True)
+    if st != want_st or rk != want_rk:
+      raise RuntimeError(f"dp rank {rank}: expected step launches {want_st} "
+                         f"and sharded-rank launches {want_rk}, got {st} and "
+                         f"{rk}")
+
+
+def first_rank_difference(torch, ranking, similarity, what, got, want,
+                          args, shard_cands):
+  """Print the first query whose sharded rank differs from the unsharded
+  one, with its similarities from the tile of each call (B4 in the tile
+  that ``pick_tile`` gives the whole and the shard), then raise."""
+  q = int((got != want).nonzero()[0])
+  queries, cands, qw, cw, gt = args
+  sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
+  rows = {}
+  for name, nc in (("whole", cands.shape[0]), ("shard", shard_cands)):
+    tile = similarity.pick_tile(queries.shape[0], nc, sms)
+    rows[name] = similarity.sim_cuda(queries[q:q + 1], cands, qw[q:q + 1],
+                                     cw, tile=tile)[0]
+  near = ((rows["whole"] - gt[q]).abs() <= 1e-6).nonzero().flatten()[:8]
+  print(f"dp {what}: query {q} sharded rank {float(got[q])} vs unsharded "
+        f"{float(want[q])}; GT sim {float(gt[q]):.9e}; sims of the two "
+        f"tiles max_abs_diff {float((rows['whole'] - rows['shard']).abs().max()):.3e}; "
+        f"candidates within 1e-6 of the GT {near.tolist()}: whole "
+        f"{rows['whole'][near].tolist()} shard {rows['shard'][near].tolist()}",
+        flush=True)
+  raise RuntimeError(f"dp {what}: the sharded ranks differ from the "
+                     "unsharded kernel ranks")
+
+
+def dp_phase(torch, parallel, ranking, similarity, step_ref, dev, card):
+  """Phase 14 (a) and (b) on two gloo ranks sharing the card, against the
+  train-step phase's kernel step and the single-process kernel ranks (and
+  each rank's shard counts against the plain version).  Returns the
+  launches per rank of (a) and (b), and the worst rank difference of the
+  shard counts against the plain version."""
+  tic = time.perf_counter()
+  results = parallel.spawn(dp_rank, DP_SIZE, dev.type, False,
+                           DP_RANK_VIDEOS, timeout=DP_TIMEOUT)
+  print(f"dp: {DP_SIZE} gloo ranks sharing one card ran in "
+        f"{time.perf_counter() - tic:.1f} s", flush=True)
+  check_dp_launches(results)
+
+  # (a) The step against the single-process kernel step.
+  loss_ref, grads_ref = step_ref
+  for rank, r in enumerate(results):
+    if not abs(r["loss"] - loss_ref) <= STEP_LOSS_TOL:
+      raise RuntimeError(f"dp rank {rank} loss {r['loss']} vs {loss_ref}")
+  check_step(torch, "dp train step vs single-device kernel step",
+             results[0]["loss"], loss_ref,
+             {n: torch.from_numpy(g) for n, g in results[0]["grads"].items()},
+             grads_ref)
+  a, b = (r["state"] for r in results)
+  same = [n for n in a if a[n] == b.get(n)]
+  print(f"dp: after 3 steps {len(same)} of {len(a)} parameters and buffers "
+        "bitwise equal on both ranks", flush=True)
+  if len(same) != len(a) or set(a) != set(b):
+    raise RuntimeError("dp: the replicas differ: "
+                       f"{sorted(set(a) - set(same))[:5]}")
+  r0 = results[0]
+  print(f"dp train step b{TRAIN_BATCH} ({TRAIN_BATCH // DP_SIZE} rows a "
+        f"rank; two gloo ranks sharing one card, a correctness path, no "
+        f"claim of speed): wall per rank "
+        f"{[[round(x * 1e3, 3) for x in r['step_wall_s']] for r in results]}"
+        f" ms; rank 0's gloo all-reduce of the {r0['params']:,}-float "
+        f"gradient buffer {r0['reduce_s'] * 1e3:.3f} ms, its gathers of the "
+        f"4 outputs {r0['gather_s'] * 1e3:.3f} ms card: {card}", flush=True)
+
+  # (b) The sharded ranks against the single-process kernel ranks.
+  te, ve, tw, vw, masks = dp_rank_inputs(torch, dev, DP_RANK_VIDEOS)
+  want = {"t2v": ranking.fused_t2v_ranks(te, ve, tw, vw),
+          "v2t": ranking.fused_v2t_ranks(te, ve, tw, vw, masks)}
+  shard = -(-DP_RANK_VIDEOS // DP_SIZE)
+  for what, w in want.items():
+    for rank, r in enumerate(results):
+      got = torch.from_numpy(r[what]).to(dev)
+      same = bool(torch.equal(got, w))
+      print(f"dp sharded {what} ranks, rank {rank}: equal to the "
+            f"single-process kernel ranks: {same} ({w.numel()} queries, "
+            f"{int(torch.isinf(w).sum())} inf)", flush=True)
+      if not same:
+        t, tw_ = ranking._scaled_flat(te, tw)
+        v, vw_ = ranking._scaled_flat(ve, vw)
+        if what == "t2v":
+          gtcol = torch.arange(t.shape[0], device=dev) // DP_RANK_CAPS
+          args = (t, v, tw_, vw_, ranking._gt_sims(t, v, tw_, vw_, gtcol))
+          first_rank_difference(torch, ranking, similarity, what, got, w,
+                                args, shard)
+        gtcol = torch.arange(v.shape[0], device=dev) * DP_RANK_CAPS
+        args = (v, t, vw_, tw_, ranking._gt_sims(v, t, vw_, tw_, gtcol))
+        first_rank_difference(torch, ranking, similarity, what, got, w,
+                              args, shard * DP_RANK_CAPS)
+  for rank, r in enumerate(results):
+    print(f"dp sharded ranks rank {rank}: {len(r['b5_ms'])} B5 launches, "
+          f"ms {[round(x, 4) for x in r['b5_ms']]} (the wrapper: k-major "
+          f"fill and kernel) on {shard} of {DP_RANK_VIDEOS} videos / "
+          f"{shard * DP_RANK_CAPS} caption slots; the whole call with "
+          f"staging and all-reduce {r['ranks_wall_s']:.3f} s card: {card}",
+          flush=True)
+  shard_worst = max(r["shard_worst"] for r in results)
+  print(f"dp sharded counts: each rank's B5 calls against the plain version "
+        f"on its staged shard, worst rank diff {shard_worst}", flush=True)
+  del te, ve, tw, vw, masks, want
+  torch.cuda.empty_cache()
+  return {"a": r0["step_launches"], "b": r0["rank_launches"]}, shard_worst
 
 
 # Kernels of the eval block B1 (csrc/ffn_block.cu): the GEMM route's
@@ -3343,6 +3704,264 @@ class PhaseClock:
     return time.perf_counter() - self.start
 
 
+# Phase 14 (c): the CLI over two processes on phase 11's corpus.
+DP_CLI_TIMEOUT = 600.0
+DP_CLI_LOSS_RTOL, DP_CLI_SIMS_TOL = 1e-3, 2e-2
+
+
+def dp_cli_config(data_dir, save_dir, shipped_workers):
+  """Phase 11's config for one epoch, the continuous eval of the 1,000
+  train videos fused (no visualizer, which reads the matrix).  The
+  loaders keep the shipped config's worker threads (which a group runs at
+  0) or, for the one process, run at 0: its batches are then the ones a
+  group's ranks assemble."""
+  cfg = cli_config(data_dir, save_dir, 1)
+  cfg.pop("visualizer", None)
+  cfg["trainer"]["fused_eval_from_videos"] = CLI_TRAIN_VIDEOS
+  if not shipped_workers:
+    for key in ("train_sets", "continuous_eval_sets", "final_eval_sets"):
+      cfg[key][0]["args"]["num_workers"] = 0
+  return cfg
+
+
+@contextlib.contextmanager
+def recorded_run():
+  """While a training run lasts, record each step's loss (as
+  ``train_step`` returns it; read when the run is over) and a digest of
+  every host batch the loaders yield, train and eval alike: yields
+  {"losses": [...], "batches": [...]}, filled in on exit."""
+  import hashlib
+
+  import numpy as np
+
+  from mmt_tpu_torch.data import loader as loader_lib
+  from mmt_tpu_torch.train import trainer as trainer_lib
+  rec = {"losses": [], "batches": []}
+  step_fn, iter_fn = trainer_lib.train_step, loader_lib.BatchLoader.__iter__
+
+  def step(*args, **kw):
+    loss = step_fn(*args, **kw)
+    rec["losses"].append(loss.detach())
+    return loss
+
+  def digest(x, h):
+    if isinstance(x, dict):
+      for k in sorted(x):
+        h.update(k.encode())
+        digest(x[k], h)
+    elif isinstance(x, np.ndarray) and x.dtype != object:
+      h.update(f"{x.dtype}{x.shape}".encode())
+      h.update(np.ascontiguousarray(x).tobytes())
+    else:
+      h.update(repr(x.tolist() if isinstance(x, np.ndarray) else x).encode())
+
+  def batches(self):
+    for batch in iter_fn(self):
+      h = hashlib.sha256()
+      digest(batch, h)
+      rec["batches"].append(h.hexdigest()[:16])
+      yield batch
+
+  trainer_lib.train_step = step
+  loader_lib.BatchLoader.__iter__ = batches
+  try:
+    yield rec
+  finally:
+    trainer_lib.train_step = step_fn
+    loader_lib.BatchLoader.__iter__ = iter_fn
+    rec["losses"] = [float(x) for x in rec["losses"]]
+
+
+def dp_cli_rank(argv, out_path):
+  """One rank of phase 14 (c), in a process of its own with the
+  MMT_TPU_* variables set: ``python -m mmt_tpu_torch.train argv`` (run as
+  that module), with phase 11's expert names, then this process's launch
+  counts, step losses and batch digests (``recorded_run``) written to
+  ``out_path``."""
+  import runpy
+
+  from mmt_tpu_torch.data import datasets
+  prev = datasets.discover_expert_paths
+
+  def discover(data_dir):
+    paths = prev(data_dir)
+    for mod in CLI_CHALLENGE_NAMED:
+      if mod + "_c" in paths:
+        paths[mod] = paths.pop(mod + "_c")
+    return paths
+
+  datasets.discover_expert_paths = discover
+  counters = dp_counters()
+  for fn in counters.values():
+    fn.launches = 0
+  sys.argv = ["mmt_tpu_torch.train", *argv]
+  with recorded_run() as rec:
+    runpy.run_module("mmt_tpu_torch.train", run_name="__main__")
+  pathlib.Path(out_path).write_text(json.dumps(
+      dict(rec, launches={n: fn.launches for n, fn in counters.items()})))
+
+
+def dp_cli_phase(torch, cfg_dir, data_dir, card):
+  """Phase 14 (c): the flagship config (b32, one epoch of 8 steps, the
+  fused host-staged continuous eval of the 1,000 train videos at epochs
+  0 and 1, the final eval of 32) through two ``mmt_tpu_torch.train``
+  processes sharing the card, and through ``cli.main`` in this process:
+  per-rank launches exact, the ranks' host batches the one process's,
+  the step losses and their gaps, the epoch loss within 1e-3 relative,
+  the final sims within 2e-2, one set of artifacts.  Returns rank 0's
+  launches."""
+  import numpy as np
+
+  from mmt_tpu_torch import cli
+  from mmt_tpu_torch.parallel import mesh as mesh_lib
+
+  exps = {n: cfg_dir / f"dp_exp_{n}" for n in ("two", "one")}
+  cfgs = {name: dp_cli_config(data_dir, exp, shipped_workers=name == "two")
+          for name, exp in exps.items()}
+  for name, cfg in cfgs.items():
+    (cfg_dir / f"dp_{name}.json").write_text(json.dumps(cfg))
+  threaded = sum(cfgs["two"][key][0]["args"]["num_workers"] > 0
+                 for key in ("train_sets", "continuous_eval_sets",
+                             "final_eval_sets"))
+  per_eval = -(-CLI_TRAIN_VIDEOS // 32)
+  steps = CLI_SAMPLES_PER_EPOCH // 32
+  want = {n: 0 for n in DP_COUNTED}
+  want.update(ffn_block=FFN_LAYERS * (2 * per_eval + 1),
+              ffn_train_fwd=FFN_LAYERS * steps,
+              ffn_train_bwd=FFN_LAYERS * steps,
+              moe_similarity=steps + 1, fused_ranks=2 * 2)
+
+  port = mesh_lib._free_port()
+  root = pathlib.Path(__file__).resolve().parent
+  procs, logs = [], []
+  tic = time.perf_counter()
+  argv = ["--config", str(cfg_dir / "dp_two.json"), "--device", "cuda"]
+  for rank in range(DP_SIZE):
+    env = dict(os.environ, MMT_TPU_COORDINATOR=f"localhost:{port}",
+               MMT_TPU_NUM_PROCESSES=str(DP_SIZE),
+               MMT_TPU_PROCESS_ID=str(rank))
+    logs.append(open(cfg_dir / f"dp_rank{rank}.out", "w"))
+    code = (f"import chip_smoke; chip_smoke.dp_cli_rank({argv!r}, "
+            f"{str(cfg_dir / f'dp_run{rank}.json')!r})")
+    procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                  env=env, stdout=logs[-1],
+                                  stderr=subprocess.STDOUT))
+  try:
+    for p in procs:
+      p.wait(timeout=max(DP_CLI_TIMEOUT - (time.perf_counter() - tic), 1.0))
+  except subprocess.TimeoutExpired:
+    pass
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.wait()
+    for f in logs:
+      f.close()
+  two_s = time.perf_counter() - tic
+  outs = [(cfg_dir / f"dp_rank{r}.out").read_text() for r in range(DP_SIZE)]
+  for rank, (p, out) in enumerate(zip(procs, outs)):
+    if p.returncode != 0:
+      raise RuntimeError(f"dp cli rank {rank} exited {p.returncode}:\n"
+                         f"{out[-4000:]}")
+  if "host-staged" not in outs[0]:
+    raise RuntimeError("dp cli: the continuous eval did not take the "
+                       "host-staged fused path")
+  workers = [line for line in outs[0].splitlines() if "-> 0" in line]
+  print(f"dp cli rank 0: {len(workers)} of the config's {threaded} loaders "
+        f"with worker threads run without them ({workers[:1]})", flush=True)
+  if len(workers) != threaded or not threaded:
+    raise RuntimeError("dp cli: the shipped config's loader workers were "
+                       "not set to 0 in the group")
+  recs = [json.loads((cfg_dir / f"dp_run{r}.json").read_text())
+          for r in range(DP_SIZE)]
+  launches = [rec.pop("launches") for rec in recs]
+  for rank, got in enumerate(launches):
+    print(f"dp cli rank {rank} launches: {got}", flush=True)
+    if got != want:
+      raise RuntimeError(f"dp cli rank {rank}: expected launches {want}, "
+                         f"got {got}")
+
+  counters = dp_counters()
+  for fn in counters.values():
+    fn.launches = 0
+  tic = time.perf_counter()
+  with recorded_run() as one_rec:
+    cli.main(["--config", str(cfg_dir / "dp_one.json"), "--device", "cuda"])
+  torch.cuda.synchronize()
+  one_s = time.perf_counter() - tic
+  got = {n: fn.launches for n, fn in counters.items()}
+  print(f"dp cli one process launches: {got}", flush=True)
+  if got != want:
+    raise RuntimeError(f"dp cli one process: expected launches {want}, got "
+                       f"{got}")
+
+  # Lockstep: every rank's loaders yielded the one process's batches, in
+  # its order.  The step losses: the same on both ranks (one global loss),
+  # step 1's within phase 8's tolerance of the one process's (the same
+  # weights, batch and masks), then apart by the kernels' bf16 rounding as
+  # the runs' weights drift.
+  same_batches = [rec["batches"] == one_rec["batches"] for rec in recs]
+  print(f"dp cli: {len(one_rec['batches'])} host batches (train and eval); "
+        f"each rank's digests equal the one process's: {same_batches}",
+        flush=True)
+  if not all(same_batches):
+    first = next(i for i, (a, b) in enumerate(
+        itertools.zip_longest(recs[0]["batches"], one_rec["batches"]))
+        if a != b)
+    raise RuntimeError(f"dp cli: the ranks' batches are not the one "
+                       f"process's (first difference at host batch {first})")
+  two_steps, one_steps = recs[0]["losses"], one_rec["losses"]
+  gaps = [abs(a - b) / abs(b) for a, b in zip(two_steps, one_steps)]
+  print(f"dp cli step losses: two processes {two_steps} one {one_steps}; "
+        f"relative gap per step {[f'{g:.3e}' for g in gaps]}; ranks' losses "
+        f"equal: {recs[1]['losses'] == two_steps}", flush=True)
+  if (len(two_steps) != steps or len(one_steps) != steps
+      or recs[1]["losses"] != two_steps
+      or not abs(two_steps[0] - one_steps[0]) <= STEP_LOSS_TOL):
+    raise RuntimeError("dp cli: step losses out of step (count, the ranks' "
+                       f"agreement or step 1 beyond {STEP_LOSS_TOL})")
+
+  losses, sims = {}, {}
+  for name, exp in exps.items():
+    with open(exp / "perf_log.txt") as f:
+      losses[name] = [json.loads(line)["loss"] for line in f]
+    sims[name] = np.load(exp / "MSRVTT-val-sims.npy",
+                         allow_pickle=True)[()]["sims"]
+  rel = abs(losses["two"][-1] - losses["one"][-1]) / abs(losses["one"][-1])
+  diff = float(np.abs(sims["two"] - sims["one"]).max())
+  results = {n: json.loads((e / "exp_results.json").read_text())["perfs"]
+             for n, e in exps.items()}
+  print(f"dp cli: epoch losses two processes {losses['two']} one "
+        f"{losses['one']} (rel diff {rel:.3e}, limit {DP_CLI_LOSS_RTOL:.0e}); "
+        f"final sims max_abs_diff={diff:.3e} (limit {DP_CLI_SIMS_TOL:.0e}); "
+        f"final eval two {json.dumps(results['two'])} one "
+        f"{json.dumps(results['one'])}", flush=True)
+  if not rel <= DP_CLI_LOSS_RTOL or not np.isfinite(sims["two"]).all() \
+     or diff > DP_CLI_SIMS_TOL:
+    raise RuntimeError(f"dp cli: two processes vs one: loss rel diff {rel},"
+                       f" sims diff {diff}")
+  listing = lambda exp: sorted(str(p.relative_to(exp))
+                               for p in exp.rglob("*") if p.is_file()
+                               and "tfevents" not in p.name)
+  two, one = listing(exps["two"]), listing(exps["one"])
+  # TensorBoard (where tensorboardX is installed) names its files by the
+  # second and the host: counted, not named.
+  streams = [len(list(exps[n].glob("*tfevents*"))) for n in ("two", "one")]
+  print(f"dp cli: artifacts of two processes {two} ({streams[0]} "
+        f"TensorBoard streams), of one {one} ({streams[1]}); wall two "
+        f"processes {two_s:.1f} s (start-up, loaders and the build's load "
+        f"included), one process {one_s:.1f} s; two gloo ranks sharing one "
+        f"card, no claim of speed card: {card}", flush=True)
+  if ([f for f in two if f != "log.p1.txt"] != one
+      or "log.p1.txt" not in two or streams[0] != streams[1]):
+    raise RuntimeError("dp cli: two processes did not write one set of "
+                       "artifacts")
+  for exp in exps.values():
+    shutil.rmtree(exp, ignore_errors=True)
+  return launches[0]
+
+
 def finite_metrics(res):
   for which in ("t2v_metrics", "v2t_metrics"):
     vals = [res[which][k] for k in ("R1", "R5", "R10", "R50", "MedR",
@@ -3489,8 +4108,13 @@ def main():
   torch.cuda.empty_cache()
   clock.done("train-profile")
   tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
-  del sims, step_ref
+  del sims
   clock.done("tp")
+  dp_errs = dp_kernel_cases(torch, ffn, dropout, dev, gen, card)
+  dp_launches, dp_errs["fused_ranks"] = dp_phase(
+      torch, parallel, ranking, similarity, step_ref, dev, card)
+  del step_ref
+  clock.done("dp")
 
   loader_bench_phase(card)
   clock.done("loader-bench")
@@ -3499,14 +4123,20 @@ def main():
     clock.done("train-cli")
     served_cli = serve_cli_phase(torch, ffn, similarity, cfg_path, exp)
     clock.done("serve-cli")
-    return served_cli, matrix_phase(torch, ops, ffn, similarity, cfg_path,
-                                    card)
+    matrix = matrix_phase(torch, ops, ffn, similarity, cfg_path, card)
+    clock.done("matrix")
+    torch.cuda.empty_cache()
+    data_dir = json.loads(cfg_path.read_text())[
+        "train_sets"][0]["args"]["mix"][0]["data_dir"]
+    dp_cli = dp_cli_phase(torch, cfg_path.parent, data_dir, card)
+    return served_cli, matrix, dp_cli
 
-  cli_launches, (serve_launches, matrix_launches) = train_cli_phase(
-      torch, ops, ffn, similarity, staged_step_ms, k_s, card, then=serve_cli)
+  cli_launches, (serve_launches, matrix_launches, dp_launches["c"]) = (
+      train_cli_phase(torch, ops, ffn, similarity, staged_step_ms, k_s, card,
+                      then=serve_cli))
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
         flush=True)
-  clock.done("matrix")
+  clock.done("dp-cli")
   served = serve_scale_phase(torch, ops, ffn, similarity, flagship, dev,
                              card)
   clock.done("serve")
@@ -3520,6 +4150,14 @@ def main():
     entries[name]["launches"] = train_launches[name]
   for name, n in tp_launches.items():
     entries[name]["launches"] = n
+  # Phase 14: launches per rank of (a) the DP step, (b) the sharded ranks,
+  # (c) the 2-process CLI run; B2 and B3 also checked at a rank's rows.
+  for name in ("ffn_block", "ffn_train_fwd", "ffn_train_bwd",
+               "moe_similarity", "fused_ranks"):
+    entries[name]["dp_launches"] = {
+        part: counts[name] for part, counts in dp_launches.items()}
+  for name, err in dp_errs.items():
+    entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
   # Phase 13: each config-matrix run's launches.
   for name in ("ffn_block", "ffn_train_fwd", "ffn_train_bwd",
                "moe_similarity"):

@@ -14,6 +14,15 @@ writing the JAX CLI's artifacts (``.pth`` checkpoints in place of
 too.  ``--device`` is a torch device and defaults to ``cuda``; without a
 card, pass ``--device cpu``: the port never falls back to the CPU by
 itself.
+
+Data parallelism over several processes takes the JAX CLI's environment
+interface: each process runs this CLI with MMT_TPU_COORDINATOR
+(host:port of rank 0's rendezvous), MMT_TPU_NUM_PROCESSES and
+MMT_TPU_PROCESS_ID set; the group is joined before any other device use
+(``parallel.maybe_initialize_distributed``: gloo on the CPU, NCCL with a
+card per rank, gloo when ranks share a card), rank r runs on cuda:r %
+cards, and only rank 0 writes config.json, log.txt and the experiment's
+files (rank r logs to log.p<r>.txt).
 """
 
 from __future__ import annotations
@@ -149,10 +158,11 @@ def freeze_parameters(model, txt_agg: str, txt_inp: str):
   return names
 
 
-def build_trainer(config, device="cuda"):
+def build_trainer(config, device="cuda", dp=None):
   """Construct the fully-wired Trainer for ``config`` on ``device``
   (model, loaders, freeze mask, optimizer over the trainable parameters,
-  schedule) without running it."""
+  schedule) without running it; ``dp`` is the data-parallel group
+  (``parallel.maybe_initialize_distributed``), None in one process."""
   from mmt_tpu_torch.experts import compute_dims
   from mmt_tpu_torch.models.cenet import CENet, cenet_kwargs_from_arch_args
   from mmt_tpu_torch.registry import build, get
@@ -212,11 +222,11 @@ def build_trainer(config, device="cuda"):
       num_keep_ckpts=cfg_trainer.get("num_keep_ckpts", 1),
       tokenizer=tokenizer,
       warmup_iterations=cfg_trainer.get("warmup_iterations", -1),
-      device=device, txt_bert_init=txt_bert_init)
+      device=device, txt_bert_init=txt_bert_init, dp=dp)
 
 
-def train(config, device="cuda"):
-  trainer = build_trainer(config, device=device)
+def train(config, device="cuda", dp=None):
+  trainer = build_trainer(config, device=device, dp=dp)
   if not config.only_eval:
     trainer.train()
   trainer.evaluate()
@@ -249,20 +259,31 @@ def main(argv=None):
   args = parser.parse_args(argv)
 
   from mmt_tpu_torch import config as config_lib
+  from mmt_tpu_torch.parallel import mesh as mesh_lib
   from mmt_tpu_torch.train.trainer import check_device
-  device = check_device(args.device)
-  config = config_lib.from_args(args)
+  # A multi-process run joins its group before any other device use, and
+  # the rank gates the file writes below (config dump, log file).
+  check_device(args.device)
+  dp = mesh_lib.maybe_initialize_distributed(args.device)
+  rank = 0 if dp is None else dp.rank
+  device = check_device(mesh_lib.rank_device(args.device, rank))
+  config = config_lib.from_args(args, primary=rank == 0)
 
   level = logging.DEBUG if args.verbose else logging.INFO
   # force=True so a second experiment in the same process re-points the
-  # log file at its own exp dir (parse_config.py:103-117 behavior).
+  # log file at its own exp dir (parse_config.py:103-117 behavior).  The
+  # other ranks log to files of their own (log.txt is rank 0's).
+  log_name = "log.txt" if rank == 0 else f"log.p{rank}.txt"
   logging.basicConfig(
       level=os.environ.get("LOGLEVEL", level),
       format="%(message)s",
       force=True,
-      handlers=[logging.FileHandler(config.save_dir / "log.txt"),
+      handlers=[logging.FileHandler(config.save_dir / log_name),
                 logging.StreamHandler()])
   logger.info("Experiment directory: %s", config.save_dir)
+  if dp is not None:
+    logger.info("distributed: rank %d of %d over %s on %s", dp.rank, dp.size,
+                dp.backend, device)
 
   epochs = config["trainer"]["epochs"]
   save_period = config["trainer"].get("save_period", 1)
@@ -270,4 +291,4 @@ def main(argv=None):
       f"epochs ({epochs}) must be >= save_period ({save_period}), "
       "otherwise no checkpoint would ever be written")
 
-  return train(config, device=device)
+  return train(config, device=device, dp=dp)

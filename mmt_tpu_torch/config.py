@@ -185,8 +185,12 @@ def last_checkpoint_path(exp_dir) -> Optional[str]:
   return last_checkpoint(exp_dir)
 
 
-def from_args(args) -> Config:
-  """Build a Config from CLI args (parse_config.py:36-136 semantics)."""
+def from_args(args, primary: bool = True) -> Config:
+  """Build a Config from CLI args (parse_config.py:36-136 semantics).
+
+  ``primary=False`` (the other ranks of a data-parallel run) skips the
+  config's re-dump: every rank derives the same config, and concurrent
+  writes of the one config.json would race."""
   if getattr(args, "resume", None):
     assert getattr(args, "config", None) is None, (
         "If resuming an experiment then no config should be provided")
@@ -220,7 +224,8 @@ def from_args(args) -> Config:
                only_eval=bool(getattr(args, "only_eval", False)))
   cfg.txt_bert_init = getattr(args, "txt_bert_init", None)
   cfg.prepare_dirs()
-  cfg.dump()
+  if primary:
+    cfg.dump()
   return cfg
 
 

@@ -12,6 +12,13 @@ recorded per batch (the reference's pin_memory + async copies).
 Batches equal the JAX loader's only with ``num_workers=0``: shuffling and
 the per-sample transforms draw from the seeded global numpy RNG, and
 workers consume it in no fixed order (in both packages).
+
+Under data parallelism every rank builds the same loaders from the same
+seed and assembles the same global batches in lockstep (the trainer keeps
+the rank's rows of each, on the host, before ``device_prefetch`` copies
+them).  As above, that holds only with ``num_workers=0``, so
+``ExpertDataLoader`` in a group of more than one process runs its loader
+at 0 workers and says so (mmt_tpu/data/loader.py:140-149).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmt_tpu_torch.data.mix import MixDataset
 from mmt_tpu_torch.registry import register
@@ -171,6 +179,13 @@ class ExpertDataLoader:
     self.batch_size = batch_size
     self.until_epoch = until_epoch
     self.n_pairs = n_pairs
+    # Every process of a group assembles the same global batches only if
+    # the seeded numpy stream is drawn in one order: no worker threads.
+    if num_workers and dist.is_initialized() and dist.get_world_size() > 1:
+      logger.warning("multi-process run: num_workers %d -> 0, so that "
+                     "every process assembles the same global batches",
+                     num_workers)
+      num_workers = 0
     dataset = MixDataset(mix=mix, raw_input_dims=raw_input_dims,
                          training=training, tokenizer=tokenizer,
                          n_pairs=n_pairs, loaded_data=loaded_data,

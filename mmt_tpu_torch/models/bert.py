@@ -28,7 +28,9 @@ the intermediate size does not (the JAX package's ``heads_ok``); the
 layer's ``shard_dims`` says which parameters it splits.  Every rank draws each dropout mask at
 its full size, in the single-device order, and keeps its heads' slice of
 the attention-probability mask, so the ranks stay the single-device
-model split.
+model split.  With a ``dp`` (``parallel.DataParallel``, train mode) the
+layer holds this rank's rows of the global batch, and every mask is
+drawn at the global batch's shape and sliced to the rank's rows (dim 0).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from mmt_tpu_torch.config import BertParams
 from mmt_tpu_torch.ops import attention as attention_ops
 from mmt_tpu_torch.ops import ffn as ffn_ops
 from mmt_tpu_torch.ops.dropout import dropout, dropout_mask
-from mmt_tpu_torch.parallel import mesh as tp_lib
+from mmt_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Linear(nn.Linear):
@@ -149,16 +151,18 @@ class TransformerLayer(nn.Module):
                    "intermediate.dense.bias": 0, "output.dense.weight": 1})
     return dims
 
-  def forward(self, hidden, attn_bias, *, train=False, generator=None):
+  def forward(self, hidden, attn_bias, *, train=False, generator=None,
+              dp=None):
     cfg, cd, tp = self.cfg, self.compute_dtype, self.tp
     p_hidden = cfg.hidden_dropout_prob if train else 0.0
+    rows = mesh_lib.row_part(dp, hidden)
     b, s, h = hidden.shape
     n_heads, head_range = cfg.num_attention_heads, None
     hc = hidden.to(cd)
     if self.attn_tp:
       n_heads //= tp.size
       head_range = (tp.rank * n_heads, cfg.num_attention_heads)
-      hc = tp_lib.copy_to_tp(hc, tp)
+      hc = mesh_lib.copy_to_tp(hc, tp)
 
     def heads(lin):
       w, bias = lin.cast(cd)
@@ -168,15 +172,16 @@ class TransformerLayer(nn.Module):
     ctx = attention_ops.attention_bhsd(
         heads(sa.query), heads(sa.key), heads(sa.value), attn_bias=attn_bias,
         dropout_p=cfg.attention_probs_dropout_prob if train else 0.0,
-        generator=generator, heads=head_range)
+        generator=generator, heads=head_range,
+        rows=None if rows is None else rows[1:])
     ctx = ctx.transpose(1, 2).reshape(b, s, -1).to(cd)
     wo, bo = self.attention.output.dense.cast(cd)
     if self.attn_tp:
-      attn_out = (tp_lib.reduce_from_tp(ctx.float() @ wo.float().T, tp)
+      attn_out = (mesh_lib.reduce_from_tp(ctx.float() @ wo.float().T, tp)
                   + bo.float()).to(cd)
     else:
       attn_out = F.linear(ctx, wo, bo)
-    attn_out = dropout(attn_out, p_hidden, generator)
+    attn_out = dropout(attn_out, p_hidden, generator, part=rows)
     attn_ln = getattr(self.attention.output, self.ln_name)
     hidden = ffn_ops.layer_norm(attn_out.float() + hidden,
                                 attn_ln.weight, attn_ln.bias,
@@ -192,11 +197,12 @@ class TransformerLayer(nn.Module):
       w2, b2 = out.cast(cd)
       act = PLAIN_ACTIVATIONS[cfg.hidden_act]
       y = F.linear(act(F.linear(hidden.to(cd), w1, b1)), w2, b2)
-      y = dropout(y, p_hidden, generator)
+      y = dropout(y, p_hidden, generator, part=rows)
       return ffn_ops.layer_norm(y.float() + hidden.float(), ffn_ln.weight,
                                 ffn_ln.bias, eps=cfg.layer_norm_eps)
     if train:
-      drop = dropout_mask(hidden.shape, p_hidden, generator, hidden.device)
+      drop = dropout_mask(hidden.shape, p_hidden, generator, hidden.device,
+                          part=rows)
       return ffn_ops.ffn_block_train(
           hidden, drop, inter.weight, inter.bias, out.weight, out.bias,
           ffn_ln.weight, ffn_ln.bias, eps=cfg.layer_norm_eps,
@@ -220,12 +226,13 @@ def shard_dims(module: nn.Module):
           for name, dim in layer.shard_dims.items()}
 
 
-def _encode(bert, x, attention_mask, train, generator):
+def _encode(bert, x, attention_mask, train, generator, dp):
   """Embedding dropout (train mode), then the encoder."""
   p = bert.cfg.hidden_dropout_prob if train else 0.0
-  return bert.encoder(dropout(x, p, generator),
+  x = dropout(x, p, generator, part=mesh_lib.row_part(dp, x))
+  return bert.encoder(x,
                       attention_bias_from_mask(attention_mask), train=train,
-                      generator=generator)
+                      generator=generator, dp=dp)
 
 
 class TransformerEncoder(nn.Module):
@@ -238,9 +245,11 @@ class TransformerEncoder(nn.Module):
                          device=device, tp=tp)
         for _ in range(cfg.num_hidden_layers))
 
-  def forward(self, hidden, attn_bias, *, train=False, generator=None):
+  def forward(self, hidden, attn_bias, *, train=False, generator=None,
+              dp=None):
     for layer in self.layer:
-      hidden = layer(hidden, attn_bias, train=train, generator=generator)
+      hidden = layer(hidden, attn_bias, train=train, generator=generator,
+                     dp=dp)
     return hidden
 
 
@@ -269,7 +278,7 @@ class FeatureBert(nn.Module):
                                       device=device, tp=tp)
 
   def forward(self, features, attention_mask, token_type_ids,
-              position_ids=None, *, train=False, generator=None):
+              position_ids=None, *, train=False, generator=None, dp=None):
     """``position_ids`` None (pos_enc 'none') adds no position
     embedding."""
     cd, emb = self.compute_dtype, self.embeddings
@@ -279,7 +288,7 @@ class FeatureBert(nn.Module):
       x = x + emb.position_embeddings.weight[position_ids].to(cd)
     x = ffn_ops.layer_norm(x, emb.layer_norm.weight, emb.layer_norm.bias,
                            eps=self.cfg.layer_norm_eps)
-    return _encode(self, x, attention_mask, train, generator)
+    return _encode(self, x, attention_mask, train, generator, dp)
 
 
 class TextBert(nn.Module):
@@ -304,11 +313,11 @@ class TextBert(nn.Module):
                                       device=device, tp=tp)
 
   def forward(self, input_ids, attention_mask, token_type_ids, position_ids,
-              *, train=False, generator=None):
+              *, train=False, generator=None, dp=None):
     cd, emb = self.compute_dtype, self.embeddings
     x = (emb.word_embeddings.weight[input_ids].to(cd)
          + emb.position_embeddings.weight[position_ids].to(cd)
          + emb.token_type_embeddings.weight[token_type_ids].to(cd))
     x = ffn_ops.layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias,
                            eps=self.cfg.layer_norm_eps)
-    return _encode(self, x, attention_mask, train, generator)
+    return _encode(self, x, attention_mask, train, generator, dp)

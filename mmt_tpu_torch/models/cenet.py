@@ -46,6 +46,7 @@ from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
                                        shard_dims)
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.ops.dropout import dropout
+from mmt_tpu_torch.parallel.mesh import row_part
 
 # Config value of ``compute_dtype`` -> torch dtype.
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -116,6 +117,12 @@ class CENet(nn.Module):
   replicated and computes the same on every rank.  ``shard_dims`` maps
   each split parameter to the dim it is split on.  Tensor parallelism
   runs with the flagship's switches only (ROADMAP.md A10).
+
+  The train forward takes a ``dp`` (``parallel.DataParallel``) when the
+  batch is this rank's rows of a global batch: every dropout mask is
+  drawn at the global batch's shape and sliced to the rank's rows, and
+  every train-mode BatchNorm takes the global batch's moments, so the
+  rank computes its rows of the single-device forward.
   """
 
   def __init__(self, expert_dims: Mapping[str, Mapping[str, int]],
@@ -259,7 +266,7 @@ class CENet(nn.Module):
       self.text_pooling.init_weights(generator)
     return self
 
-  def forward(self, batch, *, train=False, generator=None):
+  def forward(self, batch, *, train=False, generator=None, dp=None):
     """batch: token_ids [B,K,T,2], and per-modality dicts features
     [B,L,D_m], features_t / features_ind [B,L], features_avgpool /
     features_maxpool [B,D_m] (torch tensors on one device).  Returns
@@ -268,13 +275,15 @@ class CENet(nn.Module):
 
     ``train=True`` runs the train forward: dropout from ``generator`` (a
     torch.Generator on the batch's device) at the configured rates, and
-    BatchNorm on batch statistics, whose running buffers it updates."""
+    BatchNorm on batch statistics, whose running buffers it updates;
+    ``dp`` makes both the global batch's (see the class)."""
     return {**self.embed_text(batch["token_ids"], train=train,
-                              generator=generator),
-            **self.embed_video(batch, train=train, generator=generator)}
+                              generator=generator, dp=dp),
+            **self.embed_video(batch, train=train, generator=generator,
+                               dp=dp)}
 
   # ------------------------------------------------------------------
-  def _pooled_text(self, ids, mask, train, generator):
+  def _pooled_text(self, ids, mask, train, generator, dp):
     """The caption embedding [B*K, text_dim] of ids / mask [B*K, T]."""
     spec = self.txt_agg_spec
     if spec.kind == "bert":
@@ -282,7 +291,7 @@ class CENet(nn.Module):
       pos_ids = torch.arange(t, device=dev)[None]
       type_ids = torch.zeros((1, t), dtype=torch.long, device=dev)
       last = self.txt_bert(ids, mask, type_ids, pos_ids, train=train,
-                           generator=generator)
+                           generator=generator, dp=dp)
       if spec.post_agg == "cls":
         return last[:, 0]
       if spec.post_agg == "mxp":
@@ -293,28 +302,29 @@ class CENet(nn.Module):
       low = torch.finfo(words.dtype).min
       return words.masked_fill((mask == 0)[..., None], low).amax(1)
     if self.txt_agg == "vlad":
-      return self.text_pooling(words, train=train)
+      return self.text_pooling(words, train=train, dp=dp)
     if self.txt_agg == "lstm":
       return self.text_pooling(words, mask.sum(1))
     raise ValueError(f"unknown txt_agg {self.txt_agg!r}")
 
-  def embed_text(self, token_ids, *, train=False, generator=None):
+  def embed_text(self, token_ids, *, train=False, generator=None, dp=None):
     """Caption tower only: token_ids [B,K,T,2] -> {text_embds [B,K,M,D],
     text_weights [B,K,M]} (the serving path's query embedding)."""
     b, k, t, _ = token_ids.shape
     m = len(self.modalities)
     flat = token_ids.reshape(b * k, t, 2)
     text = self._pooled_text(flat[:, :, 0].long(), flat[:, :, 1], train,
-                             generator)
+                             generator, dp)
     heads = [self.text_GU[mod] for mod in self.modalities]
     if self.txt_pro == "lin":
       stacked = C.batched_reduce_dim(text, heads)
     else:
       stacked = C.batched_gated_embedding(
           text, heads, train=train, use_bn=self.txt_pro == "gbn",
-          normalize=self.normalize_experts)
+          normalize=self.normalize_experts, dp=dp)
     if self.txt_wgh == "emb":
-      e = dropout(text, self.moe_txt_dropout if train else 0.0, generator)
+      e = dropout(text, self.moe_txt_dropout if train else 0.0, generator,
+                  part=row_part(dp, text))
       logits = C.batched_moe_logits(
           e, [self.moe_fc_txt[mod] for mod in self.modalities])
       text_weights = torch.softmax(logits, 1).reshape(b, k, m)
@@ -325,7 +335,7 @@ class CENet(nn.Module):
     return {"text_embds": stacked.reshape(b, k, m, -1).float(),
             "text_weights": C.l1_normalize(text_weights)}
 
-  def embed_video(self, batch, *, train=False, generator=None):
+  def embed_video(self, batch, *, train=False, generator=None, dp=None):
     """Video tower only: expert-feature batch -> {vid_embds [B,M,D],
     vid_weights [B,M]} (index building, and the video half of the
     forward)."""
@@ -354,20 +364,21 @@ class CENet(nn.Module):
               for mod, r in zip(mods, reducers)
               if self.vid_inp in TEMP_INPUTS]
       seq = self._assemble_video_sequence(batch, b, agg, temp)
-      last = self.vid_bert(*seq, train=train, generator=generator)
+      last = self.vid_bert(*seq, train=train, generator=generator, dp=dp)
       vid_embd = last[:, 0]
       experts = last[:, 1:1 + len(mods)]                      # agg tokens
     else:
       experts = pooled("features_maxpool")
       if self.vid_cont == "coll":
-        experts = self._collaborative_gating(experts, ind, train, generator)
+        experts = self._collaborative_gating(experts, ind, train, generator,
+                                             dp)
 
     if self.vid_wgh == "nrm":
       norms = C.safe_norm(experts)                            # [B, M]
       vid_weights = norms / norms.sum(-1, keepdim=True)
     elif self.vid_wgh == "emb":
       e = dropout(vid_embd, self.moe_vid_dropout if train else 0.0,
-                  generator)
+                  generator, part=row_part(dp, vid_embd))
       logits = C.batched_moe_logits(
           e.float(), [self.moe_fc_vid[mod] for mod in mods])
       vid_weights = torch.softmax(logits, 1)
@@ -410,7 +421,7 @@ class CENet(nn.Module):
     return (torch.cat(feats, 1), torch.cat(mask, 1), torch.cat(types, 1),
             None if self.pos_enc == "none" else torch.cat(pos, 1))
 
-  def _collaborative_gating(self, experts, ind, train, generator):
+  def _collaborative_gating(self, experts, ind, train, generator, dp):
     """The collaborative-experts reasoning path (mmt_tpu/models/cenet.py:
     _collaborative_gating) over experts [B, M, D]: for each modality i,
     the mean over the available pairs (i, j), j != i, of
@@ -423,16 +434,18 @@ class CENet(nn.Module):
     first = torch.tensor([i for i, _ in pairs], device=experts.device)
     second = torch.tensor([j for _, j in pairs], device=experts.device)
     fused = torch.cat([experts[:, first], experts[:, second]], -1)
-    temp = dropout(self.g_reason_1(fused), p_drop, generator)
+    temp = dropout(self.g_reason_1(fused), p_drop, generator,
+                   part=row_part(dp, fused))
     temp = self.g_reason_2(torch.relu(temp))                  # [B, P, D]
     avail = (ind[:, first] * ind[:, second]).float()          # [B, P]
     temp = (temp * avail[..., None]).view(b, m, m - 1, d).sum(2)
     avail_sum = avail.view(b, m, m - 1).sum(2)
     curr = temp / (avail_sum + 1e-11)[..., None]              # [B, M, D]
-    curr = dropout(self.f_reason_1(curr), p_drop, generator)
+    curr = dropout(self.f_reason_1(curr), p_drop, generator,
+                   part=row_part(dp, curr))
     curr = self.f_reason_2(torch.relu(curr))
     return torch.stack(
-        [self.video_GU[mod](experts[:, i], curr[:, i], train=train)
+        [self.video_GU[mod](experts[:, i], curr[:, i], train=train, dp=dp)
          for i, mod in enumerate(self.modalities)], 1)
 
 

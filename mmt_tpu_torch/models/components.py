@@ -15,12 +15,19 @@ TorchBatchNorm): batch moments over all leading rows in train mode, with
 the fast biased variance, and running buffers updated to 0.9 * old + 0.1
 * batch.  ``nn.BatchNorm1d`` is only the holder of the parameters and
 buffers: its own forward (unbiased running variance) is never called.
+With a ``dp`` (``parallel.DataParallel``) the train-mode moments are the
+global batch's: the sums of x and x^2 over this rank's rows are
+all-reduced (``parallel.all_reduce_sum``, differentiable), so every rank
+normalises with, and updates its buffers to, the moments one device would
+take over the whole batch (mmt_tpu/models/components.py under GSPMD).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from mmt_tpu_torch.parallel import mesh as mesh_lib
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
@@ -50,14 +57,25 @@ def _update_running(bn, mean, var):
     bn.num_batches_tracked += 1
 
 
-def batch_norm(x, bn, *, train):
+def _moments(x, dp):
+  """Mean and mean of squares over dim 0 of x; with ``dp`` over the
+  global batch (every rank holds as many rows)."""
+  if dp is None or dp.size == 1:
+    return x.mean(0), (x * x).mean(0)
+  sums = mesh_lib.all_reduce_sum(torch.stack([x.sum(0), (x * x).sum(0)]),
+                                 dp)
+  n = x.shape[0] * dp.size
+  return sums[0] / n, sums[1] / n
+
+
+def batch_norm(x, bn, *, train, dp=None):
   """flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5) over x's last dim with
   ``bn``'s parameters; train mode takes the moments over every leading
-  row, var = max(0, mean(x^2) - mean^2), and updates ``bn``'s buffers."""
+  row (of the global batch with ``dp``), var = max(0, mean(x^2) -
+  mean^2), and updates ``bn``'s buffers."""
   if train:
-    flat = x.reshape(-1, x.shape[-1])
-    mean = flat.mean(0)
-    var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
+    mean, sq = _moments(x.reshape(-1, x.shape[-1]), dp)
+    var = (sq - mean * mean).clamp_min(0.0)
     _update_running(bn, mean, var)
   else:
     mean, var = bn.running_mean, bn.running_var
@@ -96,9 +114,9 @@ class ContextGatingReasoning(nn.Module):
     self.batch_norm = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
     self.batch_norm2 = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
 
-  def forward(self, x, mask, *, train=False):
-    gate = (batch_norm(mask, self.batch_norm, train=train)
-            + batch_norm(self.fc(x), self.batch_norm2, train=train))
+  def forward(self, x, mask, *, train=False, dp=None):
+    gate = (batch_norm(mask, self.batch_norm, train=train, dp=dp)
+            + batch_norm(self.fc(x), self.batch_norm2, train=train, dp=dp))
     return x * torch.sigmoid(gate)
 
 
@@ -110,8 +128,8 @@ class GatedEmbeddingUnitReasoning(nn.Module):
     super().__init__()
     self.cg = ContextGatingReasoning(dim, device=device)
 
-  def forward(self, x, mask, *, train=False):
-    return l2_normalize(self.cg(x, mask, train=train))
+  def forward(self, x, mask, *, train=False, dp=None):
+    return l2_normalize(self.cg(x, mask, train=train, dp=dp))
 
 
 class NetVLAD(nn.Module):
@@ -140,11 +158,11 @@ class NetVLAD(nn.Module):
   def out_dim(self):
     return self.cluster_size * self.feature_size
 
-  def forward(self, x, *, train=False):
+  def forward(self, x, *, train=False, dp=None):
     b, n, d = x.shape
     x = x.float()
     assignment = batch_norm(x.reshape(-1, d) @ self.clusters,
-                            self.batch_norm, train=train)
+                            self.batch_norm, train=train, dp=dp)
     assignment = torch.softmax(assignment, 1).reshape(b, n, -1)
     a = assignment.sum(1, keepdim=True) * self.clusters2       # [B, D, K]
     vlad = torch.einsum("bnk,bnd->bdk", assignment, x) - a
@@ -226,7 +244,7 @@ def init_heads_(module: nn.Module, generator: torch.Generator):
 
 
 def batched_gated_embedding(x, geus, *, train=False, use_bn=True,
-                            normalize=True):
+                            normalize=True, dp=None):
   """All modalities' GatedEmbeddingUnits, followed by the L2 norm (unless
   ``normalize`` is off).  x [B, D_in] -> [B, M, D_out].
 
@@ -236,7 +254,8 @@ def batched_gated_embedding(x, geus, *, train=False, use_bn=True,
   batch moments, with the fast biased variance mean(g^2) - mean^2, and
   updates the running buffers in place to 0.9 * old + 0.1 * batch: flax's
   BatchNorm, whose running variance is biased (torch's BatchNorm1d keeps
-  an unbiased one, so it is not called here).
+  an unbiased one, so it is not called here).  ``dp``: the moments of
+  the global batch.
   """
   w1 = torch.stack([g.fc.weight for g in geus])              # [M, Do, Di]
   b1 = torch.stack([g.fc.bias for g in geus])                # [M, Do]
@@ -245,17 +264,18 @@ def batched_gated_embedding(x, geus, *, train=False, use_bn=True,
   h = torch.einsum("bd,med->bme", x, w1) + b1
   gate = torch.einsum("bme,mfe->bmf", h, wc) + bc
   if use_bn:
-    gate = _batched_bn(gate, [g.cg.batch_norm for g in geus], train=train)
+    gate = _batched_bn(gate, [g.cg.batch_norm for g in geus], train=train,
+                       dp=dp)
   out = h * torch.sigmoid(gate)
   return l2_normalize(out) if normalize else out
 
 
-def _batched_bn(gate, bns, *, train):
+def _batched_bn(gate, bns, *, train, dp=None):
   """The per-modality BatchNorms of gate [B, M, D] (the JAX package's
   _batched_torch_bn: no clamp of the variance)."""
   if train:
-    mean = gate.mean(0)                                      # [M, Do]
-    var = (gate * gate).mean(0) - mean * mean
+    mean, sq = _moments(gate, dp)                            # [M, Do]
+    var = sq - mean * mean
     for i, bn in enumerate(bns):
       _update_running(bn, mean[i], var[i])
   else:

@@ -17,7 +17,7 @@ from mmt_tpu_torch.ops.dropout import dropout
 
 
 def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None,
-                   heads=None):
+                   heads=None, rows=None):
   """q/k/v [B, H, S, dh] -> fp32 ctx [B, H, S, dh].
 
   attn_bias: [B, 1, 1, S] additive bias.  Products of compute-dtype
@@ -27,11 +27,17 @@ def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None,
   where(keep, probs / (1-p), 0) in fp32, before the cast to the value
   dtype.  ``heads=(first, total)``: these H are heads [first, first + H)
   of ``total`` (a tensor-parallel rank's), and the dropout mask is drawn
-  for all ``total`` and sliced (``dropout``'s ``part``).
+  for all ``total`` and sliced (``dropout``'s ``part``).  ``rows=(first,
+  total)``: likewise for the batch rows (a data-parallel rank's).
   """
   scores = qh.float() @ kh.float().transpose(-1, -2)
   scores = scores / math.sqrt(qh.shape[-1]) + attn_bias.float()
   probs = torch.softmax(scores, dim=-1)
-  part = None if heads is None else (1, *heads)
+  if heads is not None and rows is not None:
+    raise NotImplementedError("attention dropout sliced by heads and by "
+                              "rows at once (tensor and data parallelism "
+                              "together)")
+  part = ((1, *heads) if heads is not None
+          else (0, *rows) if rows is not None else None)
   probs = dropout(probs, dropout_p, generator, part=part).to(vh.dtype)
   return probs.float() @ vh.float()

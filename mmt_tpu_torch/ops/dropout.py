@@ -13,18 +13,27 @@ from __future__ import annotations
 import torch
 
 
-def _keep(shape, p, generator, device):
+def _keep(shape, p, generator, device, part=None):
+  """rand >= p at ``shape``; with ``part=(dim, start, full)`` drawn at
+  ``full`` entries along ``dim`` and sliced to [start, start +
+  shape[dim])."""
   if generator is None:
     raise ValueError("dropout needs an explicit torch.Generator")
-  return torch.rand(shape, generator=generator, device=device) >= p
+  if part is None:
+    return torch.rand(shape, generator=generator, device=device) >= p
+  dim, start, full = part
+  whole = list(shape)
+  whole[dim] = full
+  return (torch.rand(whole, generator=generator, device=device) >= p
+          ).narrow(dim, start, shape[dim])
 
 
-def dropout_mask(shape, p, generator, device):
+def dropout_mask(shape, p, generator, device, *, part=None):
   """Pre-scaled fp32 mask: keep = rand >= p, kept entries 1/(1-p), the
-  rest 0.  All ones at p = 0 (no draw)."""
+  rest 0.  All ones at p = 0 (no draw).  ``part`` as in ``dropout``."""
   if p == 0.0:
     return torch.ones(shape, dtype=torch.float32, device=device)
-  keep = _keep(shape, p, generator, device)
+  keep = _keep(shape, p, generator, device, part)
   return keep.float() / (1.0 - p)
 
 
@@ -34,17 +43,11 @@ def dropout(x, p, generator, *, part=None):
 
   ``part=(dim, start, full)``: x is the slice [start, start +
   x.shape[dim]) along ``dim`` of a tensor with ``full`` entries there (a
-  tensor-parallel rank's attention heads).  The mask is drawn at the
-  whole tensor's shape, as for the whole tensor, and sliced: every rank
-  consumes the generator alike and keeps what one device would."""
+  tensor-parallel rank's attention heads, along dim 1; a data-parallel
+  rank's rows of the global batch, along dim 0).  The mask is drawn at
+  the whole tensor's shape, as for the whole tensor, and sliced: every
+  rank consumes the generator alike and keeps what one device would."""
   if p == 0.0:
     return x
-  if part is None:
-    keep = _keep(x.shape, p, generator, x.device)
-  else:
-    dim, start, full = part
-    shape = list(x.shape)
-    shape[dim] = full
-    keep = _keep(shape, p, generator, x.device).narrow(dim, start,
-                                                        x.shape[dim])
+  keep = _keep(x.shape, p, generator, x.device, part)
   return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -14,10 +14,21 @@ all candidates, through the CUDA kernel csrc/fused_ranks.cu on the card
 walks the candidates in chunks so that at most [Q, 4096] of the matrix
 exists at a time.  There the GT similarity is computed directly and the
 GT column is excluded by index, so rank = closer + tied / 2.
+
+``sharded_t2v_ranks`` / ``sharded_v2t_ranks`` are the data-parallel
+version (mmt_tpu/ops/ranking.py:214 ``_cand_sharded``): queries
+replicated, candidates split over the ranks.  Every rank holds the whole
+embeddings on the host, stages the queries and its candidate shard on its
+device, counts its shard with the GT column shifted into the shard's
+coordinates (an index outside the shard never matches), and the integer
+counts are all-reduced.  The GT similarities are taken from the whole
+arrays in the unsharded call's arithmetic, so the ranks equal the
+unsharded call's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mmt_tpu_torch import _build, ops
@@ -155,10 +166,16 @@ def _scaled_flat(embds, weights):
   return (embds.float() * w[:, :, None]).reshape(n, m * d), w
 
 
+def _gt_from_rows(queries, gt_rows, qw, gt_w):
+  """Direct GT similarity per query from its GT candidate's scaled rows
+  and weights (O(N M D), no matrix)."""
+  numer = (queries * gt_rows).sum(1)
+  return numer / _guard((qw * gt_w).sum(1))
+
+
 def _gt_sims(queries, cands, qw, cw, gtcol):
   """Direct GT similarity per query (O(N M D), no matrix)."""
-  numer = (queries * cands[gtcol]).sum(1)
-  return numer / _guard((qw * cw[gtcol]).sum(1))
+  return _gt_from_rows(queries, cands[gtcol], qw, cw[gtcol])
 
 
 def _t2v_ranks_from_counts(count_fn, text_embds, vid_embds, text_weights,
@@ -227,3 +244,94 @@ def fused_v2t_ranks(text_embds, vid_embds, text_weights, vid_weights,
 # elsewhere) under its names; on the port ``fused_counts`` dispatches.
 t2v_ranks_from_embeddings = fused_t2v_ranks
 v2t_ranks_from_embeddings = fused_v2t_ranks
+
+
+# ----------------------------------------------------------------------
+# Candidate-sharded ranks (data parallelism)
+# ----------------------------------------------------------------------
+def _shard(n, dp):
+  """[start, stop) of this rank's candidates, the count padded with dead
+  candidates to divide the group."""
+  per = -(-n // dp.size)
+  return dp.rank * per, (dp.rank + 1) * per
+
+
+def _stage_scaled(embds, weights, rows, device):
+  """Host rows ``rows`` of (embds, weights) as scaled flat fp32 device
+  rows (``_scaled_flat``); ``rows`` a slice past the end is zero-padded."""
+  e, w = embds[rows], weights[rows]
+  n = rows.stop - rows.start if isinstance(rows, slice) else len(rows)
+  if len(e) < n:
+    pad = n - len(e)
+    e = np.concatenate([e, np.zeros((pad,) + e.shape[1:], e.dtype)])
+    w = np.concatenate([w, np.zeros((pad,) + w.shape[1:], w.dtype)])
+  to = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+  return _scaled_flat(to(e), to(w))
+
+
+def _summed_counts(counts, dp):
+  """The ranks' (closer, tied) counts [..., 2, Q] summed as integers;
+  fp32 back."""
+  total = counts.to(torch.int64)
+  dp.reduce_(total)
+  return total.float()
+
+
+def sharded_t2v_ranks(text_embds, vid_embds, text_weights, vid_weights, dp,
+                      device):
+  """``fused_t2v_ranks`` with the videos split over ``dp``'s ranks: host
+  (numpy) inputs of the whole corpus on every rank; this rank stages all
+  captions and its videos on ``device`` and launches one count; returns
+  the fp32 [Q] ranks of the whole corpus, the same on every rank and
+  equal to ``fused_t2v_ranks`` on the same embeddings."""
+  q, v = len(text_embds), len(vid_embds)
+  t, tw = _stage_scaled(text_embds, text_weights, slice(0, q), device)
+  gt_col = np.arange(q) // (q // v)
+  g, gw = _stage_scaled(vid_embds, vid_weights, gt_col, device)
+  gt = _gt_from_rows(t, g, tw, gw)
+  del g, gw
+  start, stop = _shard(v, dp)
+  vv, vw = _stage_scaled(vid_embds, vid_weights, slice(start, stop), device)
+  colbias = torch.zeros(stop - start, device=t.device)
+  colbias[max(v - start, 0):] = -MISSING_VAL           # the pad videos
+  local = torch.as_tensor(gt_col - start, device=t.device)
+  closer, tied = fused_counts(t, vv, tw, vw, gt, local, colbias)
+  closer, tied = _summed_counts(torch.stack([closer, tied]), dp)
+  return closer + tied / 2.0
+
+
+def sharded_v2t_ranks(text_embds, vid_embds, text_weights, vid_weights,
+                      query_masks, dp, device):
+  """``fused_v2t_ranks`` with the caption slots split over ``dp``'s ranks
+  (host inputs of the whole corpus on every rank; the pad slots masked):
+  one count per caption slot on this rank's slots; returns the fp32 [V]
+  ranks, the same on every rank and equal to ``fused_v2t_ranks``."""
+  q, v = len(text_embds), len(vid_embds)
+  cpv = q // v
+  vq, vw = _stage_scaled(vid_embds, vid_weights, slice(0, v), device)
+  mask_flat = np.asarray(query_masks).reshape(-1).astype(bool)
+  start, stop = _shard(v, dp)                       # in videos, then slots
+  start, stop = start * cpv, stop * cpv
+  tc, tcw = _stage_scaled(text_embds, text_weights, slice(start, stop),
+                          device)
+  live = np.zeros(stop - start, bool)
+  live[:max(min(q, stop) - start, 0)] = mask_flat[start:stop]
+  colbias = torch.where(torch.as_tensor(live, device=vq.device), 0.0,
+                        -MISSING_VAL)
+  counts = []
+  for j in range(cpv):   # one counts call per caption slot
+    gt_col = np.arange(v) * cpv + j
+    g, gw = _stage_scaled(text_embds, text_weights, gt_col, device)
+    gt = _gt_from_rows(vq, g, vw, gw)
+    local = torch.as_tensor(gt_col - start, device=vq.device)
+    counts.append(torch.stack(fused_counts(vq, tc, vw, tcw, gt, local,
+                                           colbias)))
+  counts = _summed_counts(torch.stack(counts), dp)
+  best = torch.full((v,), float("inf"), device=vq.device)
+  for j in range(cpv):
+    own = torch.as_tensor(mask_flat[np.arange(v) * cpv + j],
+                          device=vq.device)
+    rank_j = torch.where(own, counts[j, 0] + counts[j, 1] / 2.0,
+                         float("inf"))
+    best = torch.minimum(best, rank_j)
+  return best

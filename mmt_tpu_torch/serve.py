@@ -123,7 +123,7 @@ def main(argv=None):
                            "serving.RetrievalEngine)")
   parser.add_argument("--shard_index", action="store_true",
                       help="shard the index over ranks (not ported yet: "
-                           "ROADMAP.md A10)")
+                           "the rest of ROADMAP.md A10)")
   parser.add_argument("--listen", type=int, default=None, metavar="PORT",
                       help="serve a JSON HTTP API (GET/POST /search, "
                            "GET /healthz, /statz) instead of answering "
@@ -138,7 +138,7 @@ def main(argv=None):
     parser.error("one of --index or --build_index is required")
   if args.shard_index:
     parser.error("--shard_index: an index sharded over ranks is not ported "
-                 "yet (ROADMAP.md A10)")
+                 "yet (the rest of ROADMAP.md A10, the next slice)")
   logging.basicConfig(level=logging.INFO, format="%(message)s")
 
   from mmt_tpu_torch.serving import RetrievalEngine, RetrievalIndex, serve_http

@@ -15,7 +15,7 @@ reads the flax msgpack the JAX package writes (serialization.py).
 ``quantize="int8"`` serves from a per-row int8 copy of the index; its
 product is the library's int8 GEMM (``torch._int_mm``) on the card, as
 it was a plain XLA dot_general in the JAX package.  An index sharded
-over ranks (the JAX engine's ``mesh=``) is ROADMAP.md A10.
+over ranks (the JAX engine's ``mesh=``) is the rest of ROADMAP.md A10.
 """
 
 from __future__ import annotations
@@ -270,7 +270,7 @@ class RetrievalEngine:
     if mesh is not None:
       raise NotImplementedError(
           "an index sharded over ranks (mesh=) is not ported yet "
-          "(ROADMAP.md A10)")
+          "(the rest of ROADMAP.md A10, the next slice)")
     self.model = model
     self.tokenizer = tokenizer
     self.index = index

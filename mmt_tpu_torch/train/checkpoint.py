@@ -23,6 +23,11 @@ utils/util.py:71-82 semantics):
 (``serialization.msgpack_restore``, then ``convert.checkpoint_from_flax``)
 into the same layout; ``last_checkpoint`` and the purge stay ``.pth``
 only, so a JAX experiment is resumed by naming its file.
+
+Under data parallelism only the primary rank saves and purges (the
+trainer gates every write: ``Trainer._save_checkpoint``), while every
+rank reads the same files on resume and before the final eval, after a
+barrier.
 """
 
 from __future__ import annotations

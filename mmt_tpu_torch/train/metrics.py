@@ -1,7 +1,8 @@
 """Retrieval metrics: device ranks (ops/ranking.py) + a host reduction.
 
 Port of mmt_tpu/train/metrics.py (cols2metrics, t2v_metrics, v2t_metrics,
-device path, and fused_retrieval_metrics without its mesh branch):
+device path, and fused_retrieval_metrics with its mesh branch, here a
+data-parallel group whose ranks each count a shard of the candidates):
 tie-averaged ranks, query masking and the +1 offsets of MedR/MeanR as the
 reference computes them.  The ranks are integers and halves, exact in
 fp32.  From a matrix they reach the host as float64, so the reduction is
@@ -67,7 +68,7 @@ def v2t_metrics(sims, query_masks=None):
 def fused_retrieval_metrics(text_embds, vid_embds, text_weights,
                             vid_weights, query_masks,
                             which=("t2v_metrics", "v2t_metrics"),
-                            device="cuda"):
+                            device="cuda", dp=None):
   """Retrieval metrics straight from embeddings, never building the
   [Q, V] similarity matrix (ops/ranking.py fused ranks): for corpora where
   the matrix would be GBs.  Semantics match t2v_metrics / v2t_metrics on
@@ -76,7 +77,18 @@ def fused_retrieval_metrics(text_embds, vid_embds, text_weights,
   text_embds [Q, M, D], vid_embds [V, M, D], text_weights [Q, M],
   vid_weights [V, M] and query_masks [V, Q // V] (None: all valid), as
   numpy arrays or tensors; they are moved to ``device``.
+
+  With a ``dp`` (``parallel.DataParallel``; the JAX package's ``mesh=``)
+  every rank passes the whole embeddings as host (numpy) arrays and
+  stages on ``device`` only the queries and its shard of the candidates
+  (the videos for t2v, the caption slots for v2t; padded with dead ones
+  to divide the group): ``ranking.sharded_t2v_ranks`` /
+  ``sharded_v2t_ranks``, whose counts are all-reduced.  The metrics are
+  the same on every rank, and equal to the unsharded call's.
   """
+  if dp is not None and dp.size > 1:
+    return _sharded_metrics(text_embds, vid_embds, text_weights,
+                            vid_weights, query_masks, which, device, dp)
   to = lambda x: torch.as_tensor(x, device=device)
   te, ve, tw, vw = map(to, (text_embds, vid_embds, text_weights,
                             vid_weights))
@@ -92,4 +104,26 @@ def fused_retrieval_metrics(text_embds, vid_embds, text_weights,
   if "v2t_metrics" in which:
     ranks = ranking.fused_v2t_ranks(te, ve, tw, vw, to(masks)).cpu().numpy()
     out["v2t_metrics"] = cols2metrics(ranks[:nv], nv)
+  return out
+
+
+def _sharded_metrics(text_embds, vid_embds, text_weights, vid_weights,
+                     query_masks, which, device, dp):
+  """The ``dp`` branch of ``fused_retrieval_metrics``."""
+  host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                    else np.asarray(x))
+  te, ve, tw, vw = map(host, (text_embds, vid_embds, text_weights,
+                              vid_weights))
+  nv = len(ve)
+  masks = (np.ones((nv, len(te) // nv), np.float32) if query_masks is None
+           else host(query_masks))
+  out = {}
+  if "t2v_metrics" in which:
+    cols = ranking.sharded_t2v_ranks(te, ve, tw, vw, dp, device)
+    keep = masks.reshape(-1).astype(bool)
+    out["t2v_metrics"] = cols2metrics(cols.cpu().numpy()[keep],
+                                      int(keep.sum()))
+  if "v2t_metrics" in which:
+    ranks = ranking.sharded_v2t_ranks(te, ve, tw, vw, masks, dp, device)
+    out["v2t_metrics"] = cols2metrics(ranks.cpu().numpy(), nv)
   return out

@@ -1,7 +1,8 @@
-"""Training runtime: epoch loop, eval, checkpoints, logs, on one device.
+"""Training runtime: epoch loop, eval, checkpoints, logs, on one device
+or over a data-parallel group of processes.
 
 Port of mmt_tpu/train/trainer.py (base/base_trainer.py:39-464 +
-trainer/trainer.py:55-493 semantics), single process:
+trainer/trainer.py:55-493 semantics):
 
 * each step is ``train.step.train_step`` (forward, 'avg' similarity,
   loss, backward, optimizer) with the dropout masks drawn from one
@@ -24,13 +25,32 @@ into the text tower, and a word-embedding tokenizer's vectors are copied
 into the word table, before any resume or warm start, so a checkpoint
 wins over both.  The optimizer's state (Adam's, AdamW's, Ranger's with
 its slow buffer) goes through the checkpoints with
-``include_optim_in_ckpts``.  Not ported (each raises NotImplementedError): the data mesh,
-tensor parallelism (``model_parallel``) and host-staged embeddings
-(ROADMAP.md A10).
+``include_optim_in_ckpts``.
+
+Data parallelism (the JAX trainer's data mesh, mmt_tpu/train/trainer.py:
+116-118, 221-234, 745-787, 918-1006), over the group ``dp`` (a
+``parallel.DataParallel``, as ``parallel.maybe_initialize_distributed``
+returns it): every process runs the same program in lockstep from the
+same seed and loaders (each at 0 workers; a loader with workers
+raises); a train step takes the rank's rows of each global batch
+(``parallel.mesh.local_rows``) through ``train_step(dp=)``: global-batch
+negatives, global BatchNorm moments, summed gradients.  The eval pads
+each batch to a multiple of the group (``parallel.mesh.
+pad_batch_to_multiple``), embeds the rank's rows and gathers them, so
+every rank holds the whole embeddings and takes the same decisions; the
+fused eval embeds to host memory (``_get_embeddings(to_host=True)``) and
+counts candidate shards (``fused_retrieval_metrics(dp=)``).  A train
+batch size that the group does not divide runs the whole run replicated,
+with a warning.  Only the primary (rank 0) writes: checkpoints, purges,
+TensorBoard, the perf log, the visualizer, the final-eval artifacts;
+barriers bracket the final eval; every rank reads on resume.  Not ported
+(each raises NotImplementedError): tensor parallelism in the trainer
+(``model_parallel``; ROADMAP.md A10, the next slice).
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import logging
@@ -46,6 +66,7 @@ import torch
 from mmt_tpu_torch.config import parse_monitor
 from mmt_tpu_torch.data import loader as loader_lib
 from mmt_tpu_torch.ops import similarity as similarity_ops
+from mmt_tpu_torch.parallel import mesh as mesh_lib
 from mmt_tpu_torch.train import checkpoint as ckpt_lib
 from mmt_tpu_torch.train import metrics as metrics_lib
 from mmt_tpu_torch.train.optim import linear_warmup
@@ -118,8 +139,15 @@ class Trainer:
                data_loaders, lr_schedule, visualizer=None,
                skip_first_n_saves=0, include_optim_in_ckpts=False,
                expert_dims=None, num_keep_ckpts=1, tokenizer=None,
-               warmup_iterations=-1, device="cuda", txt_bert_init=None):
+               warmup_iterations=-1, device="cuda", txt_bert_init=None,
+               dp=None):
     self.device = check_device(device)
+    # Multi-process topology: every process runs the same program in
+    # lockstep (the loaders are deterministic; the eval's metrics come
+    # from the gathered embeddings everywhere, so control flow such as
+    # early stopping stays in step); only the primary touches the files.
+    self.group = dp
+    self.is_primary = self.group is None or self.group.primary
     self.model = model
     self.loss_fn = loss_fn
     self.metrics = metrics                      # list of (name, fn)
@@ -127,7 +155,11 @@ class Trainer:
     self.config = config
     self.data_loaders = data_loaders
     self.lr_schedule = lr_schedule
-    self.visualizer = visualizer
+    # The fused-vs-matrix eval decision must be the same on every process,
+    # so it keys off whether a visualizer was configured; only the primary
+    # draws.
+    self._want_visualizer = visualizer is not None
+    self.visualizer = visualizer if self.is_primary else None
     self.skip_first_n_saves = skip_first_n_saves
     self.include_optim_in_ckpts = include_optim_in_ckpts
     self.num_keep_ckpts = num_keep_ckpts
@@ -139,8 +171,9 @@ class Trainer:
     model_parallel = int(cfg_trainer.get("model_parallel", 1))
     if model_parallel > 1:
       raise NotImplementedError(
-          f"model_parallel={model_parallel}: the port's trainer runs one "
-          "device; tensor parallelism in the trainer is ROADMAP.md A10")
+          f"model_parallel={model_parallel}: the port's trainer runs data "
+          "parallelism only; tensor parallelism in the trainer is the rest "
+          "of ROADMAP.md A10 (the next slice)")
     self.epochs = cfg_trainer["epochs"]
     self.save_period = cfg_trainer.get("save_period", 1)
     self.max_samples_per_epoch = cfg_trainer.get("max_samples_per_epoch",
@@ -184,13 +217,15 @@ class Trainer:
     # serialization + disk write overlap the next epoch.  trainer.args
     # "async_checkpoint": false restores inline writes.
     self._ckpt_writer = ckpt_lib.AsyncCheckpointWriter(
-        async_enabled=bool(cfg_trainer.get("async_checkpoint", True)))
+        async_enabled=bool(cfg_trainer.get("async_checkpoint", True))
+        and self.is_primary)
 
     self.start_epoch = 0
     self.epoch = 0
     self.loaded_epoch = 0
     self.n_samples = 0
     self.n_steps = 0
+    self.dp = self._data_parallel()
 
     # Weights and the dropout stream from one generator seeded from the
     # config (the JAX package splits one key for both).
@@ -206,6 +241,45 @@ class Trainer:
 
     if config.resume is not None:
       self._resume_checkpoint(config.resume)
+
+  def _data_parallel(self):
+    """The group the train steps and evals split their rows over: the
+    process group, unless a train batch size does not divide it
+    (mmt_tpu/train/trainer.py:221-234): then every rank trains and
+    evaluates the whole batches (replicated), and the log says so.
+    Either way every rank must assemble the same batches: a loader with
+    worker threads raises."""
+    group = self.group
+    if group is None or group.size == 1:
+      return None
+    loaders = [e["loader"] for key in ("train_sets", "continuous_eval_sets",
+                                       "final_eval_sets")
+               for e in self.data_loaders.get(key, [])]
+    if any(getattr(ldr, "num_workers", 0) > 0 for ldr in loaders):
+      # ExpertDataLoader sets 0 in a group; a loader built before the
+      # group was joined, or by hand, would break the lockstep.
+      raise ValueError(
+          "data parallel: a loader has num_workers > 0, whose samples draw "
+          "from the numpy stream in no fixed order, so the ranks' batches "
+          "would differ; build the loaders at num_workers 0 (or after "
+          "joining the group)")
+    sizes = [e.batch_size for e in self.data_loaders.get("train_sets", [])]
+    if any(b % group.size for b in sizes):
+      logger.warning(
+          "data parallel: train batch size %s does not divide the %d "
+          "ranks; the whole run trains and evaluates REPLICATED (every "
+          "rank the whole batch); set batch_size to a multiple to shard",
+          sizes, group.size)
+      return None
+    logger.info("data parallel: rank %d of %d over %s; train batches %s "
+                "split %d ways (global-batch negatives and BatchNorm "
+                "moments), the eval's rows gathered", group.rank,
+                group.size, group.backend, sizes, group.size)
+    return group
+
+  def _barrier(self):
+    if self.group is not None:
+      self.group.barrier()
 
   # ------------------------------------------------------------------
   def _validate_monitor_metric(self):
@@ -283,6 +357,8 @@ class Trainer:
       def add_scalar(self, *a, **k): pass
       def add_text(self, *a, **k): pass
       def add_hparams(self, *a, **k): pass
+    if not self.is_primary:   # one TensorBoard stream per experiment
+      return _Null()
     try:
       from tensorboardX import SummaryWriter
     except ImportError:
@@ -374,7 +450,7 @@ class Trainer:
                       self.skip_first_n_saves)
         elif epoch % self.save_period == 0 or save_best:
           self._save_checkpoint(epoch, save_best=best)
-        if epoch > self.num_keep_ckpts:
+        if epoch > self.num_keep_ckpts and self.is_primary:
           # Routed through the writer queue so the purge always sees the
           # epoch's (possibly still in-flight) checkpoint file.
           self._ckpt_writer.purge(self.exp_dir, self.num_keep_ckpts)
@@ -409,8 +485,9 @@ class Trainer:
           continue
         (logger.debug if "timer." in name else logger.info)(
             " %-30s: %s", name, value)
-      update_perf_log({k: v for k, v in log.items()
-                       if not k.endswith("cols")}, self.perf_log_path)
+      if self.is_primary:
+        update_perf_log({k: v for k, v in log.items()
+                         if not k.endswith("cols")}, self.perf_log_path)
 
     # Join the last background checkpoint write (and surface its error)
     # before callers read the files (evaluate() loads trained_model).
@@ -478,8 +555,10 @@ class Trainer:
     batches = itertools.islice(iter(loader), batches_per_epoch)
     if self.sanity_checks:
       batches = self._checked(batches)
-    batches = loader_lib.device_prefetch((model_batch(b) for b in batches),
-                                         self.device, size=2)
+    batches = (model_batch(b) for b in batches)
+    if self.dp is not None:
+      batches = (mesh_lib.local_rows(b, self.dp) for b in batches)
+    batches = loader_lib.device_prefetch(batches, self.device, size=2)
     for batch_idx, batch in enumerate(batches):
       self.timer.update("train_batch.data_loading", time.time() - data_start)
       self.n_samples += batch_size * n_pairs
@@ -489,7 +568,7 @@ class Trainer:
       step_start = time.time()
       loss = train_step(self.model, self.optimizer, batch,
                         loss_fn=self.loss_fn, lr=lr,
-                        generator=self.generator)
+                        generator=self.generator, dp=self.dp)
       self._maybe_preempt_exit(epoch - 1)
       pending_losses.append(loss)
       self.timer.update("train_batch.step", time.time() - step_start)
@@ -518,20 +597,41 @@ class Trainer:
   # Eval
   # ------------------------------------------------------------------
   def _get_embeddings(self, loader, to_host=False):
-    """Accumulate per-modality embeddings over an eval set on the device
+    """Accumulate per-modality embeddings over an eval set
     (trainer/trainer.py:286-370), through the same prefetch as training,
     under ``torch.inference_mode()`` (no autograd graph: the eval FFN
-    block launches B1 alone)."""
-    if to_host:
-      raise NotImplementedError(
-          "host-staged embeddings (to_host=True) are ROADMAP.md A10")
-    vid_embds, text_embds = [], []
-    vid_weights, text_weights = [], []
+    block launches B1 alone).
+
+    Under data parallelism each batch is zero-padded to a multiple of the
+    group, this rank embeds its rows, and the rows are gathered and the
+    padding sliced off: every rank holds the whole embeddings.
+    ``to_host=True`` (the fused eval) lands each batch's embeddings in
+    host memory as numpy arrays, bitwise the device path's, so that the
+    corpus never sits whole on one device (mmt_tpu/train/trainer.py:
+    745-787); the fused ranking then stages each rank's candidate
+    shard."""
+    dp = self.dp
+    hosts = collections.deque()   # the global host batches, in order
+
+    def rank_rows():
+      for batch in loader:
+        hosts.append(batch)
+        if dp is None:
+          yield batch
+        else:
+          padded, _ = mesh_lib.pad_batch_to_multiple(model_batch(batch),
+                                                     dp.size)
+          yield mesh_lib.local_rows(padded, dp)
+
+    snap = (lambda x: x.cpu().numpy()) if to_host else (lambda x: x)
+    keys = ("vid_embds", "text_embds", "vid_weights", "text_weights")
+    embds = {k: [] for k in keys}
     query_masks, raw_captions, paths = [], [], []
     data_start = time.time()
     with torch.inference_mode():
-      for batch in loader_lib.device_prefetch(iter(loader), self.device,
+      for batch in loader_lib.device_prefetch(rank_rows(), self.device,
                                               size=2):
+        host = hosts.popleft()
         # A SIGTERM landing during a long eval must not wait for the
         # whole eval to finish: eval state is safe to abandon, and the
         # current epoch's training is complete whenever an eval runs.
@@ -540,25 +640,20 @@ class Trainer:
                           time.time() - data_start)
         step_start = time.time()
         out = self.model(batch)
-        vid_embds.append(out["vid_embds"])
-        text_embds.append(out["text_embds"])
-        vid_weights.append(out["vid_weights"])
-        text_weights.append(out["text_weights"])
-        query_masks.append(batch["query_masks"])
-        n = len(batch["query_masks"])
-        raw_captions.extend(batch.get("raw_captions", [None] * n))
-        paths.extend(batch.get("paths", [""] * n))
+        n = len(host["query_masks"])
+        for k in keys:
+          x = out[k] if dp is None else dp.all_gather(out[k])[:n]
+          embds[k].append(snap(x))
+        query_masks.append(np.asarray(host["query_masks"]))
+        raw_captions.extend(host.get("raw_captions", [None] * n))
+        paths.extend(host.get("paths", [""] * n))
         self.timer.update("valid_batch.forward", time.time() - step_start)
         data_start = time.time()
-      return {
-          "vid_embds": torch.cat(vid_embds, 0),
-          "text_embds": torch.cat(text_embds, 0),
-          "vid_weights": torch.cat(vid_weights, 0),
-          "text_weights": torch.cat(text_weights, 0),
-          "query_masks": torch.cat(query_masks, 0).cpu().numpy(),
-          "raw_captions": raw_captions,
-          "paths": paths,
-      }
+      cat = np.concatenate if to_host else torch.cat
+      return {**{k: cat(v, 0) for k, v in embds.items()},
+              "query_masks": np.concatenate(query_masks, 0),
+              "raw_captions": raw_captions,
+              "paths": paths}
 
   def _valid_epoch(self, epoch=None, sets="continuous_eval"):
     result = {"metrics": {}}
@@ -578,10 +673,11 @@ class Trainer:
                    and self.fused_eval_from_videos
                    and n_videos >= self.fused_eval_from_videos
                    and metric_names <= {"t2v_metrics", "v2t_metrics"}
-                   and self.visualizer is None)
+                   and not self._want_visualizer)
 
       with self.timer.time("valid.embds"):
-        embds = self._get_embeddings(loader)
+        embds = self._get_embeddings(
+            loader, to_host=use_fused and self.dp is not None)
 
       b, k, m, d = embds["text_embds"].shape
       query_masks = embds["query_masks"]
@@ -606,7 +702,7 @@ class Trainer:
       else:
         ds_base, cut_name, split_name = dataset_name, "", "eval"
 
-      if sets == "final_eval":
+      if sets == "final_eval" and self.is_primary:
         if cut_name == "c" and split_name in ("test1", "test2"):
           public = ("public_server_val" if split_name == "test1"
                     else "public_server_test")
@@ -628,9 +724,11 @@ class Trainer:
               embds["text_weights"].reshape(b * k, m),
               embds["vid_weights"],
               query_masks, which=tuple(name for name, _ in self.metrics),
-              device=self.device)
+              device=self.device, dp=self.dp)
         logger.info("%s: fused on-device ranking (%d videos; sims matrix "
-                    "not materialized)", dataset_name, n_videos)
+                    "not materialized%s)", dataset_name, n_videos,
+                    f"; host-staged, candidates split over {self.dp.size} "
+                    "ranks" if self.dp is not None else "")
 
       # Tracked throughput metric: eval videos/s on the one device.
       embds_time = self.timer.dic.get("valid.embds", {}).get("val", 0)
@@ -670,7 +768,10 @@ class Trainer:
   def evaluate(self):
     """Final eval: load best ckpt, run final_eval sets, write artifacts
     (base/base_trainer.py:244-297)."""
+    # The primary may still be writing the last checkpoint; every rank
+    # must see the same file (or the same absence) before loading.
     self._ckpt_writer.flush()
+    self._barrier()
     best = self.exp_dir / ckpt_lib.BEST_NAME
     if best.exists():
       self._resume_checkpoint(best)
@@ -691,20 +792,24 @@ class Trainer:
         if "/cols" not in name:
           logger.info(" %-40s: %s", name, value)
 
-    results_path = self.exp_dir / "exp_results.json"
-    res = {}
-    if results_path.exists():
-      with open(results_path) as f:
-        res = json.load(f)
-    res["perfs"] = {ds: {k: v for k, v in d.items() if "/cols" not in k}
-                    for ds, d in log.items()}
-    res["checkpoint_epoch"] = self.loaded_epoch
-    with open(results_path, "w") as f:
-      # MeanR/MedR can legitimately be inf (a video whose captions are
-      # all masked ranks at infinity, ops/ranking.py) — python's json
-      # would emit non-RFC `Infinity`, which external parsers reject.
-      json.dump(_json_sanitize(res), f, indent=4)
-    (self.exp_dir / "exp_completed_flag.txt").touch()
+    if self.is_primary:
+      results_path = self.exp_dir / "exp_results.json"
+      res = {}
+      if results_path.exists():
+        with open(results_path) as f:
+          res = json.load(f)
+      res["perfs"] = {ds: {k: v for k, v in d.items() if "/cols" not in k}
+                      for ds, d in log.items()}
+      res["checkpoint_epoch"] = self.loaded_epoch
+      with open(results_path, "w") as f:
+        # MeanR/MedR can legitimately be inf (a video whose captions are
+        # all masked ranks at infinity, ops/ranking.py) — python's json
+        # would emit non-RFC `Infinity`, which external parsers reject.
+        json.dump(_json_sanitize(res), f, indent=4)
+      (self.exp_dir / "exp_completed_flag.txt").touch()
+    # Every rank sees the finished artifacts before returning (callers
+    # may read exp_results.json right after evaluate()).
+    self._barrier()
     return final
 
   # ------------------------------------------------------------------
@@ -729,6 +834,10 @@ class Trainer:
     return state
 
   def _save_checkpoint(self, epoch, save_best=False):
+    # One writer per experiment: every rank holds the same state, and
+    # concurrent writes of one file would race.
+    if not self.is_primary:
+      return
     # Snapshot to host NOW (the next step updates the parameters in
     # place); serialization + write happen on the writer thread.
     self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(self._state_dict()),
@@ -823,5 +932,6 @@ class Trainer:
       self.start_epoch = 0
       self.n_samples = 0
       self.n_steps = 0
-      ckpt_lib.write_info(self.exp_dir, resume_path, self.loaded_epoch)
+      if self.is_primary:
+        ckpt_lib.write_info(self.exp_dir, resume_path, self.loaded_epoch)
     logger.info("Ckpt loaded at epoch %s", raw.get("epoch", "?"))

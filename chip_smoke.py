@@ -864,24 +864,53 @@ TRAIN_BATCH, TRAIN_BIG_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 128, 5e-5, 20
 # ~1e-5 and all gradients together by ~1% (relative L2 over all
 # parameters), but a parameter whose gradient is a small sum of cancelling
 # terms (the last video layer's LayerNorm bias: 7 of 218 tokens carry
-# gradient) moves by up to ~8% of its own norm.
+# gradient) moves by up to ~8% of its own norm.  A one-element gradient
+# (the MoE heads' biases, Linear(D, 1)) is one such sum and no vector: its
+# relative difference is one rounding draw over one cancelled sum, and the
+# plain bf16 path alone misses the fp32 step's value by up to 78% there
+# (phase 13's witness on an H100).  The one-element gradients are held
+# together, as one vector, to STEP_GRAD_TOL.
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_ALL_GRADS_TOL = 1e-4, 0.2, 2e-2
+# The same step with the model in float32 on both paths (phase 13): the
+# kernels' fp32 instantiations and the plain versions compute the same
+# function and part only by summation order.
+STEP_FP32_TOLS = (1e-6, 1e-2, 1e-4)
 
 
-def check_step(torch, what, loss, loss_ref, grads, grads_ref):
+SCALARS = "(one-element gradients)"
+
+
+def grad_diffs(grads, grads_ref):
+  """{name: (|diff|, |ref|)} of each parameter's gradient (L2 norms), the
+  one-element parameters together as one vector named SCALARS."""
+  diffs, scalars = {}, [0.0, 0.0]
+  for n, g in grads_ref.items():
+    d = float((grads[n].float() - g.float()).norm())
+    ref = float(g.float().norm())
+    if g.numel() == 1:
+      scalars[0] += d * d
+      scalars[1] += ref * ref
+    else:
+      diffs[n] = (d, ref)
+  if scalars[1] > 0:
+    diffs[SCALARS] = (scalars[0] ** 0.5, scalars[1] ** 0.5)
+  return diffs
+
+
+def check_step(torch, what, loss, loss_ref, grads, grads_ref,
+               tols=(STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_ALL_GRADS_TOL)):
   """One train step against a reference step from the same state and
-  seed: the loss within STEP_LOSS_TOL, all gradients together within
-  STEP_ALL_GRADS_TOL relative L2 and each parameter's within
-  STEP_GRAD_TOL.  Raises past them."""
+  seed: the loss within tols[0], each parameter's gradient within tols[1]
+  relative L2 (grad_diffs) and all gradients together within tols[2].
+  Raises past them."""
+  loss_tol, grad_tol, all_tol = tols
   loss_diff = abs(loss - loss_ref)
   # Relative L2 difference per parameter, the denominator floored at 1e-2
   # of the median gradient norm: a gradient that is zero in exact
   # arithmetic is rounding noise on both paths (the attention key biases,
   # which the softmax cancels, and the biases in front of the train-mode
   # BatchNorm, which its batch mean cancels).
-  diffs = {n: (float((grads[n].float() - g.float()).norm()),
-               float(g.float().norm()))
-           for n, g in grads_ref.items()}
+  diffs = grad_diffs(grads, grads_ref)
   floor = 1e-2 * statistics.median(ref for _, ref in diffs.values())
   rel = {n: d / max(ref, floor) for n, (d, ref) in diffs.items()}
   worst_name = max(rel, key=rel.get)
@@ -895,12 +924,12 @@ def check_step(torch, what, loss, loss_ref, grads, grads_ref):
         "top: " + ", ".join(f"{n} {rel[n]:.3e} (|diff| {diffs[n][0]:.3e}, "
                             f"|grad| {diffs[n][1]:.3e})" for n in top),
         flush=True)
-  if (not loss_diff <= STEP_LOSS_TOL or not worst <= STEP_GRAD_TOL
-      or not overall <= STEP_ALL_GRADS_TOL):
-    raise RuntimeError(f"{what}: loss diff {loss_diff} (tol {STEP_LOSS_TOL}),"
-                       f" grad diff {worst} (tol {STEP_GRAD_TOL}, "
+  if (not loss_diff <= loss_tol or not worst <= grad_tol
+      or not overall <= all_tol):
+    raise RuntimeError(f"{what}: loss diff {loss_diff} (tol {loss_tol}),"
+                       f" grad diff {worst} (tol {grad_tol}, "
                        f"{worst_name}), all grads {overall} (tol "
-                       f"{STEP_ALL_GRADS_TOL})")
+                       f"{all_tol})")
 
 
 def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
@@ -3506,8 +3535,12 @@ def write_word_vectors(path, data_dir, seed=13):
 def matrix_first_step(torch, ops, cfg_path, card, name):
   """The first train step of run ``name`` on the kernel path against the
   plain path (phase 8's check), from one trainer's initial weights, its
-  first batch and one dropout seed; returns CPU copies of the initial
-  weights of the run's frozen parameters and the trainer's tokenizer."""
+  first batch and one dropout seed.  Then the fp32 witness: the same
+  step, state and batch through a float32 model, on the plain path and on
+  the kernel path (its fp32 instantiations), held to each other at
+  STEP_FP32_TOLS; the bf16 paths' distances from the plain fp32 step are
+  printed.  Returns CPU copies of the initial weights of the run's frozen
+  parameters and the trainer's tokenizer."""
   import argparse
 
   from mmt_tpu_torch import cli, config as config_lib
@@ -3515,10 +3548,13 @@ def matrix_first_step(torch, ops, cfg_path, card, name):
   from mmt_tpu_torch.models.cenet import similarity_from_outputs
   from mmt_tpu_torch.train.trainer import model_batch
 
-  ns = argparse.Namespace(config=str(cfg_path), resume=None,
-                          load_checkpoint=None, only_eval=False,
-                          txt_bert_init=None)
-  trainer = cli.build_trainer(config_lib.from_args(ns), device="cuda")
+  def build(path):
+    ns = argparse.Namespace(config=str(path), resume=None,
+                            load_checkpoint=None, only_eval=False,
+                            txt_bert_init=None)
+    return cli.build_trainer(config_lib.from_args(ns), device="cuda")
+
+  trainer = build(cfg_path)
   model = trainer.model.train()
   frozen = MATRIX_RUNS[name][4]
   init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
@@ -3530,42 +3566,45 @@ def matrix_first_step(torch, ops, cfg_path, card, name):
 
   # The max-pools (txt_agg bert*mxp) route each gradient to one token: a
   # bf16 rounding between the paths that reorders two near-equal values
-  # moves a whole gradient entry to another token.  The plain path takes
+  # moves a whole gradient entry to another token.  The other steps take
   # the kernel path's routing (max values gathered at its indices) so that
-  # the check holds the kernels' arithmetic; the reordered share is shown.
+  # the checks hold the kernels' arithmetic; the reordered share is shown.
   amax, routes = torch.Tensor.amax, []
 
   def recording_amax(t, dim, keepdim=False):
     routes.append(t.detach().argmax(dim, keepdim=True))
     return amax(t, dim, keepdim)
 
-  def replaying_amax(t, dim, keepdim=False):
-    idx = routes.pop(0)
-    flips[0] += int((t.detach().argmax(dim, keepdim=True) != idx).sum())
-    flips[1] += idx.numel()
-    out = t.gather(dim, idx)
-    return out if keepdim else out.squeeze(dim)
+  def replaying(replay):
+    def replaying_amax(t, dim, keepdim=False):
+      idx = next(replay)
+      flips[0] += int((t.detach().argmax(dim, keepdim=True) != idx).sum())
+      flips[1] += idx.numel()
+      out = t.gather(dim, idx)
+      return out if keepdim else out.squeeze(dim)
+    return replaying_amax
 
   flips = [0, 0]
 
-  def step(plain):
-    model.load_state_dict(state0)
-    model.zero_grad(set_to_none=True)
+  def step(m, plain, record=False):
+    m.load_state_dict(state0)
+    m.zero_grad(set_to_none=True)
     gen = torch.Generator(device=trainer.device).manual_seed(17)
-    torch.Tensor.amax = replaying_amax if plain else recording_amax
+    torch.Tensor.amax = (recording_amax if record
+                         else replaying(iter(list(routes))))
     try:
       with ops.plain_versions() if plain else contextlib.nullcontext():
-        out = model(batch, train=True, generator=gen)
+        out = m(batch, train=True, generator=gen)
         loss = trainer.loss_fn(similarity_from_outputs(out, merge="avg"))
         loss.backward()
     finally:
       torch.Tensor.amax = amax
     torch.cuda.synchronize()
-    return float(loss), {n: p.grad.clone() for n, p in
-                         model.named_parameters() if p.requires_grad}
+    return float(loss.detach()), {n: p.grad.clone() for n, p in
+                                  m.named_parameters() if p.requires_grad}
 
-  loss_k, grads_k = step(False)
-  loss_p, grads_p = step(True)
+  loss_k, grads_k = step(model, False, record=True)
+  loss_p, grads_p = step(model, True)
   print(f"matrix {name}: the plain path's own max-pool argmax differs from "
         f"the kernel path's at {flips[0]} of {flips[1]} maxima (routing "
         "held to the kernel path's below)", flush=True)
@@ -3575,7 +3614,36 @@ def matrix_first_step(torch, ops, cfg_path, card, name):
          if not p.requires_grad):
     raise RuntimeError(f"matrix {name}: a frozen parameter holds a gradient")
   tokenizer = trainer.tokenizer
-  del trainer, model, batch, state0, grads_k, grads_p
+
+  # The fp32 witness, from the same state and batch.
+  cfg32 = json.loads(pathlib.Path(cfg_path).read_text())
+  cfg32["arch"]["args"]["compute_dtype"] = "float32"
+  path32 = pathlib.Path(cfg_path).with_name(f"{name}_fp32.json")
+  path32.write_text(json.dumps(cfg32))
+  model32 = build(path32).model.train()
+  loss_f, grads_f = step(model32, True)
+  loss_kf, grads_kf = step(model32, False)
+  check_step(torch, f"matrix {name} first step fp32 kernel vs plain",
+             loss_kf, loss_f, grads_kf, grads_f, tols=STEP_FP32_TOLS)
+
+  def off(grads):
+    """All gradients' rel L2 distance from the fp32 step's, and the worst
+    relative miss of one one-element gradient."""
+    diffs = grad_diffs(grads, grads_f)
+    scalar = max((abs(float(grads[n]) - float(g)) / abs(float(g))
+                  for n, g in grads_f.items() if g.numel() == 1 and g != 0),
+                 default=0.0)
+    return (sum(d * d for d, _ in diffs.values())
+            / sum(ref * ref for _, ref in diffs.values())) ** 0.5, scalar
+
+  (k_all, k_one), (p_all, p_one) = off(grads_k), off(grads_p)
+  print(f"matrix {name} bf16 paths vs the fp32 step: all grads rel L2 "
+        f"kernel {k_all:.3e}, plain {p_all:.3e}; worst one-element "
+        f"gradient's relative miss kernel {k_one:.3e}, plain {p_one:.3e}; "
+        f"loss kernel {abs(loss_k - loss_f):.3e}, plain "
+        f"{abs(loss_p - loss_f):.3e}", flush=True)
+  del trainer, model, model32, batch, state0, grads_k, grads_p, grads_f
+  del grads_kf
   torch.cuda.empty_cache()
   return init, tokenizer
 

@@ -78,15 +78,16 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    times the launches, the device activities launched, and the device's
    idle share of the wall.
 7. At-scale phase: the same model and videos through bench.py's
-   streaming protocol at 20,000 videos (20 salted passes of 1000 in
-   chunks of 50) and the fused eval (``retrieval_eval(fused=True)``, no
-   [Q, V] matrix).  Exactly 16 x 400 = 6,400 FFN, 0 similarity and 2 rank
-   kernel launches; finite metrics; on the same embeddings the kernel
+   streaming protocol at 10,000 videos (10 salted passes of 1000 in
+   chunks of 50; 20,000 until the run's time grew near its limit) and
+   the fused eval (``retrieval_eval(fused=True)``, no [Q, V] matrix).
+   Exactly 16 x 200 = 3,200 FFN, 0 similarity and 2 rank kernel
+   launches; finite metrics; on the same embeddings the kernel
    path's ranks against the plain path's (the rule of phase 3) and
    against the matrix path's (B4 and the matrix ranks), which may differ
    only by the candidates that lie between the two paths' GT values (the
    fused path computes the GT similarity directly); the peak device
-   memory of both rankings; B5's time at 20k; the fused eval's wall time
+   memory of both rankings; B5's time at 10k; the fused eval's wall time
    on both paths, median of 3 after a warm-up, taken in turns.
 8. Train-step phase: the full-width flagship in bf16, b32, Adam (lr
    5e-5) on the max-margin loss (margin 0.05, fix_norm).  One step must
@@ -258,6 +259,32 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    B1 at a rank's eval rows is held to its plain version in phase 2.
    The launches per rank of (a), (b) and (c) are the ``dp_launches`` of
    the B1-B5 entries.
+15. Model-parallel phase, in two parts.  (a) After phase 12 (b), on its
+   100,000-video index and model: ``RetrievalEngine(mesh=[card] * 3)``
+   (the rows padded to 100,002 and split in three) exact then int8,
+   against the unsharded engine: exactly 12 B1 and 3 B4 (exact) or 0
+   (int8) a query batch; for 1 query (topk 5) and 64 (topk 10) the video
+   ids equal, the scores within 1e-5 (exact) / 1e-4 (int8), no pad row;
+   the int8 shards' codes and scales bitwise the unsharded engine's; the
+   p50 of 10 direct searches, sharded and unsharded (no claim of speed).
+   Phase 12 (c) also times B4 at the shard shapes [1, 33,334] and [64,
+   33,334].  (b) In phase 11's scope after phase 14 (c), on its corpus
+   and config with ``model_parallel`` 2: two ``mmt_tpu_torch.train``
+   processes (1 data x 2 model ranks, gloo, the card shared) for one
+   epoch of 8 b32 steps and the fused, host-staged continuous eval of
+   the 1,000 train videos: per rank exactly 128 B7, 128 B3 (add_dz off),
+   16 x 65 B6, 9 B4, 4 B5 and no B1 / B2; every host batch and step 1's
+   loss (1e-4) against phase 14 (c)'s one-process run, every later
+   step's gap printed, the epoch loss within 1e-2 relative (a bound on
+   divergence: TP's bf16 gradients take other roundings, which Adam
+   amplifies) and the final sims within 2e-2 of it; the trained_model.pth
+   with the one process's entries and shapes; then ``--only_eval
+   --load_checkpoint`` of that file in this one process (16 B1, 1 B4)
+   within TP_SIMS_TOL of the TP run's final sims; last an fp32 witness,
+   the epoch's first 4 steps (no continuous eval) in float32 by two TP
+   processes and by one: every host batch equal, every step's loss and
+   the epoch loss within 1e-5 relative, the final sims within 1e-4.  The launches are the ``sharded_serving_launches`` of the B1
+   and B4 entries and the ``tp_cli_launches`` of every entry.
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -1404,7 +1431,7 @@ def rank_kernel_phase(torch, ranking, similarity, dev, gen, card):
   return worst_all
 
 
-AT_SCALE_VIDEOS = 20_000
+AT_SCALE_VIDEOS = 10_000
 
 
 def between_gts(torch, a, g_fused, gtcol):
@@ -1418,10 +1445,10 @@ def between_gts(torch, a, g_fused, gtcol):
 
 
 def at_scale_phase(torch, modules, model, staged, dev, card):
-  """The fused eval at 20,000 videos (bench.py's streaming protocol):
-  launch counts, kernel vs plain and fused vs matrix ranks on the same
-  embeddings, peak memory, B5's time at this shape, and the eval's wall
-  time on both paths.  Returns the B5 line entries."""
+  """The fused eval at AT_SCALE_VIDEOS videos (bench.py's streaming
+  protocol): launch counts, kernel vs plain and fused vs matrix ranks on
+  the same embeddings, peak memory, B5's time at this shape, and the
+  eval's wall time on both paths.  Returns the B5 line entries."""
   bench, evaluate, metrics, ops, ffn, similarity, ranking = modules
   n = AT_SCALE_VIDEOS
   vocab = model.txt_bert.cfg.vocab_size
@@ -2965,7 +2992,17 @@ SERVE_BULK = (50, 64, 10)           # the same: POST
 SERVE_QUALITY_PINNED, SERVE_QUALITY = (512, 64), (10_000, 1_000)
 SERVE_TOL = 2e-2                    # kernel path vs plain path, scores
 SERVE_FFN_ROWS = (30, 1920)         # text rows of 1 and of 64 queries
-SERVE_SIM_CASES = ((1, 1_000), (1, 100_000), (64, 100_000))
+# Phase 15 (a): the index sharded three ways on the one card (100,000 is
+# no multiple of 3: two pad rows); exact and int8 scores held to the
+# unsharded engine's; SERVE_SEARCH_REPS direct search calls a p50.
+SERVE_SHARDS = 3
+SERVE_SHARD_ROWS = -(-SERVE_VIDEOS // SERVE_SHARDS)   # 33,334
+SERVE_SHARD_TOL = {None: 1e-5, "int8": 1e-4}
+SERVE_SEARCH_REPS = 10
+# B4 cases: (queries, videos, launches per query batch at that shape).
+SERVE_SIM_CASES = ((1, 1_000, 1), (1, 100_000, 1), (64, 100_000, 1),
+                   (1, SERVE_SHARD_ROWS, SERVE_SHARDS),
+                   (64, SERVE_SHARD_ROWS, SERVE_SHARDS))
 SERVE_WORDS = ("person cooking pasta kitchen soccer match goal rain city "
                "night dog park guitar song stage car road mountain beach "
                "man woman sings runs").split()
@@ -3305,7 +3342,8 @@ def check_witness(torch, k_scores, k_idx, p_sims, topk):
   return diff
 
 
-def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card):
+def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
+                      clock):
   """Phase 12 (b): the full-width flagship (bf16, random weights from a
   seed) serving a synthetic index of SERVE_VIDEOS videos of the
   flagship's geometry (L2-normalised rows, L1 weights), exact and int8:
@@ -3349,7 +3387,7 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card):
       engine = serving.RetrievalEngine(model, tok, index, quantize=quant)
       torch.cuda.synchronize()
       print(f"serve {label}: staged in {time.perf_counter() - tic:.1f} s, "
-            f"{sum(t.numel() * t.element_size() for t in engine._dev_index) / 1e9:.3f}"
+            f"{staged_gb(engine):.3f}"
             f" GB on the card", flush=True)
       b4 = 0 if quant else 1
       for batch, topk in ((1, 5), (64, 10)):
@@ -3405,9 +3443,92 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card):
                            f"{faults}")
       out[f"int8_quality_{size[0]}"] = rep
     out["overlap@10"] = float(overlap)
+    clock.done("serve")
+    out["sharded"] = sharded_serve_phase(torch, ffn, similarity, serving,
+                                         model, tok, index, q64, card)
     return out
   finally:
     shutil.rmtree(root, ignore_errors=True)
+
+
+def staged_gb(engine):
+  """GB of the index tensors an engine staged, over all its shards."""
+  return sum(t.numel() * t.element_size()
+             for _, staged, _ in engine._shards for t in staged) / 1e9
+
+
+def search_p50_ms(engine, queries, topk):
+  """The median wall ms of SERVE_SEARCH_REPS direct ``search`` calls
+  (each returns host lists: the device work is done), after one more."""
+  engine.search(queries, topk)
+  times = []
+  for _ in range(SERVE_SEARCH_REPS):
+    tic = time.perf_counter()
+    engine.search(queries, topk)
+    times.append(1e3 * (time.perf_counter() - tic))
+  return statistics.median(times)
+
+
+def sharded_serve_phase(torch, ffn, similarity, serving, model, tok, index,
+                        queries, card):
+  """Phase 15 (a): phase 12 (b)'s index and model through
+  ``RetrievalEngine(mesh=[card] * SERVE_SHARDS)`` (padded to a multiple
+  of the shards), exact then int8, against the unsharded engine: exactly
+  12 B1 and SERVE_SHARDS B4 (exact) or 0 (int8) a query batch; for 1
+  query (topk 5) and 64 (topk 10) the ids equal, the scores within
+  SERVE_SHARD_TOL, no pad row; the int8 shards' codes and scales
+  bitwise the unsharded engine's; the p50 of direct searches, sharded
+  and unsharded (shards sharing one card: a correctness path, no claim
+  of speed).  Returns the launch counts and the p50s."""
+  dev = next(model.parameters()).device
+  ids, n = set(index.video_ids), len(index)
+  out = {}
+  for quant in (None, "int8"):
+    label, tol = quant or "exact", SERVE_SHARD_TOL[quant]
+    whole = serving.RetrievalEngine(model, tok, index, quantize=quant)
+    sharded = serving.RetrievalEngine(model, tok, index, quantize=quant,
+                                      mesh=[dev] * SERVE_SHARDS)
+    per = sharded._shard_rows
+    rows = [real for _, _, real in sharded._shards]
+    print(f"serve sharded {label}: {SERVE_SHARDS} shards of {per} rows on "
+          f"{dev} ({rows} real, {per * SERVE_SHARDS - n} pad)", flush=True)
+    if quant:
+      (_, staged, _), = whole._shards
+      for j, what in ((0, "codes"), (1, "scales")):
+        cat = torch.cat([st[j][:per] for _, st, _ in sharded._shards])
+        if not torch.equal(cat[:n], staged[j][:n]):
+          raise RuntimeError(f"serve sharded int8: the shards' {what} are "
+                             "not the unsharded engine's")
+    want = {"ffn_block": TEXT_LAYERS,
+            "moe_similarity": 0 if quant else SERVE_SHARDS}
+    entry = {"launches": want}
+    for batch, topk in ((1, 5), (64, 10)):
+      got = serve_counted(
+          torch, ffn, similarity,
+          lambda: sharded.search(queries[:batch], topk), want,
+          f"sharded {label} query batch of {batch}")
+      check_hits(got, topk, ids, f"sharded {label}")
+      ref = whole.search(queries[:batch], topk)
+      same = all([h["video_id"] for h in a] == [h["video_id"] for h in b]
+                 for a, b in zip(got, ref))
+      diff = max(abs(a["score"] - b["score"]) for ra, rb in zip(got, ref)
+                 for a, b in zip(ra, rb))
+      print(f"serve sharded {label} batch {batch} topk {topk}: ids equal "
+            f"the unsharded engine's {same}; scores max_abs_diff={diff:.3e} "
+            f"(limit {tol:.0e})", flush=True)
+      if not same or diff > tol:
+        raise RuntimeError(f"serve sharded {label} batch {batch}: ids "
+                           f"equal {same}, scores diff {diff}")
+      entry[f"p50_ms_batch{batch}"] = {
+          "sharded": search_p50_ms(sharded, queries[:batch], topk),
+          "unsharded": search_p50_ms(whole, queries[:batch], topk)}
+    print(f"serve sharded {label}: direct search p50 ms (of "
+          f"{SERVE_SEARCH_REPS}) {json.dumps(entry)}; {SERVE_SHARDS} shards "
+          f"sharing one card, no claim of speed card: {card}", flush=True)
+    out[label] = entry
+    del whole, sharded
+    torch.cuda.empty_cache()
+  return out
 
 
 def serve_kernel_cases(torch, ffn, similarity, dev, card):
@@ -3452,7 +3573,7 @@ def serve_kernel_cases(torch, ffn, similarity, dev, card):
           f"{card}", flush=True)
     ffn_shapes.append(case)
   sim_shapes = []
-  for q, v in SERVE_SIM_CASES:
+  for q, v, per_batch in SERVE_SIM_CASES:
     t, vv, tw, vw = sim_inputs(torch, q, v, SERVE_M, SERVE_D, dev, gen)
     call = lambda: similarity.sim_cuda(t, vv, tw, vw)
     got = call()
@@ -3471,7 +3592,7 @@ def serve_kernel_cases(torch, ffn, similarity, dev, card):
                                 lambda: similarity.sim_plain(t, vv, tw, vw)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, lambda: torch.mm(t, vv.T)),
-            "launches_per_query_batch": 1}
+            "launches_per_query_batch": per_batch}
     print(f"moe_similarity serving Q={q} V={v} K={SERVE_M * SERVE_D}: "
           f"max_abs_err={max_err:.3e} kernel_ms={case['ms']:.4f} device_ms="
           f"{case['device_ms']:.4f} (k-major scratch fill {fill:.4f}, "
@@ -3869,6 +3990,54 @@ def dp_cli_rank(argv, out_path):
       dict(rec, launches={n: fn.launches for n, fn in counters.items()})))
 
 
+def cli_ranks(cfg_dir, tag, size):
+  """Run ``dp_cli_rank`` on ``cfg_dir/<tag>_two.json`` in ``size``
+  processes joined over the MMT_TPU_* variables (the card shared over
+  gloo), within DP_CLI_TIMEOUT; every process is stopped by the end.
+  Returns each rank's output, its record (``recorded_run``: step losses,
+  batch digests) and its launches, and the wall seconds; a rank that
+  fails raises with its output."""
+  from mmt_tpu_torch.parallel import mesh as mesh_lib
+
+  port = mesh_lib._free_port()
+  root = pathlib.Path(__file__).resolve().parent
+  procs, logs = [], []
+  tic = time.perf_counter()
+  argv = ["--config", str(cfg_dir / f"{tag}_two.json"), "--device", "cuda"]
+  for rank in range(size):
+    env = dict(os.environ, MMT_TPU_COORDINATOR=f"localhost:{port}",
+               MMT_TPU_NUM_PROCESSES=str(size),
+               MMT_TPU_PROCESS_ID=str(rank))
+    logs.append(open(cfg_dir / f"{tag}_rank{rank}.out", "w"))
+    code = (f"import chip_smoke; chip_smoke.dp_cli_rank({argv!r}, "
+            f"{str(cfg_dir / f'{tag}_run{rank}.json')!r})")
+    procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                  env=env, stdout=logs[-1],
+                                  stderr=subprocess.STDOUT))
+  try:
+    for p in procs:
+      p.wait(timeout=max(DP_CLI_TIMEOUT - (time.perf_counter() - tic), 1.0))
+  except subprocess.TimeoutExpired:
+    pass
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.wait()
+    for f in logs:
+      f.close()
+  seconds = time.perf_counter() - tic
+  outs = [(cfg_dir / f"{tag}_rank{r}.out").read_text() for r in range(size)]
+  for rank, (p, out) in enumerate(zip(procs, outs)):
+    if p.returncode != 0:
+      raise RuntimeError(f"{tag} cli rank {rank} exited {p.returncode}:\n"
+                         f"{out[-4000:]}")
+  recs = [json.loads((cfg_dir / f"{tag}_run{r}.json").read_text())
+          for r in range(size)]
+  launches = [rec.pop("launches") for rec in recs]
+  return outs, recs, launches, seconds
+
+
 def dp_cli_phase(torch, cfg_dir, data_dir, card):
   """Phase 14 (c): the flagship config (b32, one epoch of 8 steps, the
   fused host-staged continuous eval of the 1,000 train videos at epochs
@@ -3877,11 +4046,12 @@ def dp_cli_phase(torch, cfg_dir, data_dir, card):
   per-rank launches exact, the ranks' host batches the one process's,
   the step losses and their gaps, the epoch loss within 1e-3 relative,
   the final sims within 2e-2, one set of artifacts.  Returns rank 0's
-  launches."""
+  launches and the one process's run (phase 15 (b)'s reference): its
+  step losses and batch digests, epoch losses, final sims and the keys
+  and shapes of its trained_model.pth."""
   import numpy as np
 
   from mmt_tpu_torch import cli
-  from mmt_tpu_torch.parallel import mesh as mesh_lib
 
   exps = {n: cfg_dir / f"dp_exp_{n}" for n in ("two", "one")}
   cfgs = {name: dp_cli_config(data_dir, exp, shipped_workers=name == "two")
@@ -3899,39 +4069,7 @@ def dp_cli_phase(torch, cfg_dir, data_dir, card):
               ffn_train_bwd=FFN_LAYERS * steps,
               moe_similarity=steps + 1, fused_ranks=2 * 2)
 
-  port = mesh_lib._free_port()
-  root = pathlib.Path(__file__).resolve().parent
-  procs, logs = [], []
-  tic = time.perf_counter()
-  argv = ["--config", str(cfg_dir / "dp_two.json"), "--device", "cuda"]
-  for rank in range(DP_SIZE):
-    env = dict(os.environ, MMT_TPU_COORDINATOR=f"localhost:{port}",
-               MMT_TPU_NUM_PROCESSES=str(DP_SIZE),
-               MMT_TPU_PROCESS_ID=str(rank))
-    logs.append(open(cfg_dir / f"dp_rank{rank}.out", "w"))
-    code = (f"import chip_smoke; chip_smoke.dp_cli_rank({argv!r}, "
-            f"{str(cfg_dir / f'dp_run{rank}.json')!r})")
-    procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root,
-                                  env=env, stdout=logs[-1],
-                                  stderr=subprocess.STDOUT))
-  try:
-    for p in procs:
-      p.wait(timeout=max(DP_CLI_TIMEOUT - (time.perf_counter() - tic), 1.0))
-  except subprocess.TimeoutExpired:
-    pass
-  finally:
-    for p in procs:
-      if p.poll() is None:
-        p.kill()
-        p.wait()
-    for f in logs:
-      f.close()
-  two_s = time.perf_counter() - tic
-  outs = [(cfg_dir / f"dp_rank{r}.out").read_text() for r in range(DP_SIZE)]
-  for rank, (p, out) in enumerate(zip(procs, outs)):
-    if p.returncode != 0:
-      raise RuntimeError(f"dp cli rank {rank} exited {p.returncode}:\n"
-                         f"{out[-4000:]}")
+  outs, recs, launches, two_s = cli_ranks(cfg_dir, "dp", DP_SIZE)
   if "host-staged" not in outs[0]:
     raise RuntimeError("dp cli: the continuous eval did not take the "
                        "host-staged fused path")
@@ -3941,9 +4079,6 @@ def dp_cli_phase(torch, cfg_dir, data_dir, card):
   if len(workers) != threaded or not threaded:
     raise RuntimeError("dp cli: the shipped config's loader workers were "
                        "not set to 0 in the group")
-  recs = [json.loads((cfg_dir / f"dp_run{r}.json").read_text())
-          for r in range(DP_SIZE)]
-  launches = [rec.pop("launches") for rec in recs]
   for rank, got in enumerate(launches):
     print(f"dp cli rank {rank} launches: {got}", flush=True)
     if got != want:
@@ -4025,9 +4160,192 @@ def dp_cli_phase(torch, cfg_dir, data_dir, card):
       or "log.p1.txt" not in two or streams[0] != streams[1]):
     raise RuntimeError("dp cli: two processes did not write one set of "
                        "artifacts")
+  ref = dict(one_rec, epoch_losses=losses["one"], sims=sims["one"],
+             ckpt=checkpoint_layout(torch, exps["one"] / "trained_model.pth"))
   for exp in exps.values():
     shutil.rmtree(exp, ignore_errors=True)
+  return launches[0], ref
+
+
+def checkpoint_layout(torch, path):
+  """{entry: shape} of a .pth's parameters and optimizer state."""
+  state = torch.load(path, map_location="cpu", weights_only=True)
+  layout = {f"state_dict/{k}": tuple(v.shape)
+            for k, v in state["state_dict"].items()}
+  for i, entry in state.get("optimizer", {}).get("state", {}).items():
+    layout.update({f"optimizer/{i}/{k}": tuple(v.shape)
+                   for k, v in entry.items()})
+  return layout
+
+
+# Phase 15 (b): the trainer at model_parallel 2 through the CLI, on phase
+# 14 (c)'s corpus and config (1 data x 2 model ranks sharing the card).
+# The bf16 run's epoch loss is bounded for divergence only: its gradients
+# take TP's roundings, which Adam amplifies (2.0e-3 relative on an NVIDIA
+# H100 80GB HBM3 at 700 W); the fp32 witness (step and epoch losses
+# relative, final sims absolute) is the precise gate.
+TP_CLI_SIZE = 2
+TP_CLI_BF16_LOSS_RTOL = 1e-2
+TP_CLI_FP32_TOLS = (1e-5, 1e-4)
+TP_FP32_STEPS = 4   # the witness's epoch: 4 b32 steps (a depth cut)
+
+
+def tp_cli_phase(torch, cfg_dir, data_dir, ref, card):
+  """Phase 15 (b): phase 14 (c)'s config with ``model_parallel`` 2 through
+  two ``mmt_tpu_torch.train`` processes (1 data x 2 model ranks, gloo,
+  the card shared; the shipped loader workers, run at 0): per rank
+  exactly 16 B7 and 16 B3 (add_dz off) a step, 16 B6 an eval batch, one
+  B4 a step and the final eval's, phase 14 (c)'s B5, no B1 or B2; every
+  host batch, step 1's loss (STEP_LOSS_TOL), the epoch loss
+  (TP_CLI_BF16_LOSS_RTOL) and the final sims (DP_CLI_SIMS_TOL) against
+  ``ref``, phase 14 (c)'s one-process run (every later step's gap
+  printed); the trained_model.pth in the one-process layout; then
+  ``--only_eval --load_checkpoint`` of it in this one process (B1,
+  unsharded) within TP_SIMS_TOL of the TP run's final sims; last the
+  fp32 witness (``tp_fp32_witness``).  Returns rank 0's launches."""
+  import numpy as np
+
+  from mmt_tpu_torch import cli
+
+  exp, eval_exp = cfg_dir / "tp_exp", cfg_dir / "tp_eval_exp"
+  cfg = dp_cli_config(data_dir, exp, shipped_workers=True)
+  cfg["trainer"]["model_parallel"] = TP_CLI_SIZE
+  (cfg_dir / "tp_two.json").write_text(json.dumps(cfg))
+  (cfg_dir / "tp_eval.json").write_text(json.dumps(
+      dp_cli_config(data_dir, eval_exp, shipped_workers=False)))
+  per_eval = -(-CLI_TRAIN_VIDEOS // 32)
+  steps = CLI_SAMPLES_PER_EPOCH // 32
+  want = {n: 0 for n in DP_COUNTED}
+  want.update(ffn_partial=FFN_LAYERS * (2 * per_eval + 1),
+              ffn_train_fwd_partial=FFN_LAYERS * steps,
+              ffn_train_bwd=FFN_LAYERS * steps,
+              moe_similarity=steps + 1, fused_ranks=2 * 2)
+
+  outs, recs, launches, tp_s = cli_ranks(cfg_dir, "tp", TP_CLI_SIZE)
+  for rank, (out, got) in enumerate(zip(outs, launches)):
+    print(f"tp cli rank {rank} launches: {got}", flush=True)
+    if f"tensor parallel: model rank {rank} of {TP_CLI_SIZE}" not in out:
+      raise RuntimeError(f"tp cli rank {rank}: no tensor-parallel layout "
+                         "in its log")
+    if got != want:
+      raise RuntimeError(f"tp cli rank {rank}: expected launches {want}, "
+                         f"got {got}")
+  if "host-staged" not in outs[0]:
+    raise RuntimeError("tp cli: the continuous eval was not host-staged")
+  same = [rec["batches"] == ref["batches"] for rec in recs]
+  print(f"tp cli: {len(ref['batches'])} host batches; each rank's digests "
+        f"equal phase 14 (c)'s one process's: {same}", flush=True)
+  if not all(same):
+    raise RuntimeError("tp cli: the ranks' batches are not the one "
+                       "process's")
+  tp_steps, one_steps = recs[0]["losses"], ref["losses"]
+  gaps = [abs(a - b) / abs(b) for a, b in zip(tp_steps, one_steps)]
+  print(f"tp cli step losses: two ranks {tp_steps} one process {one_steps}; "
+        f"relative gap per step {[f'{g:.3e}' for g in gaps]}; ranks' losses "
+        f"equal: {recs[1]['losses'] == tp_steps}", flush=True)
+  if (len(tp_steps) != steps or recs[1]["losses"] != tp_steps
+      or not abs(tp_steps[0] - one_steps[0]) <= STEP_LOSS_TOL):
+    raise RuntimeError("tp cli: step losses out of step (count, the ranks' "
+                       f"agreement or step 1 beyond {STEP_LOSS_TOL})")
+  with open(exp / "perf_log.txt") as f:
+    losses = [json.loads(line)["loss"] for line in f]
+  rel = abs(losses[-1] - ref["epoch_losses"][-1]) / abs(
+      ref["epoch_losses"][-1])
+  sims = np.load(exp / "MSRVTT-val-sims.npy", allow_pickle=True)[()]["sims"]
+  diff = float(np.abs(sims - ref["sims"]).max())
+  layout = checkpoint_layout(torch, exp / "trained_model.pth")
+  print(f"tp cli: epoch losses {losses} one process {ref['epoch_losses']} "
+        f"(rel diff {rel:.3e}, bf16 limit {TP_CLI_BF16_LOSS_RTOL:.0e}); "
+        f"final sims max_abs_diff={diff:.3e} (limit {DP_CLI_SIMS_TOL:.0e}); "
+        f"trained_model.pth has the one process's {len(layout)} entries and "
+        f"shapes: {layout == ref['ckpt']}; wall {tp_s:.1f} s (two gloo "
+        f"ranks sharing one card, no claim of speed) card: {card}",
+        flush=True)
+  if (not rel <= TP_CLI_BF16_LOSS_RTOL or not np.isfinite(sims).all()
+      or diff > DP_CLI_SIMS_TOL or layout != ref["ckpt"]):
+    raise RuntimeError(f"tp cli: against one process: loss rel diff {rel}, "
+                       f"sims diff {diff}, checkpoint layout equal "
+                       f"{layout == ref['ckpt']}")
+
+  counters = dp_counters()
+  for fn in counters.values():
+    fn.launches = 0
+  cli.main(["--config", str(cfg_dir / "tp_eval.json"), "--only_eval",
+            "--load_checkpoint", str(exp / "trained_model.pth"),
+            "--device", "cuda"])
+  torch.cuda.synchronize()
+  got = {n: fn.launches for n, fn in counters.items()}
+  eval_want = {n: 0 for n in DP_COUNTED}
+  eval_want.update(ffn_block=FFN_LAYERS * -(-CLI_VAL_VIDEOS // 32),
+                   moe_similarity=1)
+  unsharded = np.load(eval_exp / "MSRVTT-val-sims.npy",
+                      allow_pickle=True)[()]["sims"]
+  diff = float(np.abs(unsharded - sims).max())
+  print(f"tp cli: --only_eval --load_checkpoint of the TP run's "
+        f"trained_model.pth in one process: launches {got}; final sims "
+        f"max_abs_diff={diff:.3e} from the TP run's (limit {TP_SIMS_TOL})",
+        flush=True)
+  if got != eval_want or diff > TP_SIMS_TOL:
+    raise RuntimeError(f"tp cli unsharded eval: launches {got} (expected "
+                       f"{eval_want}), sims diff {diff}")
+  for path in (exp, eval_exp):
+    shutil.rmtree(path, ignore_errors=True)
+  tp_fp32_witness(torch, cfg_dir, data_dir, card)
   return launches[0]
+
+
+def tp_fp32_witness(torch, cfg_dir, data_dir, card):
+  """Phase 15 (b)'s fp32 witness: the first TP_FP32_STEPS steps of the
+  same epoch and the final eval (no continuous eval), in float32 (the
+  kernels' fp32 instantiations), by two TP processes and by this one
+  process: every
+  host batch equal, every step's loss, the epoch loss and the final sims
+  within TP_CLI_FP32_TOLS.  In bf16 the TP run's gradients take other
+  roundings than the one process's (dz rounded before the residual add,
+  as the JAX package adds it), which Adam turns into lr-sized moves; in
+  fp32 the two runs are the same computation up to fp32 sum order."""
+  import numpy as np
+
+  from mmt_tpu_torch import cli
+
+  exps = {n: cfg_dir / f"tp32_exp_{n}" for n in ("two", "one")}
+  for name, exp in exps.items():
+    cfg = dp_cli_config(data_dir, exp, shipped_workers=name == "two")
+    cfg["arch"]["args"]["compute_dtype"] = "float32"
+    cfg["continuous_eval_sets"] = []
+    cfg["trainer"]["max_samples_per_epoch"] = 32 * TP_FP32_STEPS
+    if name == "two":
+      cfg["trainer"]["model_parallel"] = TP_CLI_SIZE
+    (cfg_dir / f"tp32_{name}.json").write_text(json.dumps(cfg))
+  _, recs, _, tp_s = cli_ranks(cfg_dir, "tp32", TP_CLI_SIZE)
+  tic = time.perf_counter()
+  with recorded_run() as one:
+    cli.main(["--config", str(cfg_dir / "tp32_one.json"), "--device",
+              "cuda"])
+  torch.cuda.synchronize()
+  one_s = time.perf_counter() - tic
+  loss_tol, sims_tol = TP_CLI_FP32_TOLS
+  gaps = [abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"],
+                                              one["losses"])]
+  epoch = {n: [json.loads(line)["loss"]
+               for line in open(e / "perf_log.txt")][-1]
+           for n, e in exps.items()}
+  rel = abs(epoch["two"] - epoch["one"]) / abs(epoch["one"])
+  sims = {n: np.load(e / "MSRVTT-val-sims.npy", allow_pickle=True)[()]["sims"]
+          for n, e in exps.items()}
+  diff = float(np.abs(sims["two"] - sims["one"]).max())
+  same = [rec["batches"] == one["batches"] for rec in recs]
+  print(f"tp cli fp32 witness: {len(one['batches'])} host batches equal "
+        f"{same}; step gaps {[f'{g:.3e}' for g in gaps]}; epoch loss rel "
+        f"diff {rel:.3e} (limit {loss_tol:.0e} each); final sims "
+        f"max_abs_diff={diff:.3e} (limit {sims_tol:.0e}); wall two ranks "
+        f"{tp_s:.1f} s, one process {one_s:.1f} s card: {card}", flush=True)
+  if (not all(same) or len(gaps) != TP_FP32_STEPS
+      or not max(gaps + [rel]) <= loss_tol or not diff <= sims_tol):
+    raise RuntimeError(f"tp cli fp32 witness: batches equal {same}, step "
+                       f"gaps {gaps}, epoch {rel}, sims {diff}")
+  for exp in exps.values():
+    shutil.rmtree(exp, ignore_errors=True)
 
 
 def finite_metrics(res):
@@ -4158,7 +4476,7 @@ def main():
   profile_phase(torch, evaluate, ffn, model, batches, alone, card)
   clock.done("profile")
 
-  # ---- at-scale phase: the fused eval at 20k videos, no matrix ----
+  # ---- at-scale phase: the fused eval at 10k videos, no matrix ----
   entries["fused_ranks"] = at_scale_phase(
       torch, (bench, evaluate, metrics, ops, ffn, similarity, ranking),
       model, batches, dev, card)
@@ -4196,18 +4514,21 @@ def main():
     torch.cuda.empty_cache()
     data_dir = json.loads(cfg_path.read_text())[
         "train_sets"][0]["args"]["mix"][0]["data_dir"]
-    dp_cli = dp_cli_phase(torch, cfg_path.parent, data_dir, card)
-    return served_cli, matrix, dp_cli
+    dp_cli, ref = dp_cli_phase(torch, cfg_path.parent, data_dir, card)
+    clock.done("dp-cli")
+    tp_cli = tp_cli_phase(torch, cfg_path.parent, data_dir, ref, card)
+    return served_cli, matrix, dp_cli, tp_cli
 
-  cli_launches, (serve_launches, matrix_launches, dp_launches["c"]) = (
+  cli_launches, (serve_launches, matrix_launches, dp_launches["c"],
+                 tp_cli_launches) = (
       train_cli_phase(torch, ops, ffn, similarity, staged_step_ms, k_s, card,
                       then=serve_cli))
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
         flush=True)
-  clock.done("dp-cli")
+  clock.done("tp-cli")
   served = serve_scale_phase(torch, ops, ffn, similarity, flagship, dev,
-                             card)
-  clock.done("serve")
+                             card, clock)
+  clock.done("serve-sharded")
   ffn_shapes, sim_shapes = serve_kernel_cases(torch, ffn, similarity, dev,
                                               card)
   clock.done("serve-kernels")
@@ -4231,6 +4552,14 @@ def main():
                "moe_similarity"):
     entries[name]["matrix_launches"] = {
         run: want[name] for run, want in matrix_launches.items()}
+  # Phase 15: the launches per rank of (b) the TP CLI run, and of (a) a
+  # query batch of the sharded index (exact and int8).
+  for name, n in tp_cli_launches.items():
+    entries[name]["tp_cli_launches"] = n
+  for name in ("ffn_block", "moe_similarity"):
+    entries[name]["sharded_serving_launches"] = {
+        label: run["launches"][name]
+        for label, run in served["sharded"].items()}
   # Phase 12: the serving path's own launches and shapes.
   for name, shapes in (("ffn_block", ffn_shapes),
                        ("moe_similarity", sim_shapes)):

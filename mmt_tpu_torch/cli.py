@@ -22,7 +22,10 @@ MMT_TPU_PROCESS_ID set; the group is joined before any other device use
 (``parallel.maybe_initialize_distributed``: gloo on the CPU, NCCL with a
 card per rank, gloo when ranks share a card), rank r runs on cuda:r %
 cards, and only rank 0 writes config.json, log.txt and the experiment's
-files (rank r logs to log.p<r>.txt).
+files (rank r logs to log.p<r>.txt).  With ``trainer.model_parallel`` M
+(or MMT_TPU_MODEL_PARALLEL) the processes are N / M data ranks of M
+model ranks each (tensor parallelism within a model group, one host),
+as the JAX CLI's 2-D mesh; the checkpoints keep the one-process format.
 """
 
 from __future__ import annotations
@@ -161,19 +164,25 @@ def freeze_parameters(model, txt_agg: str, txt_inp: str):
 def build_trainer(config, device="cuda", dp=None):
   """Construct the fully-wired Trainer for ``config`` on ``device``
   (model, loaders, freeze mask, optimizer over the trainable parameters,
-  schedule) without running it; ``dp`` is the data-parallel group
-  (``parallel.maybe_initialize_distributed``), None in one process."""
+  schedule) without running it; ``dp`` is the group of processes
+  (``parallel.maybe_initialize_distributed``), None in one process.
+  With ``model_parallel`` M > 1 (the trainer's config, or
+  MMT_TPU_MODEL_PARALLEL) the processes are laid out as N / M data ranks
+  of M model ranks (``trainer.parallel_layout``) and the model is split
+  over the rank's model group."""
   from mmt_tpu_torch.experts import compute_dims
   from mmt_tpu_torch.models.cenet import CENet, cenet_kwargs_from_arch_args
   from mmt_tpu_torch.registry import build, get
   from mmt_tpu_torch.tokenization import create_tokenizer
   from mmt_tpu_torch.train.optim import build_optimizer, step_lr
-  from mmt_tpu_torch.train.trainer import Trainer, check_device
+  from mmt_tpu_torch.train.trainer import (Trainer, check_device,
+                                           model_parallel, parallel_layout)
   import mmt_tpu_torch.train.losses    # noqa: F401 (registry)
   import mmt_tpu_torch.train.metrics   # noqa: F401 (registry)
   import mmt_tpu_torch.utils.visualizer  # noqa: F401 (registry)
 
   device = check_device(device)
+  data, tp = parallel_layout(dp, model_parallel(config["trainer"]))
   expert_dims = compute_dims(config.raw)
   logger.debug("experts: %s", expert_dims)
 
@@ -193,7 +202,8 @@ def build_trainer(config, device="cuda", dp=None):
       config, cfg_txt_bert_init, arch_args.get("txt_agg", "bertftn"),
       custom_geometry=_is_custom_text_geometry(
           model_kwargs.get("text_bert_geometry")))
-  model = CENet(expert_dims=expert_dims, device=device, **model_kwargs)
+  model = CENet(expert_dims=expert_dims, device=device, tp=tp,
+                **model_kwargs)
 
   loss_fn = build("loss", config["loss"])
   metrics = [(name, get("metric", name)) for name in config["metrics"]]
@@ -222,7 +232,7 @@ def build_trainer(config, device="cuda", dp=None):
       num_keep_ckpts=cfg_trainer.get("num_keep_ckpts", 1),
       tokenizer=tokenizer,
       warmup_iterations=cfg_trainer.get("warmup_iterations", -1),
-      device=device, txt_bert_init=txt_bert_init, dp=dp)
+      device=device, txt_bert_init=txt_bert_init, dp=data, group=dp)
 
 
 def train(config, device="cuda", dp=None):

@@ -16,7 +16,11 @@ Ranger state included (``optimizer_state_from_flax``).
 ``shard_state_dict`` cuts a whole state dict (from it or from a
 single-device model) to one tensor-parallel rank's shards, in the layout
 a ``CENet(tp=)`` reports in its ``shard_dims``; ``gather_state_dict``
-puts the ranks' shards back together, for checks.
+puts the ranks' shards back together (the checkpoints of a tensor-
+parallel run, and checks).  ``shard_optimizer_state`` and
+``gather_optimizer_state`` do the same to an optimizer's state (Adam's
+and AdamW's moments, Ranger's slow buffer), so that a checkpoint has one
+format for every layout.
 """
 
 from __future__ import annotations
@@ -266,6 +270,9 @@ def gather_state_dict(state_dict: Mapping[str, torch.Tensor], tp,
   model."""
   out = {}
   for name, t in state_dict.items():
+    if not isinstance(t, torch.Tensor):
+      out[name] = t
+      continue
     t = t.detach().cpu()
     if name in dims:
       parts = [torch.empty_like(t) for _ in range(tp.size)]
@@ -273,3 +280,33 @@ def gather_state_dict(state_dict: Mapping[str, torch.Tensor], tp,
       t = torch.cat(parts, dims[name])
     out[name] = t
   return out
+
+
+def _moment_dims(entry, name, dims):
+  """{state key: dim} of one parameter's optimizer state ``entry``: each
+  tensor of at least one dim (a moment or slow buffer of the parameter's
+  shape) splits as the parameter ``name`` does; the step counts do not."""
+  if name not in dims:
+    return {}
+  return {k: dims[name] for k, v in entry.items()
+          if isinstance(v, torch.Tensor) and v.dim() > 0}
+
+
+def shard_optimizer_state(state, names, tp, dims):
+  """An optimizer state dict keyed by position (``optimizer.state_dict()``'s
+  layout, the moments at the whole parameters' shapes) -> this rank's
+  (``tp``): the moments of the parameter at position i (``names[i]``)
+  split as ``dims`` splits it, the rest as it is."""
+  return {**state, "state": {
+      i: shard_state_dict(entry, tp, _moment_dims(entry, names[i], dims))
+      for i, entry in state["state"].items()}}
+
+
+def gather_optimizer_state(state, names, tp, dims):
+  """The ranks' optimizer states (keyed by position, as
+  ``shard_optimizer_state`` takes them) put back together as CPU tensors,
+  the single-process layout.  A collective: every rank of ``tp`` calls
+  it."""
+  return {**state, "state": {
+      i: gather_state_dict(entry, tp, _moment_dims(entry, names[i], dims))
+      for i, entry in state["state"].items()}}

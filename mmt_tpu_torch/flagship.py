@@ -13,7 +13,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mmt_tpu_torch import convert
 from mmt_tpu_torch.experts import compute_dims
 from mmt_tpu_torch.models.cenet import CENet
 
@@ -55,15 +54,9 @@ def flagship_model(*, device, compute_dtype=torch.bfloat16, seed=0,
   from the seed and this rank keeps its shards: the single-device model,
   split.
   """
-  arch = flagship_arch(tiny=tiny)
-  model = CENet(**arch, compute_dtype=compute_dtype, device=device)
-  gen = torch.Generator(device=device).manual_seed(seed)
-  model.init_weights(gen)
-  if tp is not None:
-    full = model.state_dict()
-    model = CENet(**arch, compute_dtype=compute_dtype, device=device, tp=tp)
-    model.load_state_dict(convert.shard_state_dict(full, tp,
-                                                   model.shard_dims))
+  model = CENet(**flagship_arch(tiny=tiny), compute_dtype=compute_dtype,
+                device=device, tp=tp)
+  model.init_weights(torch.Generator(device=device).manual_seed(seed))
   return model.train(train)
 
 

@@ -25,12 +25,15 @@ projection row-parallel (an fp32 partial, g, then the bias), and the FFN
 through ``ffn_block_tp`` / ``ffn_block_train(tp=...)``.  Attention stays
 replicated when the head count does not divide by the size, the FFN when
 the intermediate size does not (the JAX package's ``heads_ok``); the
-layer's ``shard_dims`` says which parameters it splits.  Every rank draws each dropout mask at
-its full size, in the single-device order, and keeps its heads' slice of
-the attention-probability mask, so the ranks stay the single-device
-model split.  With a ``dp`` (``parallel.DataParallel``, train mode) the
+layer's ``shard_dims`` says which parameters it splits.  A relu / swish
+FFN under ``tp`` is the plain tensor-parallel FFN (no kernel computes
+those activations).  Every rank draws each dropout mask at its full
+size, in the single-device order, and keeps its heads' slice of the
+attention-probability mask, so the ranks stay the single-device model
+split.  With a ``dp`` (``parallel.DataParallel``, train mode) the
 layer holds this rank's rows of the global batch, and every mask is
-drawn at the global batch's shape and sliced to the rank's rows (dim 0).
+drawn at the global batch's shape and sliced to the rank's rows (dim 0);
+with both, the attention-probability mask to the rank's rows and heads.
 """
 
 from __future__ import annotations
@@ -112,10 +115,6 @@ class TransformerLayer(nn.Module):
     super().__init__()
     if cfg.hidden_act != "gelu" and cfg.hidden_act not in PLAIN_ACTIVATIONS:
       raise ValueError(f"unknown activation {cfg.hidden_act!r}")
-    if tp is not None and tp.size > 1 and cfg.hidden_act != "gelu":
-      raise NotImplementedError(
-          f"hidden_act {cfg.hidden_act!r} under tensor parallelism: the "
-          "sharded FFN is the GELU kernel's; ROADMAP.md A10")
     h, i = cfg.hidden_size, cfg.intermediate_size
     self.cfg, self.ln_name, self.compute_dtype = cfg, ln_name, compute_dtype
     mp = tp.size if tp is not None else 1
@@ -192,11 +191,19 @@ class TransformerLayer(nn.Module):
     ffn_tp = tp if self.ffn_tp else None
     if cfg.hidden_act != "gelu":
       # No kernel computes relu / swish: the plain FFN, as the JAX
-      # package routes them (mmt_tpu/models/bert.py, ``fusable``).
+      # package routes them (mmt_tpu/models/bert.py, ``fusable``); under
+      # tensor parallelism column-parallel W1, row-parallel W2, the fp32
+      # all-reduce of the partial, then b2 (GSPMD's layout of the same
+      # XLA FFN).
       w1, b1 = inter.cast(cd)
       w2, b2 = out.cast(cd)
       act = PLAIN_ACTIVATIONS[cfg.hidden_act]
-      y = F.linear(act(F.linear(hidden.to(cd), w1, b1)), w2, b2)
+      if ffn_tp is None:
+        y = F.linear(act(F.linear(hidden.to(cd), w1, b1)), w2, b2)
+      else:
+        u = act(F.linear(mesh_lib.copy_to_tp(hidden.to(cd), ffn_tp), w1, b1))
+        y = (mesh_lib.reduce_from_tp(u.float() @ w2.float().T, ffn_tp)
+             + b2.float()).to(cd)
       y = dropout(y, p_hidden, generator, part=rows)
       return ffn_ops.layer_norm(y.float() + hidden.float(), ffn_ln.weight,
                                 ffn_ln.bias, eps=cfg.layer_norm_eps)

@@ -34,12 +34,14 @@ Module names are the reference's state-dict names (``txt_bert``,
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
 
+from mmt_tpu_torch import convert
 from mmt_tpu_torch.config import BertParams, TEXT_BERT_BASE_CASED, TxtAggSpec
 from mmt_tpu_torch.models import components as C
 from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
@@ -47,6 +49,8 @@ from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.ops.dropout import dropout
 from mmt_tpu_torch.parallel.mesh import row_part
+
+logger = logging.getLogger(__name__)
 
 # Config value of ``compute_dtype`` -> torch dtype.
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -115,8 +119,11 @@ class CENet(nn.Module):
   towers hold this rank's tensor-parallel shards (models/bert.py); all
   else (embeddings, LayerNorms, GEU heads, BatchNorm, MoE heads) is
   replicated and computes the same on every rank.  ``shard_dims`` maps
-  each split parameter to the dim it is split on.  Tensor parallelism
-  runs with the flagship's switches only (ROADMAP.md A10).
+  each split parameter to the dim it is split on.  Every switch acts
+  outside the encoder layers, on replicated modules, so each runs under
+  tensor parallelism: a config with one BERT tower (``vid_cont`` coll or
+  none, or a word-vector text path) splits that tower alone, one with
+  none replicates everything.
 
   The train forward takes a ``dp`` (``parallel.DataParallel``) when the
   batch is this rank's rows of a global batch: every dropout mask is
@@ -149,14 +156,17 @@ class CENet(nn.Module):
     self.txt_agg, self.txt_agg_spec = txt_agg, TxtAggSpec.parse(txt_agg)
     self.keep_missing_modalities = keep_missing_modalities
     self.normalize_experts = normalize_experts
-    flagship = (self.txt_agg_spec.kind == "bert" and keep_missing_modalities
-                and normalize_experts
-                and self.txt_agg_spec.post_agg == "cls"
-                and all(getattr(self, n) == v[0] for n, v in SWITCHES.items()))
-    if tp is not None and tp.size > 1 and not flagship:
-      raise NotImplementedError(
-          "tensor parallelism runs the flagship's switches only: the other "
-          "CENet switches under it are ROADMAP.md A10")
+    # The constructor's arguments but the device and tp: init_weights
+    # builds the single-device model from them under tensor parallelism.
+    self._arch = dict(
+        expert_dims=expert_dims, vid_bert_params=vid_bert_params,
+        txt_bert_params=txt_bert_params,
+        text_bert_geometry=text_bert_geometry, same_dim=same_dim,
+        compute_dtype=compute_dtype, txt_agg=txt_agg,
+        keep_missing_modalities=keep_missing_modalities,
+        normalize_experts=normalize_experts, we_vocab_size=we_vocab_size,
+        we_dim=we_dim, **switches)
+    self.tp = tp if tp is not None and tp.size > 1 else None
     self.expert_dims = dict(expert_dims)
     self.modalities = list(self.expert_dims)
     self.same_dim = same_dim
@@ -244,11 +254,23 @@ class CENet(nn.Module):
     # {name: dim} of the parameters split over the tensor-parallel ranks
     # (for convert.shard_state_dict / gather_state_dict); empty without tp.
     self.shard_dims = shard_dims(self)
+    if self.tp is not None and not self.shard_dims:
+      logger.info("tensor parallelism: no BERT tower (txt_agg %s, vid_cont "
+                  "%s) to split; every parameter is replicated on the %d "
+                  "ranks", txt_agg, self.vid_cont, self.tp.size)
 
   def init_weights(self, generator: torch.Generator):
     """Random weights from ``generator`` (BERT towers N(0, 0.02)-style,
     heads N(0, 1/fan_in), the word table N(0, 0.02), the NetVLAD clusters
-    N(0, 1/sqrt(D)))."""
+    N(0, 1/sqrt(D))).  Under tensor parallelism the single-device model
+    draws them (the same draws, in the same order) and this rank keeps
+    its shards."""
+    if self.tp is not None:
+      device = next(self.parameters()).device
+      full = CENet(**self._arch, device=device).init_weights(generator)
+      self.load_state_dict(convert.shard_state_dict(
+          full.state_dict(), self.tp, self.shard_dims), strict=True)
+      return self
     if hasattr(self, "txt_bert"):
       init_normal_(self.txt_bert, generator,
                    self.txt_bert.cfg.initializer_range)

@@ -28,16 +28,13 @@ def attention_bhsd(qh, kh, vh, *, attn_bias, dropout_p=0.0, generator=None,
   dtype.  ``heads=(first, total)``: these H are heads [first, first + H)
   of ``total`` (a tensor-parallel rank's), and the dropout mask is drawn
   for all ``total`` and sliced (``dropout``'s ``part``).  ``rows=(first,
-  total)``: likewise for the batch rows (a data-parallel rank's).
+  total)``: likewise for the batch rows (a data-parallel rank's); both
+  at once under data x tensor parallelism.
   """
   scores = qh.float() @ kh.float().transpose(-1, -2)
   scores = scores / math.sqrt(qh.shape[-1]) + attn_bias.float()
   probs = torch.softmax(scores, dim=-1)
-  if heads is not None and rows is not None:
-    raise NotImplementedError("attention dropout sliced by heads and by "
-                              "rows at once (tensor and data parallelism "
-                              "together)")
-  part = ((1, *heads) if heads is not None
-          else (0, *rows) if rows is not None else None)
+  part = tuple((dim, *span) for dim, span in ((0, rows), (1, heads))
+               if span is not None)
   probs = dropout(probs, dropout_p, generator, part=part).to(vh.dtype)
   return probs.float() @ vh.float()

@@ -13,19 +13,31 @@ from __future__ import annotations
 import torch
 
 
+def _parts(part):
+  """``part`` as a tuple of (dim, start, full) triples: None, one triple,
+  or several (a data-parallel rank's rows and a tensor-parallel rank's
+  heads at once)."""
+  if not part:
+    return ()
+  if isinstance(part[0], int):
+    return (part,)
+  return tuple(part)
+
+
 def _keep(shape, p, generator, device, part=None):
-  """rand >= p at ``shape``; with ``part=(dim, start, full)`` drawn at
-  ``full`` entries along ``dim`` and sliced to [start, start +
-  shape[dim])."""
+  """rand >= p at ``shape``; with ``part``, one or more ``(dim, start,
+  full)``, drawn at ``full`` entries along each such ``dim`` and sliced
+  to [start, start + shape[dim]) there."""
   if generator is None:
     raise ValueError("dropout needs an explicit torch.Generator")
-  if part is None:
-    return torch.rand(shape, generator=generator, device=device) >= p
-  dim, start, full = part
+  parts = _parts(part)
   whole = list(shape)
-  whole[dim] = full
-  return (torch.rand(whole, generator=generator, device=device) >= p
-          ).narrow(dim, start, shape[dim])
+  for dim, _, full in parts:
+    whole[dim] = full
+  keep = torch.rand(whole, generator=generator, device=device) >= p
+  for dim, start, _ in parts:
+    keep = keep.narrow(dim, start, shape[dim])
+  return keep
 
 
 def dropout_mask(shape, p, generator, device, *, part=None):
@@ -44,9 +56,11 @@ def dropout(x, p, generator, *, part=None):
   ``part=(dim, start, full)``: x is the slice [start, start +
   x.shape[dim]) along ``dim`` of a tensor with ``full`` entries there (a
   tensor-parallel rank's attention heads, along dim 1; a data-parallel
-  rank's rows of the global batch, along dim 0).  The mask is drawn at
-  the whole tensor's shape, as for the whole tensor, and sliced: every
-  rank consumes the generator alike and keeps what one device would."""
+  rank's rows of the global batch, along dim 0); a tuple of such triples
+  slices each of their dims (both at once under data x tensor
+  parallelism).  The mask is drawn at the whole tensor's shape, as for
+  the whole tensor, and sliced: every rank consumes the generator alike
+  and keeps what one device would."""
   if p == 0.0:
     return x
   keep = _keep(x.shape, p, generator, x.device, part)

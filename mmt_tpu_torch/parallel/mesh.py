@@ -47,6 +47,13 @@ replicated, so each rank's gradient is already the whole gradient).
 Both reduce in fp32.  (``torch.distributed.nn.functional.all_reduce``
 all-reduces in its backward too, which for g gives size x the gradient.)
 
+Both axes at once (``data_mesh``): ranks laid out as the JAX package's
+2-D mesh, ``n // M`` data ranks of ``M`` model ranks each; the data
+group of a rank holds the ranks with its model index, its model group
+the ``M`` consecutive ranks of its data index.  A sharded serving index
+is one process over the local cards (``local_mesh``), not ranks, as the
+JAX engine is one process over its local chips.
+
 ``spawn`` runs a function on each rank of a new group of processes
 (start method ``spawn``, so it may be called from a process that holds
 a CUDA context).  On one card the ranks share the device over gloo,
@@ -153,6 +160,58 @@ def init_tensor_parallel(rank: int, size: int, *, init_method: str,
                           world_size=size,
                           timeout=datetime.timedelta(seconds=timeout))
   return Group(rank, size, dist.group.WORLD, backend)
+
+
+def data_mesh(group: Optional[Group], model_parallel: int = 1):
+  """This rank's (data Group, model Group) in the 2-D layout of
+  ``group``'s ranks, the JAX package's ``data_mesh(model_parallel=M)``
+  (mmt_tpu/parallel/mesh.py:69-80): the ranks laid out as
+  ``arange(n).reshape(n // M, M)``, so rank r is model rank r % M of
+  data rank r // M and a model group is M consecutive ranks.  An axis of
+  size 1 is None (no group to split over); so are both without a group
+  of more than one process.
+
+  Every rank creates every group (``dist.new_group``), in the same
+  order.  Raises ValueError when M does not divide the ranks, and when
+  the ranks of one model group sit on different hosts (the JAX trainer
+  refuses a model axis across hosts: the per-layer all-reduces would
+  leave the host's interconnect; mmt_tpu/train/trainer.py:149-157).
+  The groups take ``group``'s backend (``choose_backend``)."""
+  n = 1 if group is None else group.size
+  if model_parallel < 1 or n % model_parallel:
+    raise ValueError(f"model_parallel={model_parallel} does not divide the "
+                     f"{n} ranks")
+  if n == 1:
+    return None, None
+  if model_parallel == 1:
+    return group, None
+  grid = np.arange(n).reshape(n // model_parallel, model_parallel)
+  hosts = [None] * n
+  dist.all_gather_object(hosts, socket.gethostname(), group=group.group)
+  for row in grid:
+    names = sorted({hosts[r] for r in row})
+    if len(names) > 1:
+      raise ValueError(
+          f"model_parallel={model_parallel}: the model group of ranks "
+          f"{row.tolist()} spans hosts {names}; a model axis stays on one "
+          "host (its per-layer all-reduces would cross hosts)")
+  data_groups = [dist.new_group(col.tolist()) for col in grid.T]
+  model_groups = [dist.new_group(row.tolist()) for row in grid]
+  d, m = divmod(group.rank, model_parallel)
+  data = (Group(d, grid.shape[0], data_groups[m], group.backend)
+          if grid.shape[0] > 1 else None)
+  return data, Group(m, model_parallel, model_groups[d], group.backend)
+
+
+def local_mesh(device) -> Optional[list]:
+  """The local CUDA devices a serving index shards over, one shard each:
+  a list of torch devices, or None with one device (or on the CPU), as
+  the JAX package's ``data_mesh()`` returns None for one chip."""
+  device = torch.device(device)
+  cards = torch.cuda.device_count() if device.type == "cuda" else 0
+  if cards <= 1:
+    return None
+  return [torch.device("cuda", i) for i in range(cards)]
 
 
 class _CopyToTP(torch.autograd.Function):

@@ -22,6 +22,10 @@ strictly.  ``--index`` reads the ``.npz`` this CLI builds or the JAX
 CLI's ``.msgpack`` index; ``--build_index`` writes ``.npz``.
 ``--device`` is a torch device and defaults to ``cuda``; without a card
 pass ``--device cpu``: the port never falls back to the CPU by itself.
+``--shard_index`` shards the index on the video axis over the local
+cards (``parallel.local_mesh``), in this one process, as scripts/serve.py
+shards it over its local chips; on one card (or the CPU) it serves
+unsharded, as the JAX CLI does on one chip, and logs so.
 """
 
 from __future__ import annotations
@@ -122,8 +126,9 @@ def main(argv=None):
                            "index memory; approximate, see "
                            "serving.RetrievalEngine)")
   parser.add_argument("--shard_index", action="store_true",
-                      help="shard the index over ranks (not ported yet: "
-                           "the rest of ROADMAP.md A10)")
+                      help="shard the index on the video axis over the "
+                           "local cards (one card, or --device cpu: "
+                           "unsharded)")
   parser.add_argument("--listen", type=int, default=None, metavar="PORT",
                       help="serve a JSON HTTP API (GET/POST /search, "
                            "GET /healthz, /statz) instead of answering "
@@ -136,11 +141,9 @@ def main(argv=None):
   args = parser.parse_args(argv)
   if not (args.index or args.build_index):
     parser.error("one of --index or --build_index is required")
-  if args.shard_index:
-    parser.error("--shard_index: an index sharded over ranks is not ported "
-                 "yet (the rest of ROADMAP.md A10, the next slice)")
   logging.basicConfig(level=logging.INFO, format="%(message)s")
 
+  from mmt_tpu_torch.parallel.mesh import local_mesh
   from mmt_tpu_torch.serving import RetrievalEngine, RetrievalIndex, serve_http
   from mmt_tpu_torch.train.trainer import check_device
 
@@ -160,8 +163,13 @@ def main(argv=None):
       return None
 
   index = RetrievalIndex.load(args.index or args.build_index)
+  mesh = None
+  if args.shard_index:
+    mesh = local_mesh(device)
+    logger.info("--shard_index: %s", f"the index over {len(mesh)} cards"
+                if mesh else f"one device ({device}), the index unsharded")
   engine = RetrievalEngine(model, tokenizer, index, max_text_words=max_words,
-                           quantize=args.quantize)
+                           mesh=mesh, quantize=args.quantize)
   if args.listen is not None:
     if args.query:
       engine.search(args.query[:1], topk=1)   # warm the query path

@@ -14,13 +14,22 @@ The index is saved with ``numpy.savez``; ``RetrievalIndex.load`` also
 reads the flax msgpack the JAX package writes (serialization.py).
 ``quantize="int8"`` serves from a per-row int8 copy of the index; its
 product is the library's int8 GEMM (``torch._int_mm``) on the card, as
-it was a plain XLA dot_general in the JAX package.  An index sharded
-over ranks (the JAX engine's ``mesh=``) is the rest of ROADMAP.md A10.
+it was a plain XLA dot_general in the JAX package.
+
+``mesh=`` (a sequence of torch devices, ``parallel.local_mesh``) shards
+the index on the video axis over those devices, as the JAX engine shards
+it over a 1-D data mesh of its local chips: one process addresses every
+shard.  The rows are zero-padded to a multiple of the shard count and
+split evenly; a query batch runs the text tower once, on the model's
+device, then each shard's product ([Q, V / n]) and top-k on its device,
+and one more top-k merges them on the model's device.  Pad rows score
+-inf and never reach a result.
 """
 
 from __future__ import annotations
 
 import collections
+import collections.abc
 import dataclasses
 import http.server
 import json
@@ -261,6 +270,9 @@ class RetrievalEngine:
   staged as per-row symmetric int8 (+ one fp32 scale per video): 4x less
   device memory and index traffic, an approximation chosen per engine,
   so exact and quantized engines can serve side by side from one index.
+  With ``mesh`` (a sequence of torch devices; repeats allowed, so shards
+  may share one card) the index is sharded over them on the video axis
+  (the module docstring); either quantization composes with it.
   """
 
   def __init__(self, model, tokenizer, index: RetrievalIndex,
@@ -268,9 +280,13 @@ class RetrievalEngine:
     if quantize not in (None, "int8"):
       raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     if mesh is not None:
-      raise NotImplementedError(
-          "an index sharded over ranks (mesh=) is not ported yet "
-          "(the rest of ROADMAP.md A10, the next slice)")
+      if (not isinstance(mesh, collections.abc.Sequence)
+          or isinstance(mesh, str) or not mesh
+          or not all(isinstance(d, (torch.device, str, int)) for d in mesh)):
+        raise TypeError(f"mesh must be a non-empty sequence of torch "
+                        f"devices, got {mesh!r}")
+      mesh = [torch.device(d) for d in mesh]
+    self.mesh = mesh
     self.model = model
     self.tokenizer = tokenizer
     self.index = index
@@ -295,13 +311,29 @@ class RetrievalEngine:
       self._stage_index(self.index)
 
   def _stage_index(self, index: RetrievalIndex) -> None:
+    """Stage every shard: the rows zero-padded to a multiple of the shard
+    count (mmt_tpu/serving.py:272-285) and split evenly, each slice
+    staged on its device by ``stage_index``; with its real row count."""
+    devices = self.mesh or [self.device]
+    embds, weights = index.vid_embds, index.vid_weights
+    n = len(embds)
+    per = -(-n // len(devices))
+    pad = per * len(devices) - n
+    if pad:
+      embds = np.concatenate([embds, np.zeros((pad,) + embds.shape[1:],
+                                              embds.dtype)], 0)
+      weights = np.concatenate([weights, np.zeros((pad,) + weights.shape[1:],
+                                                  weights.dtype)], 0)
     # Stage first: if it raises (out of device memory), the engine keeps
     # serving its previous tensors with their own ids.
-    dev_index = stage_index(index.vid_embds, index.vid_weights,
-                            self.device, self.quantize)
+    shards = [(dev, stage_index(embds[i * per:(i + 1) * per],
+                                weights[i * per:(i + 1) * per], dev,
+                                self.quantize),
+               min(max(n - i * per, 0), per))
+              for i, dev in enumerate(devices)]
     self._staged_ids = tuple(index.video_ids)
     self._staged_paths = tuple(index.paths)
-    self._dev_index = dev_index
+    self._shards, self._shard_rows = shards, per
 
   def encode_queries(self, texts: Sequence[str]) -> np.ndarray:
     rows = []
@@ -317,26 +349,54 @@ class RetrievalEngine:
     the live index may differ between a mutation and refresh())."""
     return len(self._staged_ids)
 
-  def _similarities(self, texts: Sequence[str]):
-    """fp32 [len(texts), staged rows] scores of every query against the
-    staged index.  Call under the lock."""
+  def _shard_similarities(self, texts: Sequence[str]):
+    """fp32 [len(texts), staged rows] scores of every query against each
+    shard, on the shard's device, pad columns -inf: the text tower runs
+    once, on the model's device, and every shard's product is issued
+    before anything waits.  Call under the lock."""
     token_ids = torch.from_numpy(self.encode_queries(texts)).to(self.device)
     out = self.model.embed_text(token_ids)
     b, c, m, d = out["text_embds"].shape
-    return index_similarity(out["text_embds"].reshape(b * c, m, d),
-                            out["text_weights"].reshape(b * c, m),
-                            self._dev_index, self.num_videos, self.quantize)
+    t = out["text_embds"].reshape(b * c, m, d)
+    tw = out["text_weights"].reshape(b * c, m)
+    sims = []
+    for dev, staged, n_real in self._shards:
+      s = index_similarity(t.to(dev), tw.to(dev), staged, n_real,
+                           self.quantize)
+      if n_real < s.shape[1]:
+        s[:, n_real:] = float("-inf")
+      sims.append(s)
+    return sims
+
+  def _similarities(self, texts: Sequence[str]):
+    """The shards' scores side by side on the model's device (checks)."""
+    return torch.cat([s.to(self.device)
+                      for s in self._shard_similarities(texts)], 1)
 
   def search(self, texts: Sequence[str], topk: int = 5) -> List[List[Dict]]:
     with self._lock, torch.inference_mode():
       return self._search_locked(texts, topk)
+
+  def _top(self, texts: Sequence[str], k: int):
+    """(scores, staged row indices) [Q, k] on the model's device: one
+    top-k, or under a mesh a top-k per shard (at most its rows) merged by
+    one more."""
+    sims = self._shard_similarities(texts)
+    if len(sims) == 1:
+      return torch.topk(sims[0], k)
+    parts = [torch.topk(s, min(k, self._shard_rows)) for s in sims]
+    scores = torch.cat([v.to(self.device) for v, _ in parts], 1)
+    rows = torch.cat([i.to(self.device) + n * self._shard_rows
+                      for n, (_, i) in enumerate(parts)], 1)
+    scores, pick = torch.topk(scores, k)
+    return scores, rows.gather(1, pick)
 
   def _search_locked(self, texts: Sequence[str], topk: int) -> List[List[Dict]]:
     n_staged = len(self._staged_ids)
     if int(topk) <= 0 or n_staged == 0:
       return [[] for _ in texts]   # "no results" probe, not "at least one"
     k = min(int(topk), n_staged)
-    scores, idx = torch.topk(self._similarities(texts), k)
+    scores, idx = self._top(texts, k)
     # One device-to-host copy of scores and indices together.
     packed = torch.stack([scores.view(torch.int32),
                           idx.to(torch.int32)]).cpu()

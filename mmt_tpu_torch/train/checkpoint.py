@@ -27,7 +27,12 @@ only, so a JAX experiment is resumed by naming its file.
 Under data parallelism only the primary rank saves and purges (the
 trainer gates every write: ``Trainer._save_checkpoint``), while every
 rank reads the same files on resume and before the final eval, after a
-barrier.
+barrier.  Under tensor parallelism the file is the single-process one
+too: the parameters and the optimizer's moments are gathered from the
+model group before the primary writes (``convert.gather_state_dict``,
+``gather_optimizer_state``), and every read is cut to the rank's shards
+(``param_names_by_position`` maps the optimizer's positions to the
+parameters' names and so to their split).
 """
 
 from __future__ import annotations
@@ -190,11 +195,9 @@ def optimizer_state_by_position(state, model, optimizer):
     return state
   if len(saved) != 1 or len(optimizer.param_groups) != 1:
     raise ValueError("a state keyed by name loads into one param group")
-  position = {id(p): i for i, p in
-              enumerate(optimizer.param_groups[0]["params"])}
   params = dict(model.named_parameters())
-  names = {name: position[id(p)] for name, p in params.items()
-           if id(p) in position}
+  names = {n: i for i, n in param_names_by_position(model,
+                                                     optimizer).items()}
   unknown = [n for n in state["state"] if n not in params]
   if unknown:
     raise KeyError(f"optimizer state for {len(unknown)} parameters the "
@@ -207,10 +210,18 @@ def optimizer_state_by_position(state, model, optimizer):
   group = {k: v for k, v in optimizer.param_groups[0].items()
            if k != "params"}
   group.update({k: v for k, v in saved[0].items() if k != "params"},
-               params=list(range(len(position))))
+               params=list(range(len(names))))
   return {"state": {names[n]: v for n, v in state["state"].items()
                     if n in names},
           "param_groups": [group]}
+
+
+def param_names_by_position(model, optimizer):
+  """{position in ``optimizer``'s state dict: ``model``'s name of that
+  parameter}."""
+  names = {id(p): n for n, p in model.named_parameters()}
+  return dict(enumerate(names[id(p)] for g in optimizer.param_groups
+                        for p in g["params"]))
 
 
 def last_checkpoint(exp_dir) -> Optional[str]:

@@ -14,6 +14,13 @@ and loss (global-batch negatives), and the gradients, each rank's share
 through its rows, are summed over the ranks (``parallel.all_reduce_grads``)
 before the optimizer, so every optimizer sees the same gradients on every
 rank.
+
+A model split over a model group (``CENet(tp=)``, data x tensor
+parallelism) takes the same step with ``dp`` its DATA group: the outputs
+are gathered and the gradients summed over the data group only.  Under
+Megatron's f and g every model rank already holds the whole gradient of
+each replicated parameter and its own shard's of each split one;
+summing over the model group too would give M x the gradient.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from mmt_tpu_torch.parallel import mesh as mesh_lib
 
 def train_step(model, optimizer, batch, *, loss_fn, lr, generator, dp=None):
   """One step on ``batch``; returns the loss (a device tensor, not
-  synchronised).  ``generator`` draws the dropout masks."""
+  synchronised).  ``generator`` draws the dropout masks; ``dp`` is the
+  data group (a model group lives in ``model``)."""
   for group in optimizer.param_groups:
     group["lr"] = lr
   optimizer.zero_grad(set_to_none=True)

@@ -43,9 +43,24 @@ counts candidate shards (``fused_retrieval_metrics(dp=)``).  A train
 batch size that the group does not divide runs the whole run replicated,
 with a warning.  Only the primary (rank 0) writes: checkpoints, purges,
 TensorBoard, the perf log, the visualizer, the final-eval artifacts;
-barriers bracket the final eval; every rank reads on resume.  Not ported
-(each raises NotImplementedError): tensor parallelism in the trainer
-(``model_parallel``; ROADMAP.md A10, the next slice).
+barriers bracket the final eval; every rank reads on resume.
+
+Tensor parallelism (``trainer.model_parallel`` = M, or
+MMT_TPU_MODEL_PARALLEL, as the JAX trainer reads it: mmt_tpu/train/
+trainer.py:144-157, 221-258) over the process group laid out in 2-D by
+``parallel_layout`` (``parallel.mesh.data_mesh``): N / M data ranks of M
+model ranks each.  The model is a ``CENet(tp=)`` on the rank's model
+group; its weights are the single-device model's from the config's seed,
+split (``CENet.init_weights``).  The data group takes the rows (train
+steps, eval, the fused eval's candidate shards) as above; the gradients
+are summed over it only, since under Megatron's f and g every model rank
+already holds the whole gradient of each replicated parameter.  The
+checkpoints have the single-process format: the parameters and the
+optimizer's moments are gathered from the model group before rank 0
+writes, and every read (resume, warm start, the text-tower init) is cut
+to the rank's shards.  A request that cannot be honored raises the JAX
+trainer's ValueError (one process, a world or a train batch that does not
+divide); the replicated fallback above is for M = 1 only.
 """
 
 from __future__ import annotations
@@ -63,6 +78,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from mmt_tpu_torch import convert
 from mmt_tpu_torch.config import parse_monitor
 from mmt_tpu_torch.data import loader as loader_lib
 from mmt_tpu_torch.ops import similarity as similarity_ops
@@ -109,6 +125,62 @@ def _json_sanitize(obj):
   return obj
 
 
+def model_parallel(cfg_trainer) -> int:
+  """The model axis a run asks for: ``model_parallel`` in the trainer's
+  config, else MMT_TPU_MODEL_PARALLEL, else 1."""
+  return int(cfg_trainer.get("model_parallel",
+                             os.environ.get("MMT_TPU_MODEL_PARALLEL", 1)))
+
+
+def cannot_honor(mp: int, why: str) -> ValueError:
+  """The JAX trainer's error for a model axis it cannot lay out
+  (mmt_tpu/train/trainer.py:235-244)."""
+  return ValueError(f"model_parallel={mp} was requested but cannot be "
+                    f"honored: {why}. Fix the config or unset model_parallel")
+
+
+def parallel_layout(group, mp: int):
+  """(data group, model group) of this rank for a run with model axis
+  ``mp`` over the process ``group`` (``parallel.mesh.data_mesh``; an axis
+  of size 1 is None).  One process, or a world that ``mp`` does not
+  divide, raises ``cannot_honor``."""
+  n = 1 if group is None else group.size
+  if mp > 1 and n == 1:
+    raise cannot_honor(mp, "1 process; tensor parallelism takes one "
+                       "process per model rank (MMT_TPU_COORDINATOR, "
+                       "MMT_TPU_NUM_PROCESSES, MMT_TPU_PROCESS_ID)")
+  if mp > 1 and n % mp:
+    raise cannot_honor(mp, f"it does not divide the {n} processes")
+  return mesh_lib.data_mesh(group, mp)
+
+
+def shard_for(model, state_dict):
+  """A whole state dict (a checkpoint's, an init's) cut to ``model``'s
+  shards when it is split over a model group (``model.tp``); as it is
+  otherwise."""
+  tp = getattr(model, "tp", None)
+  if tp is None:
+    return state_dict
+  return convert.shard_state_dict(state_dict, tp, model.shard_dims)
+
+
+def _lockstep_loaders(data_loaders):
+  """Raise on a loader with worker threads: in a group every rank must
+  assemble the same batches, and workers draw the numpy stream in no
+  fixed order."""
+  loaders = [e["loader"] for key in ("train_sets", "continuous_eval_sets",
+                                     "final_eval_sets")
+             for e in data_loaders.get(key, [])]
+  if any(getattr(ldr, "num_workers", 0) > 0 for ldr in loaders):
+    # ExpertDataLoader sets 0 in a group; a loader built before the group
+    # was joined, or by hand, would break the lockstep.
+    raise ValueError(
+        "data parallel: a loader has num_workers > 0, whose samples draw "
+        "from the numpy stream in no fixed order, so the ranks' batches "
+        "would differ; build the loaders at num_workers 0 (or after "
+        "joining the group)")
+
+
 def check_device(device) -> torch.device:
   """``device`` as a torch.device; a CUDA device without a card raises
   (the port never falls back to the CPU)."""
@@ -140,14 +212,20 @@ class Trainer:
                skip_first_n_saves=0, include_optim_in_ckpts=False,
                expert_dims=None, num_keep_ckpts=1, tokenizer=None,
                warmup_iterations=-1, device="cuda", txt_bert_init=None,
-               dp=None):
+               dp=None, group=None):
+    """``dp``: the data group (``parallel_layout``'s first); ``group``:
+    every process (``dp`` when omitted, as without tensor parallelism).
+    A model split over a model group (``CENet(tp=)``) carries it as
+    ``model.tp``."""
     self.device = check_device(device)
     # Multi-process topology: every process runs the same program in
     # lockstep (the loaders are deterministic; the eval's metrics come
     # from the gathered embeddings everywhere, so control flow such as
     # early stopping stays in step); only the primary touches the files.
-    self.group = dp
-    self.is_primary = self.group is None or self.group.primary
+    self.group = group if group is not None else dp
+    self.tp = tp = getattr(model, "tp", None)
+    self.is_primary = ((self.group is None or self.group.primary)
+                       and (tp is None or tp.primary))
     self.model = model
     self.loss_fn = loss_fn
     self.metrics = metrics                      # list of (name, fn)
@@ -168,12 +246,13 @@ class Trainer:
     self.modalities = list(expert_dims.keys()) if expert_dims else []
 
     cfg_trainer = config["trainer"]
-    model_parallel = int(cfg_trainer.get("model_parallel", 1))
-    if model_parallel > 1:
-      raise NotImplementedError(
-          f"model_parallel={model_parallel}: the port's trainer runs data "
-          "parallelism only; tensor parallelism in the trainer is the rest "
-          "of ROADMAP.md A10 (the next slice)")
+    self.model_parallel = model_parallel(cfg_trainer)
+    if self.model_parallel > 1 and (tp is None
+                                    or tp.size != self.model_parallel):
+      raise cannot_honor(
+          self.model_parallel,
+          f"the model is split over {1 if tp is None else tp.size} "
+          "rank(s); build it on parallel_layout's model group")
     self.epochs = cfg_trainer["epochs"]
     self.save_period = cfg_trainer.get("save_period", 1)
     self.max_samples_per_epoch = cfg_trainer.get("max_samples_per_epoch",
@@ -225,7 +304,8 @@ class Trainer:
     self.loaded_epoch = 0
     self.n_samples = 0
     self.n_steps = 0
-    self.dp = self._data_parallel()
+    self.dp = (self._data_parallel() if tp is None
+               else self._tensor_parallel_rows(dp))
 
     # Weights and the dropout stream from one generator seeded from the
     # config (the JAX package splits one key for both).
@@ -252,17 +332,7 @@ class Trainer:
     group = self.group
     if group is None or group.size == 1:
       return None
-    loaders = [e["loader"] for key in ("train_sets", "continuous_eval_sets",
-                                       "final_eval_sets")
-               for e in self.data_loaders.get(key, [])]
-    if any(getattr(ldr, "num_workers", 0) > 0 for ldr in loaders):
-      # ExpertDataLoader sets 0 in a group; a loader built before the
-      # group was joined, or by hand, would break the lockstep.
-      raise ValueError(
-          "data parallel: a loader has num_workers > 0, whose samples draw "
-          "from the numpy stream in no fixed order, so the ranks' batches "
-          "would differ; build the loaders at num_workers 0 (or after "
-          "joining the group)")
+    _lockstep_loaders(self.data_loaders)
     sizes = [e.batch_size for e in self.data_loaders.get("train_sets", [])]
     if any(b % group.size for b in sizes):
       logger.warning(
@@ -276,6 +346,24 @@ class Trainer:
                 "moments), the eval's rows gathered", group.rank,
                 group.size, group.backend, sizes, group.size)
     return group
+
+  def _tensor_parallel_rows(self, dp):
+    """The data group ``dp`` of a tensor-parallel run (None on a 1 x M
+    layout: every model rank takes the whole batches).  A train batch
+    size the data axis does not divide raises: under tensor parallelism
+    there is no replicated fallback (mmt_tpu/train/trainer.py:235-244)."""
+    _lockstep_loaders(self.data_loaders)
+    sizes = [e.batch_size for e in self.data_loaders.get("train_sets", [])]
+    n = 1 if dp is None else dp.size
+    if any(b % n for b in sizes):
+      raise cannot_honor(self.model_parallel,
+                         f"train batch size {sizes} does not divide the "
+                         f"{n}-way data axis (processes / model_parallel)")
+    logger.info("tensor parallel: model rank %d of %d, data rank %d of %d "
+                "over %s; train batches %s split %d ways, the gradients "
+                "summed over the data axis only", self.tp.rank, self.tp.size,
+                0 if dp is None else dp.rank, n, self.tp.backend, sizes, n)
+    return dp
 
   def _barrier(self):
     if self.group is not None:
@@ -675,9 +763,12 @@ class Trainer:
                    and metric_names <= {"t2v_metrics", "v2t_metrics"}
                    and not self._want_visualizer)
 
+      # In a group of processes the fused eval embeds to host memory, as
+      # the JAX trainer does under a mesh; the candidates split over the
+      # data group, if there is one.
+      staged = use_fused and self.group is not None
       with self.timer.time("valid.embds"):
-        embds = self._get_embeddings(
-            loader, to_host=use_fused and self.dp is not None)
+        embds = self._get_embeddings(loader, to_host=staged)
 
       b, k, m, d = embds["text_embds"].shape
       query_masks = embds["query_masks"]
@@ -726,9 +817,10 @@ class Trainer:
               query_masks, which=tuple(name for name, _ in self.metrics),
               device=self.device, dp=self.dp)
         logger.info("%s: fused on-device ranking (%d videos; sims matrix "
-                    "not materialized%s)", dataset_name, n_videos,
-                    f"; host-staged, candidates split over {self.dp.size} "
-                    "ranks" if self.dp is not None else "")
+                    "not materialized%s%s)", dataset_name, n_videos,
+                    "; host-staged" if staged else "",
+                    f", candidates split over {self.dp.size} ranks"
+                    if self.dp is not None else "")
 
       # Tracked throughput metric: eval videos/s on the one device.
       embds_time = self.timer.dic.get("valid.embds", {}).get("val", 0)
@@ -816,8 +908,15 @@ class Trainer:
   # Checkpointing
   # ------------------------------------------------------------------
   def _state_dict(self):
+    """The checkpoint, in the single-process format.  Under tensor
+    parallelism a collective of the model group, which gathers the
+    parameters' and the moments' shards."""
+    params = self.model.state_dict()
+    if self.tp is not None:
+      params = convert.gather_state_dict(params, self.tp,
+                                         self.model.shard_dims)
     state = {
-        "state_dict": self.model.state_dict(),
+        "state_dict": params,
         "epoch": self.epoch,
         "monitor_best": float(self.mnt_best),
         "n_samples": self.n_samples,
@@ -830,18 +929,28 @@ class Trainer:
         "generator": self.generator.get_state(),
     }
     if self.include_optim_in_ckpts:
-      state["optimizer"] = self.optimizer.state_dict()
+      optim = self.optimizer.state_dict()
+      if self.tp is not None:
+        optim = convert.gather_optimizer_state(
+            optim, ckpt_lib.param_names_by_position(self.model,
+                                                    self.optimizer),
+            self.tp, self.model.shard_dims)
+      state["optimizer"] = optim
     return state
 
   def _save_checkpoint(self, epoch, save_best=False):
-    # One writer per experiment: every rank holds the same state, and
-    # concurrent writes of one file would race.
+    # One writer per experiment: every rank holds the same state (under
+    # tensor parallelism once gathered, which every rank takes part in),
+    # and concurrent writes of one file would race.
+    if not self.is_primary and self.tp is None:
+      return
+    state = self._state_dict()
     if not self.is_primary:
       return
     # Snapshot to host NOW (the next step updates the parameters in
     # place); serialization + write happen on the writer thread.
-    self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(self._state_dict()),
-                           epoch, save_best=save_best)
+    self._ckpt_writer.save(self.exp_dir, ckpt_lib.to_host(state), epoch,
+                           save_best=save_best)
 
   def _load_word_vectors(self, weights):
     """The tokenizer's word vectors ([PAD] and [UNK] rows zero) into the
@@ -867,7 +976,7 @@ class Trainer:
       logger.warning("txt_bert_init given but the model has no txt_bert "
                      "tower; ignored")
       return
-    loaded = ckpt_lib.load_txt_bert_init(path)
+    loaded = shard_for(self.model, ckpt_lib.load_txt_bert_init(path))
     params = {f"txt_bert.{n}": p
               for n, p in self.model.txt_bert.named_parameters()}
     stats = {}
@@ -903,15 +1012,21 @@ class Trainer:
       logger.warning("Architecture config differs from checkpoint")
 
     state_dict = ckpt_lib.match_checkpoint_to_model(
-        raw["state_dict"], self.model.state_dict())
+        shard_for(self.model, raw["state_dict"]), self.model.state_dict())
     if restart:
       self.model.load_state_dict(state_dict, strict=True)
       if "optimizer" in raw and self.include_optim_in_ckpts:
         same_optim = (loaded_cfg.get("optimizer", {}).get("type")
                       == self.config.raw.get("optimizer", {}).get("type"))
         if same_optim:
-          self.optimizer.load_state_dict(ckpt_lib.optimizer_state_by_position(
-              raw["optimizer"], self.model, self.optimizer))
+          optim = ckpt_lib.optimizer_state_by_position(
+              raw["optimizer"], self.model, self.optimizer)
+          if self.tp is not None:
+            optim = convert.shard_optimizer_state(
+                optim, ckpt_lib.param_names_by_position(self.model,
+                                                        self.optimizer),
+                self.tp, self.model.shard_dims)
+          self.optimizer.load_state_dict(optim)
         else:
           logger.warning("Optimizer type changed; not resuming its state")
       self.loaded_epoch = int(raw.get("epoch", 0))

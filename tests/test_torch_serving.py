@@ -344,10 +344,13 @@ def test_failed_refresh_keeps_the_staged_snapshot(world, indexes,
 
 
 def test_engine_refuses_what_it_does_not_serve(world, indexes):
+  """An unknown quantization, and a mesh= that is not a sequence of
+  devices (the engine shards over local devices, one process)."""
   with pytest.raises(ValueError):
     engine(world, indexes[1], quantize="fp8")
-  with pytest.raises(NotImplementedError, match="A10"):
-    engine(world, indexes[1], mesh=object())
+  for mesh in (object(), "cpu", [], [object()]):
+    with pytest.raises(TypeError, match="sequence of torch devices"):
+      engine(world, indexes[1], mesh=mesh)
 
 
 def test_search_consistent_across_inplace_mutation(world, indexes):
@@ -517,16 +520,26 @@ def test_strict_load_refuses_partial_and_foreign_checkpoints(world,
       serve.load_state_dict_strict(model, path)
 
 
-def test_cli_flags(world):
+def test_cli_flags(world, caplog, capsys, tmp_path):
   """--device defaults to cuda (no fallback to the CPU), --shard_index
-  names A10, and one of --index / --build_index is required."""
+  on one device serves the index unsharded and says so in one log line,
+  and one of --index / --build_index is required."""
   base = ["--config", str(world["cfg_path"]), "--checkpoint",
           str(world["pth"])]
-  with contextlib.redirect_stderr(io.StringIO()) as err:
-    with pytest.raises(SystemExit):
-      serve.main(base + ["--index", "x.npz", "--shard_index",
-                         "--device", "cpu"])
-  assert "A10" in err.getvalue()
+  index = tmp_path / "index.npz"
+  serving.RetrievalIndex.build(
+      world["model"], world["entry"]["loader"],
+      dataset=world["entry"]["dataset"].datasets[0]).save(index)
+  query = ["--index", str(index), "--query", QUERIES[0], "--topk", "3",
+           "--device", "cpu"]
+  with caplog.at_level("INFO", logger=serve.logger.name):
+    sharded = serve.main(base + query + ["--shard_index"])
+  lines = [r.getMessage() for r in caplog.records
+           if "--shard_index" in r.getMessage()]
+  assert lines == ["--shard_index: one device (cpu), the index unsharded"]
+  assert sharded == serve.main(base + query)
+  assert len(sharded[0]["hits"]) == 3
+  capsys.readouterr()
   with contextlib.redirect_stderr(io.StringIO()):
     with pytest.raises(SystemExit):
       serve.main(base)

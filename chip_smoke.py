@@ -176,26 +176,32 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    ``mmt_tpu_torch.bench_loader``'s protocol (the flagship's 7 experts
    at their widths, b32, 30 of up to 40 rows, 200 videos): train and
    eval samples/s at 0, 1, 2 and 8 workers, Python and native path,
-   cold and warm record cache; the tokenizer's texts/s on the corpus's
+   cold and warm record cache (warm over 10 batches after 5, half the
+   command's default depth); the tokenizer's texts/s on the corpus's
    captions and on serving's query strings (native ids equal to the
    Python path's); the host's cores and thread pools.
 12. Serve phase, in three parts.  (a) Before phase 11's directory is
    removed, ``mmt_tpu_torch.serve.main`` on its trained_model.pth and
    config: --build_index over the eval set (32 videos) with 4 --query
    captions, exact, then --quantize int8 from the saved .npz index;
-   launches exactly 4 B1 per video batch of the build, 12 B1 and 1 B4
-   per exact query batch, 12 B1 and 0 B4 per int8 one; the hits
-   well-formed (ids of the index, ``topk`` of them, scores not
-   increasing).  (b) The full-width flagship (bf16, random weights from
+   launches exactly 4 B1 per video batch of the build, and 12 B1 and 0
+   B4 per query batch, exact or int8 (since C7 the exact engine scores
+   through the library route, ``prefer_kernel=False``, as the JAX engine
+   does); the hits well-formed (ids of the index, ``topk`` of them,
+   scores not increasing).  (b) The full-width flagship (bf16, random weights from
    a seed) serving a synthetic index of 100,000 videos x 7 x 512
    (L2-normalised rows, L1 weights; 1.43 GB fp32, 0.36 GB int8), exact
    then int8: the launch counts of a query batch of 1 and of 64; on the
    exact engine the kernel path's top-10 of 64 queries against the
    plain versions' (scores within 2e-2; an id in one top-10 only must
    have a plain score within 2e-2 of the plain 10th); ``serve_http``
-   traffic, interactive (200 GETs of 1 query, topk 5) and bulk (50 POSTs
-   of 64, topk 10), each on a fresh server: its /statz p50/p90/p99 and
-   the client's p50/p99; one query batch of 1 and of 64 under
+   traffic through ``mmt_tpu_torch.bench_serving.measure`` (phase 16
+   (c): the command's protocol and ``synthetic_index``; the tokenizer
+   over SERVE_WORDS, its traffic's words and four more), interactive
+   (200 GETs of 1 query, topk 5) and
+   bulk (50 POSTs of 64, topk 10) on one fresh, warmed server: the
+   client's percentiles and the server's /statz; one query batch of 1
+   and of 64 under
    torch.profiler (wall, device time, idle share, split into B1, B4,
    B4's k-major scratch fill, the top-k and the rest); int8's overlap@10
    with exact; the pinned int8 rule of tests/test_serving.py (R@1/5/10
@@ -262,8 +268,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
 15. Model-parallel phase, in two parts.  (a) After phase 12 (b), on its
    100,000-video index and model: ``RetrievalEngine(mesh=[card] * 3)``
    (the rows padded to 100,002 and split in three) exact then int8,
-   against the unsharded engine: exactly 12 B1 and 3 B4 (exact) or 0
-   (int8) a query batch; for 1 query (topk 5) and 64 (topk 10) the video
+   against the unsharded engine: exactly 12 B1 and 0 B4 a query batch
+   (C7); for 1 query (topk 5) and 64 (topk 10) the video
    ids equal, the scores within 1e-5 (exact) / 1e-4 (int8), no pad row;
    the int8 shards' codes and scales bitwise the unsharded engine's; the
    p50 of 10 direct searches, sharded and unsharded (no claim of speed).
@@ -286,6 +292,28 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    the epoch loss within 1e-5 relative, the final sims within 1e-4.  The launches are the ``sharded_serving_launches`` of the B1
    and B4 entries and the ``tp_cli_launches`` of every entry.
 
+16. Measurement-command phase, in three parts, after phase 12 (c): the
+   port's commands (``python -m mmt_tpu_torch.<name>``) run in this
+   process through their own functions.  (a) ``bench_geometry`` at the
+   ActivityNet and HowTo100M geometries (2 experts; L 100 and 30; eval
+   chunks of 25 and 50 over 1,000 videos; train b32 and b64), bf16, full
+   width: ``run_geometry``'s whole run counted exactly (an eval 16 x 40
+   = 640 or 16 x 20 = 320 B1 and 1 B4; a step 16 B2, 16 B3 and 1 B4) and
+   its line printed; then one eval and one step, each counted in a
+   window of its own, the eval's sims kernel vs plain within 2e-2, the
+   step's loss and gradients against the plain path by ``check_step``'s
+   rules; B1 at each eval's rows (5,075 and 3,150 x 512,
+   2,500 and 1,500 x 768), B2 and B3 at each step's (6,496 and 4,032 x
+   512, 3,200 and 1,920 x 768) by phases 1's and 4's rules, B4 at 1,000
+   x 1,000 and the step's 32 x 32 / 64 x 64 with K 1,024 (1e-5), each
+   with its device ms, plain ms and bound (B4 also its fp32 ``torch.mm``):
+   the ``geometry_shapes`` and ``geometry_launches`` (the three windows'
+   counts) of the B1-B4 entries.  (b) ``bench_sustained.run`` at b32 and b128 (1,024 samples
+   each) and b32 with --prestage 4: exactly 16 B2, 16 B3 and 1 B4 a step
+   (warm, timed and bare steps), no B1; each line printed, the b32 step
+   beside phase 8's staged step and phase 11's window.  (c) Phase 12
+   (b)'s HTTP traffic is ``bench_serving.measure``.
+
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
 launches on its main path, worst disagreement, times, bound and library
@@ -299,7 +327,6 @@ import contextlib
 import io
 import itertools
 import json
-import logging
 import math
 import os
 import pathlib
@@ -2329,7 +2356,6 @@ CLI_CORPUS_LIMIT_S = 60.0
 FLAGSHIP_CONFIG = "configs/eccv20/msrvtt_jsfusion_trainval.json"
 # The pickle layout files these as "<name>_c" (the challenge's experts);
 # phase 11 reads them under the flagship's names, so all 7 are read.
-CLI_CHALLENGE_NAMED = ("face", "ocr", "scene", "speech")
 CLI_COUNTED = {"ffn_block": "ffn_block_cuda",
                "ffn_train_fwd": "ffn_train_fwd_cuda",
                "ffn_train_bwd": "ffn_train_bwd_cuda"}
@@ -2339,7 +2365,9 @@ CLI_COUNTED = {"ffn_block": "ffn_block_cuda",
 # phase 11 on the Python path (H100 80GB HBM3, 700.00 W; PERF.md).
 RUN_D = {"window_ms": 377.012, "median_ms": 173.112,
          "data_loading_ms": 40.763, "eval_s": 3.8675}
-LOADER_BENCH_ARGV = []              # mmt_tpu_torch.bench_loader's defaults
+# bench_loader's protocol at half its default depth (--batches 20,
+# --warm 10): time for phase 16.
+LOADER_BENCH_ARGV = ["--batches", "10", "--warm", "5"]
 LOADER_BENCH_LIMIT_S = 60.0
 EPOCH2_STEPS = 3                    # epoch 2's first steps, printed
 
@@ -2563,14 +2591,15 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
   staged b32 step (phase 8) and eval-1k (phase 6).  ``then(cfg_path,
   exp)`` runs last, while the corpus, the experiment and the phase's
   environment still exist (phase 12 (a)).  Returns the launch counts of
-  the first run and what ``then`` returned."""
+  the first run, its loop summary (``loop_summary``) and what ``then``
+  returned."""
   import signal
   import tempfile
 
   import numpy as np
 
-  from mmt_tpu_torch import bench_loader
-  from mmt_tpu_torch.data import datasets, synthetic
+  from mmt_tpu_torch import bench_loader, bench_sustained
+  from mmt_tpu_torch.data import synthetic
   from mmt_tpu_torch.data import native_assembler as nasm
   from mmt_tpu_torch.experts import compute_dims
   from mmt_tpu_torch.train import trainer as trainer_lib
@@ -2588,22 +2617,7 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
   prev_sigterm = signal.getsignal(signal.SIGTERM)
   prev_meter = trainer_lib.AverageMeter
   prev_vocab = os.environ.get("MMT_TPU_BERT_VOCAB")
-  prev_discover = datasets.discover_expert_paths
-
-  def discover_as_flagship(data_dir):
-    """The layout's expert files, the "*_c" ones under the config's
-    names; every expert of the config must have the tables the model
-    reads (the layout takes face-avg.pickle for face's fixed_seg)."""
-    paths = prev_discover(data_dir)
-    for mod in CLI_CHALLENGE_NAMED:
-      if mod + "_c" in paths:
-        paths[mod] = paths.pop(mod + "_c")
-    missing = [m for m in dims
-               if not {"fixed_seg", "max"} <= set(paths.get(m, ()))]
-    if missing:
-      raise RuntimeError(f"train-cli: no features for {missing}")
-    return paths
-
+  shims = contextlib.ExitStack()
   try:
     with open(FLAGSHIP_CONFIG) as f:
       dims = {m: d["dim"] for m, d in compute_dims(json.load(f)).items()}
@@ -2627,7 +2641,7 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
             f"{CLI_CORPUS_LIMIT_S:.0f} s", flush=True)
     os.environ["MMT_TPU_BERT_VOCAB"] = str(root / "vocab.txt")
     trainer_lib.AverageMeter = RecordingMeter
-    datasets.discover_expert_paths = discover_as_flagship
+    shims.enter_context(bench_sustained.flagship_expert_names(dims))
     exp = root / "exp"
     cfg_path = root / "flagship_c.json"
     cfg_path.write_text(json.dumps(cli_config(data_dir, exp, 2)))
@@ -2788,10 +2802,11 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
           + f" card: {card}", flush=True)
     txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
                         per_eval, final_batches, card)
-    return first, (then(cfg_path, exp) if then is not None else None)
+    return (first, runs["native path"],
+            then(cfg_path, exp) if then is not None else None)
   finally:
     trainer_lib.AverageMeter = prev_meter
-    datasets.discover_expert_paths = prev_discover
+    shims.close()
     signal.signal(signal.SIGTERM, prev_sigterm)
     if prev_vocab is None:
       os.environ.pop("MMT_TPU_BERT_VOCAB", None)
@@ -2985,8 +3000,6 @@ SERVE_CLI_QUERIES = ("a man is cooking pasta in a kitchen",
                      "a dog runs in the park",
                      "a woman sings a song on stage")
 SERVE_VIDEOS, SERVE_M, SERVE_D = 100_000, 7, 512   # the flagship's geometry
-SERVE_INTERACTIVE = (200, 1, 5)     # requests, queries a request, topk: GET
-SERVE_BULK = (50, 64, 10)           # the same: POST
 # Planted corpora (videos, queries): the pinned int8 rule's own, and the
 # at-scale one of docs/SERVING.md (scripts/int8_quality.py's defaults).
 SERVE_QUALITY_PINNED, SERVE_QUALITY = (512, 64), (10_000, 1_000)
@@ -2999,13 +3012,16 @@ SERVE_SHARDS = 3
 SERVE_SHARD_ROWS = -(-SERVE_VIDEOS // SERVE_SHARDS)   # 33,334
 SERVE_SHARD_TOL = {None: 1e-5, "int8": 1e-4}
 SERVE_SEARCH_REPS = 10
-# B4 cases: (queries, videos, launches per query batch at that shape).
-SERVE_SIM_CASES = ((1, 1_000, 1), (1, 100_000, 1), (64, 100_000, 1),
-                   (1, SERVE_SHARD_ROWS, SERVE_SHARDS),
-                   (64, SERVE_SHARD_ROWS, SERVE_SHARDS))
+# Phase 12 (b)'s tokenizer vocabulary and direct queries: bench_serving's
+# WORDS (its HTTP traffic's) and four more (bench_loader's QUERY_WORDS).
 SERVE_WORDS = ("person cooking pasta kitchen soccer match goal rain city "
                "night dog park guitar song stage car road mountain beach "
                "man woman sings runs").split()
+# B4 cases at the serving shapes (queries, videos): kernel cases only.
+# Since C7 the exact engine scores through the library route, as the JAX
+# engine does (mmt_tpu/serving.py:307-315): 0 B4 per query batch.
+SERVE_SIM_CASES = ((1, 1_000), (1, 100_000), (64, 100_000),
+                   (1, SERVE_SHARD_ROWS), (64, SERVE_SHARD_ROWS))
 SERVE_SPLIT = {"B1": B1_KERNELS, "B4": ("moe_similarity_kernel",),
                "B4 scratch fill": ("k_major_kernel",),
                "top-k": ("topk", "TopK", "radix", "Radix", "sort", "Sort")}
@@ -3107,19 +3123,11 @@ def check_hits(hits, topk, ids, what):
 
 def serve_counted(torch, ffn, similarity, fn, want, what):
   """fn() with the B1 and B4 counters set to 0 just before and read just
-  after; they must read ``want``.  Returns fn()'s result."""
-  ffn.ffn_block_cuda.launches = 0
-  similarity.sim_cuda.launches = 0
-  tic = time.perf_counter()
-  out = fn()
-  torch.cuda.synchronize()
-  got = {"ffn_block": ffn.ffn_block_cuda.launches,
-         "moe_similarity": similarity.sim_cuda.launches}
-  print(f"serve {what}: {time.perf_counter() - tic:.3f} s, launches {got}",
-        flush=True)
-  if got != want:
-    raise RuntimeError(f"serve {what}: expected launches {want}, got {got}")
-  return out
+  after (``counted_run``); they must read ``want``.  Returns fn()'s
+  result."""
+  return counted_run(torch, {"ffn_block": ffn.ffn_block_cuda,
+                             "moe_similarity": similarity.sim_cuda},
+                     fn, want, f"serve {what}")
 
 
 def serve_cli_phase(torch, ffn, similarity, cfg_path, exp):
@@ -3127,8 +3135,9 @@ def serve_cli_phase(torch, ffn, similarity, cfg_path, exp):
   trained_model.pth and config: --build_index over the config's eval set
   with 4 --query captions (exact), then the same queries --quantize
   int8 from the saved index.  Launches exactly 4 B1 per video batch of
-  the build, 12 B1 and 1 B4 per exact query batch, 12 B1 and 0 B4 per
-  int8 one; the hits well-formed.  Returns the two runs' launches."""
+  the build, 12 B1 and 0 B4 per query batch, exact (the library route
+  since C7, as the JAX engine scores) or int8; the hits well-formed.
+  Returns the two runs' launches."""
   from mmt_tpu_torch import serve, serving
 
   cfg = json.loads(pathlib.Path(cfg_path).read_text())
@@ -3156,7 +3165,7 @@ def serve_cli_phase(torch, ffn, similarity, cfg_path, exp):
       ("cli --build_index + exact query",
        ["--build_index", str(index_path)],
        {"ffn_block": VIDEO_LAYERS * video_batches + TEXT_LAYERS,
-        "moe_similarity": 1}),
+        "moe_similarity": 0}),
       ("cli --index --quantize int8 query",
        ["--index", str(index_path), "--quantize", "int8"],
        {"ffn_block": TEXT_LAYERS, "moe_similarity": 0})):
@@ -3182,83 +3191,25 @@ def serve_cli_phase(torch, ffn, similarity, cfg_path, exp):
   return {what: want for what, (_, want) in runs.items()}
 
 
-def serve_tokenizer(root):
-  """A WordPiece tokenizer over SERVE_WORDS (written to ``root``)."""
-  from mmt_tpu_torch.tokenization import WordPieceTokenizer
-
-  vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(
-      set(SERVE_WORDS))
-  path = pathlib.Path(root) / "vocab.txt"
-  path.write_text("\n".join(vocab) + "\n")
-  return WordPieceTokenizer(str(path))
-
-
-def serve_queries(rng, n):
-  return [" ".join(rng.choice(SERVE_WORDS, size=5)) for _ in range(n)]
-
-
-def http_json(url, payload=None):
-  """(reply, seconds) of one GET (or POST of ``payload``)."""
-  import urllib.request
-
-  tic = time.perf_counter()
-  req = url if payload is None else urllib.request.Request(
-      url, data=json.dumps(payload).encode(),
-      headers={"Content-Type": "application/json"})
-  with urllib.request.urlopen(req, timeout=120) as r:
-    body = json.loads(r.read())
-  return body, time.perf_counter() - tic
-
-
-def pct_ms(xs, p):
-  xs = sorted(xs)
-  return round(1e3 * xs[min(len(xs) - 1, int(p / 100 * len(xs)))], 3)
-
-
-def serve_traffic(serving, engine, rng, traffic, what, card):
-  """``traffic`` (requests, queries a request, topk) against a fresh
-  ``serve_http`` of ``engine``: GET for one query a request, POST else.
-  Prints the server's /statz percentiles (only these requests) and the
-  client's; checks every reply."""
-  import urllib.parse
-
-  n, batch, topk = traffic
-  # No access-log line a request (the INFO logging phase 12 (a)'s CLI
-  # configured): measured as scripts/bench_serving.py measured the JAX
-  # engine's server.
-  log = logging.getLogger(serving.__name__)
-  level = log.level
-  log.setLevel(logging.WARNING)
-  server = serving.serve_http(engine, port=0, block=False)
-  base = f"http://127.0.0.1:{server.server_address[1]}"
-  lat = []
+def serve_http_traffic(bench_serving, engine, rng, what, card):
+  """bench_serving.measure on ``engine`` (its protocol: a fresh server,
+  warmed, BENCH_REQS GETs of 1 query at topk 5 and BENCH_BULK_REQS
+  POSTs of 64 at topk 10, /statz counting exactly those), every reply's
+  hits checked; prints the client's and the server's percentiles."""
   ids = set(engine._staged_ids)
-  try:
-    for _ in range(n):
-      queries = serve_queries(rng, batch)
-      if batch == 1:
-        body, dt = http_json(f"{base}/search?q="
-                             f"{urllib.parse.quote(queries[0])}&topk={topk}")
-      else:
-        body, dt = http_json(f"{base}/search",
-                             {"queries": queries, "topk": topk})
-      check_hits(body["results"], topk, ids, what)
-      lat.append(dt)
-    statz = http_json(f"{base}/statz")[0]
-  finally:
-    server.shutdown()
-    server.server_close()
-    log.setLevel(level)
-  if statz["requests"] != n or statz["errors"] or statz["queries"] != n * batch:
-    raise RuntimeError(f"serve {what}: /statz {statz}")
-  s = statz["search_latency_ms"]
-  print(f"serve {what}: {n} requests of {batch} queries, topk {topk}: "
-        f"server /statz p50 {s['p50']} p90 {s['p90']} p99 {s['p99']} ms "
-        f"(max {s['max']}); client p50 {pct_ms(lat, 50)} p99 "
-        f"{pct_ms(lat, 99)} ms; {batch * n / sum(lat):.1f} queries/s "
-        f"card: {card}", flush=True)
-  return {"server": {k: s[k] for k in ("p50", "p90", "p99")},
-          "client": {"p50": pct_ms(lat, 50), "p99": pct_ms(lat, 99)}}
+  entry = bench_serving.measure(
+      engine, rng, bench_serving.N_INTERACTIVE, bench_serving.N_BULK,
+      check=lambda body, n, topk: check_hits(body["results"], topk, ids,
+                                             what))
+  b1, b64, s = entry["batch1_ms"], entry["batch64_ms"], entry["server_statz"]
+  print(f"serve {what} over HTTP: client batch 1 (topk 5) p50 "
+        f"{b1['p50']:.3f} p90 {b1['p90']:.3f} p99 {b1['p99']:.3f} max "
+        f"{b1['max']:.3f} ms; batch 64 (topk 10) p50 {b64['p50']:.3f} p90 "
+        f"{b64['p90']:.3f} p99 {b64['p99']:.3f} max {b64['max']:.3f} ms, "
+        f"{entry['batch64_qps']:.1f} queries/s; server /statz (every "
+        f"request, warm-up included) p50 {s['p50']} p90 {s['p90']} p99 "
+        f"{s['p99']} ms card: {card}", flush=True)
+  return entry
 
 
 def serve_profile(torch, ffn, similarity, engine, queries, topk, what,
@@ -3357,28 +3308,19 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
 
   import numpy as np
 
-  from mmt_tpu_torch import serving
+  from mmt_tpu_torch import bench_serving, serving
 
   root = pathlib.Path(tempfile.mkdtemp(prefix="mmt_serve_"))
   try:
-    tok = serve_tokenizer(root)
+    tok = bench_serving.vocab_tokenizer(root, SERVE_WORDS)
     model = flagship.flagship_model(device=dev, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(12)
     tic = time.perf_counter()
-    emb = torch.randn(SERVE_VIDEOS, SERVE_M, SERVE_D, generator=gen,
-                      device=dev)
-    emb /= emb.norm(dim=-1, keepdim=True)
-    w = torch.rand(SERVE_VIDEOS, SERVE_M, generator=gen, device=dev)
-    w /= w.sum(-1, keepdim=True)
-    index = serving.RetrievalIndex(
-        emb.cpu().numpy(), w.cpu().numpy(),
-        [f"video{i:07d}" for i in range(SERVE_VIDEOS)], [""] * SERVE_VIDEOS)
-    del emb, w
+    index = bench_serving.synthetic_index(SERVE_VIDEOS, SERVE_M, SERVE_D, dev)
     print(f"serve: index of {SERVE_VIDEOS} x {SERVE_M} x {SERVE_D} made in "
           f"{time.perf_counter() - tic:.1f} s "
           f"({index.vid_embds.nbytes / 1e9:.2f} GB fp32)", flush=True)
     rng = np.random.RandomState(7)
-    q64 = serve_queries(rng, 64)
+    q64 = bench_serving.queries(rng, 64, SERVE_WORDS)
     out, hits = {}, {}
     for quant in (None, "int8"):
       label = quant or "exact"
@@ -3389,11 +3331,10 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
       print(f"serve {label}: staged in {time.perf_counter() - tic:.1f} s, "
             f"{staged_gb(engine):.3f}"
             f" GB on the card", flush=True)
-      b4 = 0 if quant else 1
       for batch, topk in ((1, 5), (64, 10)):
         res = serve_counted(
             torch, ffn, similarity, lambda: engine.search(q64[:batch], topk),
-            {"ffn_block": TEXT_LAYERS, "moe_similarity": b4},
+            {"ffn_block": TEXT_LAYERS, "moe_similarity": 0},
             f"{label} query batch of {batch}")
         check_hits(res, topk, set(index.video_ids), label)
       hits[label] = engine.search(q64, 10)
@@ -3410,11 +3351,7 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
               f"top-10 scores max_abs_diff={diff:.3e} (limit {SERVE_TOL}); "
               f"witness rule held", flush=True)
       out[label] = {
-          "interactive": serve_traffic(serving, engine, rng,
-                                       SERVE_INTERACTIVE,
-                                       f"{label} interactive (GET)", card),
-          "bulk": serve_traffic(serving, engine, rng, SERVE_BULK,
-                                f"{label} bulk (POST)", card),
+          "http": serve_http_traffic(bench_serving, engine, rng, label, card),
           "profile": {b: serve_profile(torch, ffn, similarity, engine,
                                        q64[:b], k, f"{label} batch {b}",
                                        card)
@@ -3474,7 +3411,8 @@ def sharded_serve_phase(torch, ffn, similarity, serving, model, tok, index,
   """Phase 15 (a): phase 12 (b)'s index and model through
   ``RetrievalEngine(mesh=[card] * SERVE_SHARDS)`` (padded to a multiple
   of the shards), exact then int8, against the unsharded engine: exactly
-  12 B1 and SERVE_SHARDS B4 (exact) or 0 (int8) a query batch; for 1
+  12 B1 and 0 B4 a query batch (C7: each shard's exact product is the
+  library route, as in the JAX engine); for 1
   query (topk 5) and 64 (topk 10) the ids equal, the scores within
   SERVE_SHARD_TOL, no pad row; the int8 shards' codes and scales
   bitwise the unsharded engine's; the p50 of direct searches, sharded
@@ -3499,8 +3437,7 @@ def sharded_serve_phase(torch, ffn, similarity, serving, model, tok, index,
         if not torch.equal(cat[:n], staged[j][:n]):
           raise RuntimeError(f"serve sharded int8: the shards' {what} are "
                              "not the unsharded engine's")
-    want = {"ffn_block": TEXT_LAYERS,
-            "moe_similarity": 0 if quant else SERVE_SHARDS}
+    want = {"ffn_block": TEXT_LAYERS, "moe_similarity": 0}
     entry = {"launches": want}
     for batch, topk in ((1, 5), (64, 10)):
       got = serve_counted(
@@ -3531,6 +3468,84 @@ def sharded_serve_phase(torch, ffn, similarity, serving, model, tok, index,
   return out
 
 
+def eval_ffn_case(torch, ffn, dev, gen, r, h, what, card):
+  """B1 at R x H, I 3,072, bf16 on operands from ``gen``, against its
+  plain version by phase 1's bf16 rules (max 3e-2, mean 2e-3), every row
+  tile bitwise equal; its CUDA-event and device ms, plain ms and bound.
+  Returns the case's entry."""
+  rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
+  i, cd = 3072, torch.bfloat16
+  args = (rand(r, h), (rand(i, h) * 0.02).to(cd), rand(i) * 0.02,
+          (rand(h, i) * 0.02).to(cd), rand(h) * 0.02, 1.0 + 0.1 * rand(h),
+          0.1 * rand(h))
+  kw = dict(eps=1e-12, compute_dtype=cd)
+  got = ffn.ffn_block_cuda(*args, **kw)
+  err = (got - ffn.ffn_block_plain(*args, **kw)).abs()
+  max_err, mean_err = float(err.max()), float(err.mean())
+  if not bool(torch.isfinite(got).all()) or max_err > 3e-2 or mean_err > 2e-3:
+    raise RuntimeError(f"ffn_block R={r} H={h}: error {max_err}/{mean_err} "
+                       "exceeds 3e-2 (max) / 2e-3 (mean)")
+  check_tiles_equal(torch, ffn, f"ffn_block R={r} H={h} ({what})",
+                    ffn.ffn_block_cuda, args, kw)
+  b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + (got,))
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  case = {"shape": f"{r} x {h}, I {i}", "max_abs_err": max_err,
+          "tile_rows": ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)],
+          "ms": time_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw)),
+          "device_ms": device_ms(
+              torch, lambda: ffn.ffn_block_cuda(*args, **kw)),
+          "plain_ms": time_ms(torch,
+                              lambda: ffn.ffn_block_plain(*args, **kw)),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+  print(f"ffn_block {what} R={r} H={h} I={i} bf16 ({case['tile_rows']}-row "
+        f"tile): max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} "
+        f"kernel_ms={case['ms']:.4f} device_ms={case['device_ms']:.4f} "
+        f"plain_ms={case['plain_ms']:.4f} bound {b_ms:.6f} ms ({b_by}) card: "
+        f"{card}", flush=True)
+  return case
+
+
+def sim_case(torch, similarity, dev, gen, q, v, m, what, card):
+  """B4 at [q, v] with K = m x 512 on inputs from ``gen`` against its
+  plain version (1e-5), every tile bitwise equal; its CUDA-event and
+  device ms (with its k-major scratch fill's), plain ms, the fp32
+  ``torch.mm`` of its numerator and its bound.  Returns the case's
+  entry."""
+  d = SERVE_D
+  t, vv, tw, vw = sim_inputs(torch, q, v, m, d, dev, gen)
+  call = lambda: similarity.sim_cuda(t, vv, tw, vw)
+  got = call()
+  max_err = float((got - similarity.sim_plain(t, vv, tw, vw)).abs().max())
+  if not bool(torch.isfinite(got).all()) or max_err > 1e-5:
+    raise RuntimeError(f"moe_similarity Q={q} V={v} K={m * d}: error "
+                       f"{max_err}")
+  if not all(torch.equal(got, similarity.sim_cuda(t, vv, tw, vw, tile=i))
+             for i in range(len(similarity.TILES))):
+    raise RuntimeError(f"moe_similarity Q={q} V={v}: a tile changed the "
+                       "values")
+  split = device_split(torch, call)
+  dev_ms = sum(split.values())
+  fill = sum(ms for k, ms in split.items() if "k_major_kernel" in k)
+  b_ms, b_by = bound(2 * q * v * m * (d + 1), H100_FP32,
+                     (t, vv, tw, vw, got))
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  case = {"shape": f"{q} x {v}, K {m * d}", "max_abs_err": max_err,
+          "tile": similarity.TILES[similarity.pick_tile(q, v, sms)],
+          "ms": time_ms(torch, call), "device_ms": dev_ms,
+          "scratch_fill_device_ms": fill,
+          "plain_ms": time_ms(torch,
+                              lambda: similarity.sim_plain(t, vv, tw, vw)),
+          "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": time_ms(torch, lambda: torch.mm(t, vv.T))}
+  print(f"moe_similarity {what} Q={q} V={v} K={m * d} (tile "
+        f"{case['tile']}): max_abs_err={max_err:.3e} kernel_ms="
+        f"{case['ms']:.4f} device_ms={dev_ms:.4f} (k-major scratch fill "
+        f"{fill:.4f}, {fill / dev_ms:.2%}) plain_ms={case['plain_ms']:.4f} "
+        f"library_ms={case['library_ms']:.4f} (fp32 torch.mm of the "
+        f"numerator) bound {b_ms:.6f} ms ({b_by}) card: {card}", flush=True)
+  return case
+
+
 def serve_kernel_cases(torch, ffn, similarity, dev, card):
   """Phase 12 (c): B1 at the serving path's text rows (SERVE_FFN_ROWS x
   768, I 3,072, bf16; phase 1's bf16 rules, every row tile bitwise
@@ -3541,66 +3556,14 @@ def serve_kernel_cases(torch, ffn, similarity, dev, card):
   ``moe_similarity`` entries (their own generator: the draws of the
   earlier phases are kept)."""
   gen = torch.Generator(device=dev).manual_seed(1212)
-  rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
-  h, i, cd = 768, 3072, torch.bfloat16
-  ffn_shapes = []
-  for r in SERVE_FFN_ROWS:
-    args = (rand(r, h), (rand(i, h) * 0.02).to(cd), rand(i) * 0.02,
-            (rand(h, i) * 0.02).to(cd), rand(h) * 0.02, 1.0 + 0.1 * rand(h),
-            0.1 * rand(h))
-    kw = dict(eps=1e-12, compute_dtype=cd)
-    got = ffn.ffn_block_cuda(*args, **kw)
-    err = (got - ffn.ffn_block_plain(*args, **kw)).abs()
-    max_err, mean_err = float(err.max()), float(err.mean())
-    if not bool(torch.isfinite(got).all()) or max_err > 3e-2 or mean_err > 2e-3:
-      raise RuntimeError(f"ffn_block R={r}: error {max_err}/{mean_err} "
-                         "exceeds 3e-2 (max) / 2e-3 (mean)")
-    check_tiles_equal(torch, ffn, f"ffn_block R={r} H={h} (serving)",
-                      ffn.ffn_block_cuda, args, kw)
-    b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + (got,))
-    case = {"shape": f"{r} x {h}, I {i}", "max_abs_err": max_err,
-            "ms": time_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw)),
-            "device_ms": device_ms(
-                torch, lambda: ffn.ffn_block_cuda(*args, **kw)),
-            "plain_ms": time_ms(torch,
-                                lambda: ffn.ffn_block_plain(*args, **kw)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "launches_per_query_batch": TEXT_LAYERS}
-    print(f"ffn_block serving R={r} H={h} I={i} bf16: max_abs_err="
-          f"{max_err:.3e} mean_abs_err={mean_err:.3e} kernel_ms="
-          f"{case['ms']:.4f} device_ms={case['device_ms']:.4f} plain_ms="
-          f"{case['plain_ms']:.4f} bound {b_ms:.6f} ms ({b_by}) card: "
-          f"{card}", flush=True)
-    ffn_shapes.append(case)
-  sim_shapes = []
-  for q, v, per_batch in SERVE_SIM_CASES:
-    t, vv, tw, vw = sim_inputs(torch, q, v, SERVE_M, SERVE_D, dev, gen)
-    call = lambda: similarity.sim_cuda(t, vv, tw, vw)
-    got = call()
-    max_err = float((got - similarity.sim_plain(t, vv, tw, vw)).abs().max())
-    if not bool(torch.isfinite(got).all()) or max_err > 1e-5:
-      raise RuntimeError(f"moe_similarity Q={q} V={v}: error {max_err}")
-    split = device_split(torch, call)
-    dev_ms = sum(split.values())
-    fill = sum(ms for k, ms in split.items() if "k_major_kernel" in k)
-    b_ms, b_by = bound(2 * q * v * SERVE_M * (SERVE_D + 1), H100_FP32,
-                       (t, vv, tw, vw, got))
-    case = {"shape": f"{q} x {v}, K {SERVE_M * SERVE_D}",
-            "max_abs_err": max_err, "ms": time_ms(torch, call),
-            "device_ms": dev_ms, "scratch_fill_device_ms": fill,
-            "plain_ms": time_ms(torch,
-                                lambda: similarity.sim_plain(t, vv, tw, vw)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(torch, lambda: torch.mm(t, vv.T)),
-            "launches_per_query_batch": per_batch}
-    print(f"moe_similarity serving Q={q} V={v} K={SERVE_M * SERVE_D}: "
-          f"max_abs_err={max_err:.3e} kernel_ms={case['ms']:.4f} device_ms="
-          f"{case['device_ms']:.4f} (k-major scratch fill {fill:.4f}, "
-          f"{fill / case['device_ms']:.2%}) plain_ms={case['plain_ms']:.4f} "
-          f"library_ms={case['library_ms']:.4f} (fp32 torch.mm of the "
-          f"numerator) bound {b_ms:.6f} ms ({b_by}) card: {card}", flush=True)
-    sim_shapes.append(case)
-    del t, vv, tw, vw, got
+  ffn_shapes = [dict(eval_ffn_case(torch, ffn, dev, gen, r, 768, "serving",
+                                   card),
+                     launches_per_query_batch=TEXT_LAYERS)
+                for r in SERVE_FFN_ROWS]
+  sim_shapes = [dict(sim_case(torch, similarity, dev, gen, q, v, SERVE_M,
+                              "serving", card),
+                     launches_per_query_batch=0)
+                for q, v in SERVE_SIM_CASES]
   torch.cuda.empty_cache()
   return ffn_shapes, sim_shapes
 
@@ -3969,22 +3932,13 @@ def dp_cli_rank(argv, out_path):
   ``out_path``."""
   import runpy
 
-  from mmt_tpu_torch.data import datasets
-  prev = datasets.discover_expert_paths
+  from mmt_tpu_torch import bench_sustained
 
-  def discover(data_dir):
-    paths = prev(data_dir)
-    for mod in CLI_CHALLENGE_NAMED:
-      if mod + "_c" in paths:
-        paths[mod] = paths.pop(mod + "_c")
-    return paths
-
-  datasets.discover_expert_paths = discover
   counters = dp_counters()
   for fn in counters.values():
     fn.launches = 0
   sys.argv = ["mmt_tpu_torch.train", *argv]
-  with recorded_run() as rec:
+  with bench_sustained.flagship_expert_names(), recorded_run() as rec:
     runpy.run_module("mmt_tpu_torch.train", run_name="__main__")
   pathlib.Path(out_path).write_text(json.dumps(
       dict(rec, launches={n: fn.launches for n, fn in counters.items()})))
@@ -4348,6 +4302,237 @@ def tp_fp32_witness(torch, cfg_dir, data_dir, card):
     shutil.rmtree(exp, ignore_errors=True)
 
 
+# Phase 16: the port's measurement commands on the card.
+GEOMETRY_REPS = 5         # bench_geometry's BENCH_REPS default
+GEOMETRY_TOL = 2e-2       # kernel path vs plain path, eval sims
+# bench_sustained's runs: (what, argv); 1,024 samples an epoch each.
+SUSTAINED_RUNS = (("b32", ["--batch", "32", "--samples", "1024"]),
+                  ("b128", ["--batch", "128", "--samples", "1024"]),
+                  ("b32 --prestage 4", ["--batch", "32", "--samples", "1024",
+                                        "--prestage", "4"]))
+
+
+def phase16_counters(ffn, similarity):
+  return {"ffn_block": ffn.ffn_block_cuda,
+          "ffn_train_fwd": ffn.ffn_train_fwd_cuda,
+          "ffn_train_bwd": ffn.ffn_train_bwd_cuda,
+          "moe_similarity": similarity.sim_cuda}
+
+
+def counted_run(torch, counters, fn, want, what):
+  """fn() with ``counters`` set to 0 just before and read just after;
+  they must read ``want``.  Returns fn()'s result."""
+  for c in counters.values():
+    c.launches = 0
+  out = fn()
+  torch.cuda.synchronize()
+  got = {k: c.launches for k, c in counters.items()}
+  print(f"{what}: launches {got}", flush=True)
+  if got != want:
+    raise RuntimeError(f"{what}: expected launches {want}, got {got}")
+  return out
+
+
+def train_ffn_cases(torch, ffn, dropout, dev, gen, r, h, what, card):
+  """B2 and B3 (add_dz on, as a step runs it) at R x H, I 3,072, bf16,
+  masks at p = 0.1, against their plain versions and the WMMA kernel by
+  phase 4's rules, every row tile bitwise equal; each one's CUDA-event
+  and device ms, plain ms and bound.  Returns {kernel: the case's
+  entry}."""
+  cd, i = torch.bfloat16, TRAIN_I
+  fargs, dy = train_inputs(torch, dropout, r, h, cd, dev, gen)
+  _, drop, w1, _, w2, _, gamma, _ = fargs
+  kw = dict(eps=1e-12, compute_dtype=cd)
+  fwd, err_f = check_train_kernel(torch, ffn, f"ffn_train_fwd {what} R={r} "
+                                  f"H={h}", "ffn_train_fwd", cd, fargs, kw)
+  _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
+  bargs, bkw = (dy, z, inter, drop, w1, w2, gamma), dict(kw, add_dz=True)
+  bwd, err_b = check_train_kernel(torch, ffn, f"ffn_train_bwd {what} R={r} "
+                                  f"H={h}", "ffn_train_bwd", cd, bargs, bkw)
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  cases = {}
+  for kname, args, kkw, out, err in (
+      ("ffn_train_fwd", fargs, kw, fwd, err_f),
+      ("ffn_train_bwd", bargs, bkw, bwd, err_b)):
+    kernel, plain = (getattr(ffn, f"{kname}_cuda"),
+                     getattr(ffn, f"{kname}_plain"))
+    b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + tuple(out))
+    case = {"shape": f"{r} x {h}, I {i}", "max_abs_err": err,
+            "tile_rows": ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)],
+            "ms": time_ms(torch, lambda: kernel(*args, **kkw)),
+            "device_ms": device_ms(torch, lambda: kernel(*args, **kkw)),
+            "plain_ms": time_ms(torch, lambda: plain(*args, **kkw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"{kname} {what} R={r} H={h} I={i} bf16 ({case['tile_rows']}-row "
+          f"tile): kernel_ms={case['ms']:.4f} device_ms="
+          f"{case['device_ms']:.4f} plain_ms={case['plain_ms']:.4f} bound "
+          f"{b_ms:.6f} ms ({b_by}) card: {card}", flush=True)
+    cases[kname] = case
+  return cases
+
+
+def geometry_step_check(torch, ops, bench, bench_geometry, geom, name, dev,
+                        counters, per_step):
+  """The first train step of the geometry (bench_geometry's step, from
+  ``bench.train_stepper``) on the kernel path, its launches counted alone
+  (they must read ``per_step``), against the plain path from the same
+  state, batch and dropout seed, by ``check_step``'s rules.  Returns the
+  step's launches."""
+  from mmt_tpu_torch.train import losses, optim, step
+
+  model, batch, _ = bench.train_stepper(
+      dev, batch_size=geom["train_batch"], lr=bench_geometry.TRAIN_LR,
+      **bench_geometry.keywords(geom))
+  spec = {"type": "Adam", "args": {"lr": bench_geometry.TRAIN_LR,
+                                   "weight_decay": 0}}
+  loss_fn = losses.max_margin_ranking_loss(0.05, True)
+  state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+  def first_step(plain):
+    opt = optim.build_optimizer(spec, model.parameters())[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with ops.plain_versions() if plain else contextlib.nullcontext():
+      loss = step.train_step(model, opt, batch, loss_fn=loss_fn,
+                             lr=bench_geometry.TRAIN_LR, generator=gen)
+    return float(loss), {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+
+  loss_k, grads_k = counted_run(torch, counters, lambda: first_step(False),
+                                per_step, f"geometry {name}: one step")
+  launches = {k: c.launches for k, c in counters.items()}
+  model.load_state_dict(state0)
+  loss_p, grads_p = first_step(True)
+  check_step(torch, f"geometry {name}: first step kernel vs plain", loss_k,
+             loss_p, grads_k, grads_p)
+  return launches
+
+
+def geometry_phase(torch, ops, ffn, dropout, similarity, dev, card):
+  """Phase 16 (a): ``bench_geometry.run_geometry`` (the command's run) at
+  each geometry, bf16, full width, counted exactly: FFN_LAYERS x chunks
+  B1 and 1 B4 an eval, FFN_LAYERS B2 and B3 and 1 B4 a step, the run's
+  total; its line.  Then one eval, its launches counted alone, with its
+  sims on the kernel path against the plain versions (GEOMETRY_TOL), and
+  one step, its launches counted alone, with its loss and gradients
+  against the plain path (``check_step``); and B1, B2, B3 and B4 at the
+  geometry's shapes against their plain versions (``eval_ffn_case``,
+  ``train_ffn_cases``, ``sim_case``).  Returns the lines, the launches
+  read in an eval's, a step's and the run's windows, and the kernels'
+  cases."""
+  from mmt_tpu_torch import bench, bench_geometry
+
+  counters = phase16_counters(ffn, similarity)
+  gen = torch.Generator(device=dev).manual_seed(1616)
+  out = {"lines": {}, "launches": {}, "shapes": {k: [] for k in counters}}
+  for name, geom in bench_geometry.GEOMETRIES.items():
+    chunk, n, b = geom["eval_chunk"], geom["n_videos"], geom["train_batch"]
+    per_eval = dict.fromkeys(counters, 0)
+    per_eval.update(ffn_block=FFN_LAYERS * (n // chunk), moe_similarity=1)
+    per_step = dict.fromkeys(counters, 0)
+    per_step.update(ffn_train_fwd=FFN_LAYERS, ffn_train_bwd=FFN_LAYERS,
+                    moe_similarity=1)
+    evals = 1 + GEOMETRY_REPS
+    steps = 1 + bench.TRAIN_STEPS * max(2, GEOMETRY_REPS // 2)
+    line = counted_run(
+        torch, counters, lambda: bench_geometry.run_geometry(
+            name, dev, False, GEOMETRY_REPS, True, card),
+        {k: evals * per_eval[k] + steps * per_step[k] for k in counters},
+        f"geometry {name}: bench_geometry ({evals} evals, {steps} steps)")
+    run_total = {k: c.launches for k, c in counters.items()}
+    print(json.dumps(line), flush=True)
+    out["lines"][name] = line
+
+    model, staged, run = bench_geometry.build_eval(geom, chunk, n, dev)
+    res = counted_run(torch, counters, run, per_eval,
+                      f"geometry {name}: one eval")
+    eval_launches = {k: c.launches for k, c in counters.items()}
+    sims = res["sims"]
+    if tuple(sims.shape) != (n, n) or not bool(torch.isfinite(sims).all()):
+      raise RuntimeError(f"geometry {name}: sims {tuple(sims.shape)}, finite "
+                         f"{bool(torch.isfinite(sims).all())}")
+    finite_metrics(res)
+    with ops.plain_versions():
+      plain = run()["sims"]
+    diff = float((plain - sims).abs().max())
+    print(f"geometry {name}: eval of {n} videos, R@1 t2v "
+          f"{res['t2v_metrics']['R1']:.3f}; kernel vs plain sims "
+          f"max_abs_diff={diff:.3e} (limit {GEOMETRY_TOL})", flush=True)
+    if diff > GEOMETRY_TOL:
+      raise RuntimeError(f"geometry {name}: sims differ by {diff}")
+    del model, staged, run, res, sims, plain
+    torch.cuda.empty_cache()
+    step_launches = geometry_step_check(torch, ops, bench, bench_geometry,
+                                        geom, name, dev, counters, per_step)
+    out["launches"][name] = {"per_eval": eval_launches,
+                             "per_step": step_launches,
+                             "run_geometry": run_total}
+    torch.cuda.empty_cache()
+
+    tokens = bench_geometry.video_tokens(geom)
+    words = geom["max_text_words"]
+    for r, h in ((chunk * tokens, 512), (chunk * words, 768)):
+      out["shapes"]["ffn_block"].append(dict(
+          eval_ffn_case(torch, ffn, dev, gen, r, h, f"{name} eval", card),
+          geometry=name))
+    for r, h in ((b * tokens, 512), (b * words, 768)):
+      for kname, case in train_ffn_cases(torch, ffn, dropout, dev, gen, r, h,
+                                         f"{name} step", card).items():
+        out["shapes"][kname].append(dict(case, geometry=name))
+    m = len(geom["modalities"])
+    for q, what in ((n, "eval"), (b, "step")):
+      out["shapes"]["moe_similarity"].append(dict(
+          sim_case(torch, similarity, dev, gen, q, q, m, f"{name} {what}",
+                   card), geometry=name))
+    torch.cuda.empty_cache()
+  return out
+
+
+def sustained_phase(torch, ffn, similarity, staged_step_ms, cli_window_ms,
+                    card):
+  """Phase 16 (b): ``bench_sustained.run`` (the command's protocol) for
+  each of SUSTAINED_RUNS, counted exactly: FFN_LAYERS B2 and B3 and 1 B4
+  a step (the warm epoch, the timed one and, with --prestage, the bare
+  steps), no B1; a finite loss; each line printed, and the b32 window
+  beside phase 8's staged step and phase 11's window.  Returns the lines
+  and the launches a step."""
+  import signal
+
+  from mmt_tpu_torch import bench_sustained
+
+  counters = phase16_counters(ffn, similarity)
+  per_step = dict.fromkeys(counters, 0)
+  per_step.update(ffn_train_fwd=FFN_LAYERS, ffn_train_bwd=FFN_LAYERS,
+                  moe_similarity=1)
+  lines = {}
+  prev_sigterm = signal.getsignal(signal.SIGTERM)
+  try:
+    for what, argv in SUSTAINED_RUNS:
+      args = bench_sustained.parse_args(argv)
+      steps = ((1 if args.prestage else 4) + args.samples // args.batch
+               + (1 + bench_sustained.BARE_STEPS if args.prestage else 0))
+      line = counted_run(
+          torch, counters, lambda: bench_sustained.run(args),
+          {k: steps * n for k, n in per_step.items()},
+          f"sustained {what}: bench_sustained ({steps} steps)")
+      print(json.dumps(line), flush=True)
+      if not math.isfinite(line["loss"]):
+        raise RuntimeError(f"sustained {what}: loss {line['loss']}")
+      lines[what] = line
+  finally:
+    signal.signal(signal.SIGTERM, prev_sigterm)
+  step_ms = lines["b32"]["step_ms_implied"]
+  print(f"sustained b32 through the trainer and loader "
+        f"({lines['b32']['samples']} samples): {step_ms:.3f} ms a step, "
+        f"{lines['b32']['samples_per_sec']:.1f} samples/s; against phase "
+        f"8's staged b32 step {staged_step_ms:.3f} ms "
+        f"({step_ms / staged_step_ms:.4f}x) and phase 11's window mean "
+        f"{cli_window_ms:.3f} ms ({step_ms / cli_window_ms:.4f}x); "
+        f"--prestage 4 {lines['b32 --prestage 4']['step_ms_implied']:.3f} ms"
+        f" a step, bare {lines['b32 --prestage 4']['bare_per_step_dispatch_ms']:.3f}"
+        f" card: {card}", flush=True)
+  return lines, per_step
+
+
 def finite_metrics(res):
   for which in ("t2v_metrics", "v2t_metrics"):
     vals = [res[which][k] for k in ("R1", "R5", "R10", "R50", "MedR",
@@ -4519,8 +4704,8 @@ def main():
     tp_cli = tp_cli_phase(torch, cfg_path.parent, data_dir, ref, card)
     return served_cli, matrix, dp_cli, tp_cli
 
-  cli_launches, (serve_launches, matrix_launches, dp_launches["c"],
-                 tp_cli_launches) = (
+  cli_launches, cli_loop, (serve_launches, matrix_launches,
+                           dp_launches["c"], tp_cli_launches) = (
       train_cli_phase(torch, ops, ffn, similarity, staged_step_ms, k_s, card,
                       then=serve_cli))
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
@@ -4533,6 +4718,11 @@ def main():
                                               card)
   clock.done("serve-kernels")
   print(f"serve summary: {json.dumps(served)}", flush=True)
+  geometry = geometry_phase(torch, ops, ffn, dropout, similarity, dev, card)
+  clock.done("geometry")
+  _, sustained_per_step = sustained_phase(
+      torch, ffn, similarity, staged_step_ms, cli_loop["window_ms"], card)
+  clock.done("sustained")
   entries["ffn_block"]["launches"] = launches["ffn_block"]
   entries["moe_similarity"]["launches"] = launches["moe_similarity"]
   for name in ("ffn_train_fwd", "ffn_train_bwd"):
@@ -4568,6 +4758,16 @@ def main():
     entries[name]["serving_shapes"] = shapes
     entries[name]["max_abs_err"] = max(
         [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in shapes])
+  # Phase 16: the launches an eval and a step of each geometry, a step of
+  # the sustained runs, and the kernels at the geometries' shapes.
+  for name, cases in geometry["shapes"].items():
+    entries[name]["geometry_launches"] = {
+        g: {k: n[name] for k, n in per.items()}
+        for g, per in geometry["launches"].items()}
+    entries[name]["geometry_shapes"] = cases
+    entries[name]["max_abs_err"] = max(
+        [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in cases])
+    entries[name]["sustained_launches_per_step"] = sustained_per_step[name]
   shown = {k: round(v, 1) for k, v in clock.seconds.items()}
   print(f"phases (s): {json.dumps(shown)}; total {clock.total():.1f} s",
         flush=True)

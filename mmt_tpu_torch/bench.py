@@ -55,29 +55,40 @@ def card_line():
   return out.stdout.strip().splitlines()[0]
 
 
-def _sync(device):
+def sync(device):
+  """Wait for ``device``'s work (a no-op on the CPU)."""
   if torch.device(device).type == "cuda":
     torch.cuda.synchronize(device)
 
 
 def staged_flagship(device="cuda", *, tiny=False, videos=N_VIDEOS,
-                    chunk=BATCH, tp=None):
+                    chunk=BATCH, tp=None, **geometry):
   """The flagship CENet (bf16, seed 0) and ``videos`` distinct videos of
   synthetic inputs staged on ``device`` as chunks of ``chunk`` (chunk c
   from seed 1 + c), one caption each.  With a ``tp``
   (``parallel.TensorParallel``) the model is this rank's shards of the
-  same model (``flagship.flagship_model``)."""
+  same model (``flagship.flagship_model``).  ``geometry``: the JAX
+  entry's four parameters (``flagship``), the flagship's by default."""
   if videos % chunk:
     raise ValueError(f"{videos} videos do not divide into chunks of {chunk}: "
                      "a truncated remainder would overstate throughput")
   model = flagship.flagship_model(device=device, compute_dtype=torch.bfloat16,
-                                  seed=0, tiny=tiny, tp=tp)
-  dims = flagship.flagship_arch(tiny=tiny)["expert_dims"]
-  vocab = dict(vocab=TINY_VOCAB) if tiny else {}
-  staged = [flagship.batch_to_torch(
-      flagship.make_batch(dims, chunk, seed=1 + c, **vocab), device)
-            for c in range(videos // chunk)]
+                                  seed=0, tiny=tiny, tp=tp,
+                                  **flagship.arch_keywords(geometry))
+  staged = [flagship.batch_to_torch(b, device) for b in flagship_batches(
+      model, videos // chunk, chunk, 1, tiny, geometry)]
   return model, staged
+
+
+def flagship_batches(model, n, batch_size, seed, tiny, geometry):
+  """``n`` numpy batches of ``batch_size`` for ``model``'s experts, from
+  seeds ``seed``, ``seed + 1``, ... (the tiny text tower's vocabulary
+  where ``tiny``)."""
+  dims = model.expert_dims
+  vocab = dict(vocab=TINY_VOCAB) if tiny else {}
+  return [flagship.make_batch(dims, batch_size, seed=seed + c, **vocab,
+                              **flagship.batch_keywords(geometry))
+          for c in range(n)]
 
 
 def salted_passes(staged, n_videos, vocab):
@@ -111,7 +122,7 @@ def build_full_eval(device="cuda", *, tiny=False, videos=N_VIDEOS,
 
   def run_eval():
     res = evaluate.retrieval_eval(model, staged)
-    _sync(device)
+    sync(device)
     return res
 
   return run_eval
@@ -151,20 +162,23 @@ def streaming_eval(run, n_large, staged_videos=N_VIDEOS):
           "videos_per_sec_per_chip": n_large / wall}
 
 
-def bench_train_step(device="cuda", *, tiny=False):
-  """ms per train step at b32 (bench.py:_bench_train_step): Adam (lr
-  5e-5), max-margin loss (0.05, fix_norm), steps chained on the device
-  with one synchronisation at the end, after one warm-up step."""
+def train_stepper(device="cuda", *, tiny=False, batch_size=TRAIN_BATCH,
+                  lr=TRAIN_LR, **geometry):
+  """bench.py:_bench_train_step's step on the flagship (bf16, seed 0, in
+  train mode: dropout 0.1) and its batch of ``batch_size`` (seed 0):
+  Adam at ``lr``, max-margin loss (0.05, fix_norm), merge 'avg'.
+  Returns (model, batch on ``device``, one() -> the step's loss, a device
+  tensor not synchronised); the dropout masks come from one generator
+  seeded 2."""
   from mmt_tpu_torch.train import losses, optim, step
 
   model = flagship.flagship_model(device=device, compute_dtype=torch.bfloat16,
-                                  seed=0, tiny=tiny, train=True)
-  dims = flagship.flagship_arch(tiny=tiny)["expert_dims"]
-  vocab = dict(vocab=TINY_VOCAB) if tiny else {}
-  batch = flagship.batch_to_torch(
-      flagship.make_batch(dims, TRAIN_BATCH, **vocab), device)
+                                  seed=0, tiny=tiny, train=True,
+                                  **flagship.arch_keywords(geometry))
+  batch, = flagship_batches(model, 1, batch_size, 0, tiny, geometry)
+  batch = flagship.batch_to_torch(batch, device)
   opt, lr = optim.build_optimizer(
-      {"type": "Adam", "args": {"lr": TRAIN_LR, "weight_decay": 0}},
+      {"type": "Adam", "args": {"lr": lr, "weight_decay": 0}},
       model.parameters())
   loss_fn = losses.max_margin_ranking_loss(0.05, True)
   gen = torch.Generator(device=device).manual_seed(2)
@@ -173,12 +187,29 @@ def bench_train_step(device="cuda", *, tiny=False):
     return step.train_step(model, opt, batch, loss_fn=loss_fn, lr=lr,
                            generator=gen)
 
+  return model, batch, one
+
+
+def chained_step_ms(one, reps=1):
+  """ms per step of ``one``: TRAIN_STEPS steps chained on the device with
+  one synchronisation at the end (a host read of the last loss), the
+  best of ``reps`` such runs, after one warm-up step."""
   float(one())
-  tic = time.perf_counter()
-  for _ in range(TRAIN_STEPS):
-    loss = one()
-  float(loss)
-  return (time.perf_counter() - tic) / TRAIN_STEPS * 1e3
+  best = float("inf")
+  for _ in range(reps):
+    tic = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+      loss = one()
+    float(loss)
+    best = min(best, (time.perf_counter() - tic) / TRAIN_STEPS * 1e3)
+  return best
+
+
+def bench_train_step(device="cuda", *, tiny=False):
+  """ms per train step at b32 (bench.py:_bench_train_step): Adam (lr
+  5e-5), max-margin loss (0.05, fix_norm), steps chained on the device
+  with one synchronisation at the end, after one warm-up step."""
+  return chained_step_ms(train_stepper(device, tiny=tiny)[2])
 
 
 def main(argv=None):

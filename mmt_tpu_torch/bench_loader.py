@@ -19,8 +19,8 @@ the tokenizer alone:
   batches (train) or one pass (eval) through the same loader.
 - tokenizer texts/s, Python and native: the corpus's captions through
   ``sample.tokenize_caption`` (as the loader calls it), and
-  serving-shaped queries (5 of ``QUERY_WORDS``, the words of
-  ``chip_smoke.py``'s phase 12) over their own vocab, as the query
+  serving-shaped queries (5 of ``QUERY_WORDS``: ``bench_serving.WORDS``
+  and four more) over their own vocab, as the query
   engine calls it.
 
 It measures the host only and needs no card: it runs on the CPU as well.

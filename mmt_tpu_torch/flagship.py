@@ -6,6 +6,11 @@ bert-base-cased text tower over 30 tokens, GEU heads with BatchNorm and
 MoE weights.  ``tiny=True`` gives the same structure at test widths.  The
 batch recipe (numpy, seeded) is the JAX entry's, so both packages can be
 fed the same inputs.
+
+The entry's four geometry parameters (``modalities``,
+``max_expert_tokens``, ``max_text_words``, ``max_position_embeddings``)
+give the other published geometries (``bench_geometry.GEOMETRIES``); each
+defaults to the flagship's.
 """
 
 from __future__ import annotations
@@ -18,18 +23,26 @@ from mmt_tpu_torch.models.cenet import CENet
 
 MODALITIES = ["face", "ocr", "rgb", "s3d", "scene", "speech", "vggish"]
 TEXT_VOCAB = 28996
+MAX_EXPERT_TOKENS = MAX_TEXT_WORDS = 30
 MAX_POSITION_EMBEDDINGS = 32   # video BERT position table (tint ids < 31)
+TINY_TEXT_POSITIONS = 64       # the tiny text tower's position table
 
 
-def flagship_arch(tiny=False):
+def flagship_arch(tiny=False, *, modalities=None,
+                  max_text_words=MAX_TEXT_WORDS,
+                  max_position_embeddings=MAX_POSITION_EMBEDDINGS):
   """CENet constructor kwargs of the flagship geometry (configs/eccv20/
-  msrvtt_jsfusion_trainval.json), or of its tiny test-width copy."""
-  expert_dims = compute_dims({"experts": {"face_dim": 512,
-                                          "modalities": MODALITIES}})
+  msrvtt_jsfusion_trainval.json), or of its tiny test-width copy; with
+  ``modalities`` and a video position table of ``max_position_embeddings``
+  rows, another geometry.  The tiny text tower's table holds
+  TINY_TEXT_POSITIONS positions, or ``max_text_words`` where that is
+  more (the JAX entry's keeps 64 and gathers past it at 100 words)."""
+  expert_dims = compute_dims({"experts": {
+      "face_dim": 512, "modalities": list(modalities or MODALITIES)}})
   vid = dict(hidden_size=512, num_hidden_layers=4, num_attention_heads=4,
              intermediate_size=3072, hidden_act="gelu",
              hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
-             max_position_embeddings=MAX_POSITION_EMBEDDINGS,
+             max_position_embeddings=max_position_embeddings,
              type_vocab_size=19, initializer_range=0.02,
              layer_norm_eps=1e-12)
   text_geom, same_dim = None, 512
@@ -37,7 +50,9 @@ def flagship_arch(tiny=False):
     vid.update(hidden_size=64, num_hidden_layers=2, intermediate_size=128)
     text_geom = dict(hidden_size=64, num_hidden_layers=2,
                      num_attention_heads=4, intermediate_size=128,
-                     vocab_size=512, max_position_embeddings=64)
+                     vocab_size=512,
+                     max_position_embeddings=max(TINY_TEXT_POSITIONS,
+                                                 max_text_words))
     same_dim = 64
   return dict(expert_dims=expert_dims, vid_bert_params=vid,
               text_bert_geometry=text_geom, same_dim=same_dim,
@@ -46,25 +61,30 @@ def flagship_arch(tiny=False):
 
 
 def flagship_model(*, device, compute_dtype=torch.bfloat16, seed=0,
-                   tiny=False, train=False, tp=None):
+                   tiny=False, train=False, tp=None, **geometry):
   """The flagship CENet on ``device`` with random weights from ``seed``,
-  in eval mode (``train=True``: in train mode, for ``train.step``).
+  in eval mode (``train=True``: in train mode, for ``train.step``);
+  ``geometry``: ``flagship_arch``'s keywords.
 
   With a ``tp`` (``parallel.TensorParallel``) the whole model is made
   from the seed and this rank keeps its shards: the single-device model,
   split.
   """
-  model = CENet(**flagship_arch(tiny=tiny), compute_dtype=compute_dtype,
-                device=device, tp=tp)
+  model = CENet(**flagship_arch(tiny=tiny, **geometry),
+                compute_dtype=compute_dtype, device=device, tp=tp)
   model.init_weights(torch.Generator(device=device).manual_seed(seed))
   return model.train(train)
 
 
-def make_batch(expert_dims, batch_size, *, max_expert_tokens=30,
-               max_text_words=30, vocab=TEXT_VOCAB, seed=0):
+def make_batch(expert_dims, batch_size, *,
+               max_expert_tokens=MAX_EXPERT_TOKENS,
+               max_text_words=MAX_TEXT_WORDS,
+               max_position_embeddings=MAX_POSITION_EMBEDDINGS,
+               vocab=TEXT_VOCAB, seed=0):
   """Numpy batch of the flagship's input shapes (the JAX entry's recipe):
   token_ids [B,1,T,2], per-expert features [B,L,dim], features_t /
-  features_ind [B,L], avgpool / maxpool [B,dim]."""
+  features_ind [B,L] (temporal ids below the position table's last row),
+  avgpool / maxpool [B,dim]."""
   rng = np.random.RandomState(seed)
   b, t, l = batch_size, max_text_words, max_expert_tokens
   return {
@@ -73,7 +93,7 @@ def make_batch(expert_dims, batch_size, *, max_expert_tokens=30,
       "query_masks": np.ones((b, 1), np.float32),
       "features": {m: rng.randn(b, l, d["dim"]).astype(np.float32)
                    for m, d in expert_dims.items()},
-      "features_t": {m: rng.randint(0, MAX_POSITION_EMBEDDINGS - 1,
+      "features_t": {m: rng.randint(0, max(max_position_embeddings - 1, 2),
                                     (b, l)).astype(np.float32)
                      for m in expert_dims},
       "features_ind": {m: np.ones((b, l), np.float32) for m in expert_dims},
@@ -82,6 +102,17 @@ def make_batch(expert_dims, batch_size, *, max_expert_tokens=30,
       "features_maxpool": {m: rng.randn(b, d["dim"]).astype(np.float32)
                            for m, d in expert_dims.items()},
   }
+
+
+def arch_keywords(geometry):
+  """The keywords of a geometry (the entry's four) ``flagship_arch``
+  takes."""
+  return {k: v for k, v in geometry.items() if k != "max_expert_tokens"}
+
+
+def batch_keywords(geometry):
+  """The keywords of a geometry ``make_batch`` takes."""
+  return {k: v for k, v in geometry.items() if k != "modalities"}
 
 
 def batch_to_torch(batch, device):

@@ -12,8 +12,12 @@ torch, as in the JAX wrapper; the product, the denominator, the guard and
 the divide are one CUDA kernel on the card (csrc/moe_similarity.cu), in
 fp32 throughout, in a block-tile shape that ``pick_tile`` chooses per call
 (every shape gives the same bits).  ``sim_plain`` is its plain PyTorch
-version.  Under autograd ``MoESimilarity`` wraps the kernel contract (t,
-v, tw, vw): the kernel (or plain version) forward, and the closed-form
+version.  ``prefer_kernel=False`` takes the reference's other route
+instead, ``library_similarity``: the counterpart of
+mmt_tpu/ops/similarity.py:_xla_moe_similarity (two fp32 ``torch.mm``s and
+the guard), which the serving engine scores with, as the JAX engine does.
+Under autograd ``MoESimilarity`` wraps the kernel contract (t, v, tw,
+vw): the kernel (or plain version) forward, and the closed-form
 backward of mmt_tpu/ops/similarity.py:_fused_bwd in plain torch (it was
 einsums, not Pallas, on the TPU).  The pre-scaling stays outside, under
 autograd.
@@ -140,13 +144,29 @@ class MoESimilarity(torch.autograd.Function):
     return gd @ v, gd.T @ t, -(gs @ vw), -(gs.T @ tw)
 
 
+def library_similarity(t, v, tw, vw):
+  """The route outside the kernel (mmt_tpu/ops/similarity.py:
+  _xla_moe_similarity, an einsum there): the numerator and the
+  denominator as fp32 ``torch.mm``s, the zero guard, the divide.  Same
+  contract as ``sim_plain``, which stays the kernel's plain version."""
+  numer = torch.mm(t, v.T)
+  denom = torch.mm(tw, vw.T)
+  denom = torch.where(denom == 0, torch.full_like(denom, EPS_ZERO_GUARD),
+                      denom)
+  return numer / denom
+
+
 def moe_similarity(text_embds, vid_embds, text_weights, vid_weights,
-                   merge: str = "avg", num_caps: int = 1):
+                   merge: str = "avg", num_caps: int = 1,
+                   prefer_kernel=None):
   """Similarity matrix between all captions and all videos.
 
   text_embds [Q, M, D], vid_embds [V, M, D], text_weights [Q, M],
   vid_weights [V, M].  Returns fp32 [Q // num_caps, V] for 'avg' (mean
-  over each video's captions) or [Q, V] for 'indep'.
+  over each video's captions) or [Q, V] for 'indep'.  ``prefer_kernel``
+  is the JAX signature's ``prefer_pallas``: None or True take the kernel
+  (on the card; its plain version on the CPU), False the library route
+  (``library_similarity``).
   """
   if merge not in ("avg", "indep"):
     raise ValueError(f"unrecognised merge mode: {merge}")
@@ -156,7 +176,10 @@ def moe_similarity(text_embds, vid_embds, text_weights, vid_weights,
   vw = vid_weights.float().contiguous()
   t = (text_embds.float() * tw[:, :, None]).reshape(q, m * d)
   v = (vid_embds.float() * vw[:, :, None]).reshape(nv, m * d)
-  sims = MoESimilarity.apply(t, v, tw, vw)
+  if prefer_kernel is False:
+    sims = library_similarity(t, v, tw, vw)
+  else:
+    sims = MoESimilarity.apply(t, v, tw, vw)
   if num_caps > 1 and merge == "avg":
     sims = sims.reshape(q // num_caps, num_caps, nv).mean(1)
   return sims

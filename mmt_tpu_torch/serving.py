@@ -3,8 +3,8 @@
 Port of mmt_tpu/serving.py for one card.  Embed a corpus once into an
 index (per-modality embeddings and MoE weights), then answer free-text
 queries with one text-tower forward, the MoE similarity against the
-index (the similarity kernel on the card, csrc/moe_similarity.cu) and a
-top-k on the device:
+index (two fp32 ``torch.mm``s: the JAX engine scores outside its kernel,
+mmt_tpu/serving.py:307-315) and a top-k on the device:
 
   index = RetrievalIndex.build(model, loader)      # or .load(path)
   engine = RetrievalEngine(model, tokenizer, index)
@@ -133,9 +133,12 @@ def stage_index(vid_embds, vid_weights, device, quantize=None):
 def index_similarity(text_embds, text_weights, staged, n_real,
                      quantize=None):
   """fp32 [Q, staged rows] MoE similarity of text_embds [Q, M, D] and
-  text_weights [Q, M] against ``stage_index``'s tensors: the similarity
-  kernel on the card (its plain version on the CPU), or the int8 product
-  with the columns from ``n_real`` on (padding) at -inf."""
+  text_weights [Q, M] against ``stage_index``'s tensors: exact, the
+  library route of ops/similarity.py (``library_similarity``, what
+  ``moe_similarity(prefer_kernel=False)`` takes: two fp32 ``torch.mm``s,
+  as mmt_tpu/serving.py scores with ``prefer_pallas=False`` and never
+  enters the kernel), or the int8 product with the columns from
+  ``n_real`` on (padding) at -inf."""
   if quantize == "int8":
     sims = _int8_moe_similarity(text_embds, text_weights, *staged)
     sims[:, n_real:] = float("-inf")
@@ -144,7 +147,7 @@ def index_similarity(text_embds, text_weights, staged, n_real,
   q, m, d = text_embds.shape
   tw = text_weights.float().contiguous()
   t = (text_embds.float() * tw[:, :, None]).reshape(q, m * d)
-  return similarity_ops.MoESimilarity.apply(t, v, tw, vw)
+  return similarity_ops.library_similarity(t, v, tw, vw)
 
 
 @dataclasses.dataclass
@@ -265,11 +268,12 @@ class RetrievalEngine:
   """Free-text video search over a RetrievalIndex, on the model's device.
 
   The exact engine stages the index's weight-scaled, flattened fp32 rows
-  [V, M*D] and weights [V, M] on the device once and runs the similarity
-  kernel on them per query batch.  With ``quantize="int8"`` the index is
-  staged as per-row symmetric int8 (+ one fp32 scale per video): 4x less
-  device memory and index traffic, an approximation chosen per engine,
-  so exact and quantized engines can serve side by side from one index.
+  [V, M*D] and weights [V, M] on the device once and scores each query
+  batch against them with ``index_similarity``.  With ``quantize="int8"``
+  the index is staged as per-row symmetric int8 (+ one fp32 scale per
+  video): 4x less device memory and index traffic, an approximation
+  chosen per engine, so exact and quantized engines can serve side by
+  side from one index.
   With ``mesh`` (a sequence of torch devices; repeats allowed, so shards
   may share one card) the index is sharded over them on the video axis
   (the module docstring); either quantization composes with it.

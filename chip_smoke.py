@@ -72,11 +72,15 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    least one similarity launch; every output must be finite; the same
    eval with the plain versions must give sims within 2e-2.  Then the
    eval's wall time on both paths, median of 5 runs after a warm-up,
-   taken in turns.  The profile phase runs the eval once more on the
-   kernel path under torch.profiler: device time, wall, the top device
-   operations, B1's kernels in situ against their kernel-phase time alone
-   times the launches, the device activities launched, and the device's
-   idle share of the wall.
+   taken in turns.  The profile phase is ``python -m
+   mmt_tpu_torch.profile_eval --mode eval --reps 1`` (its ``main``): the
+   same eval built again from its seeds, one run under torch.profiler; it
+   launches exactly 320 B1 and 1 B4, and the profiler recorded each
+   family's kernels as often (else the session is run again, then the
+   run fails); the rows sum to the device total, the idle share lies in
+   [0, 1]; the top device activities, the rollup by category, and B1's
+   kernels in situ against their kernel-phase time alone times the
+   launches.
 7. At-scale phase: the same model and videos through bench.py's
    streaming protocol at 10,000 videos (10 salted passes of 1000 in
    chunks of 50; 20,000 until the run's time grew near its limit) and
@@ -97,11 +101,13 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    within 2e-2 relative L2, every parameter's within 0.2, see STEP_*_TOL
    below); 20 steps on one batch must give finite losses and move the
    BatchNorm running statistics.  Then the step time on both paths, b32
-   and b128, median of 20 after 3 warm-ups, taken in turns.  The train
-   profile phase then runs 3 kernel-path steps at b32 and at b128 under
-   torch.profiler: device time, the device's idle share of the wall, the
-   device activities, B2's and B3's kernels in situ (exactly 16 launches
-   of each a step) against their device time alone times the launches,
+   and b128, median of 10 after 3 warm-ups, taken in turns.  The train
+   profile phase then runs, at b32, ``python -m mmt_tpu_torch.profile_eval
+   --mode train --steps 3`` (bench's b32 step) and, at b128, 3
+   kernel-path steps of this phase under ``profile_eval.session``: a
+   step launches exactly 16 B2, 16 B3 and 1 B4, recorded as often; device
+   time, the device's idle share of the wall, the rollup, B2's and B3's
+   kernels in situ against their device time alone times the launches,
    and the top device operations.
 9. Partial-kernel phase: the tensor-parallel halves B6 (eval, video
    10,900 x 512 and text 1,500 x 768 rows, and 1,013 x 192 off the GEMM
@@ -130,8 +136,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    B3 and 0 B1/B2/B6 launches per rank, the loss and the gathered
    gradients within phase 8's tolerances of its kernel step; after 3
    steps every replicated parameter and buffer bitwise equal on both
-   ranks.  Wall times are of two gloo ranks sharing one card: a
-   correctness path, no claim of speed.  A failing rank fails the run.
+   ranks.  Wall times (the counted eval, the 2 later steps) are of two
+   gloo ranks sharing one card: a correctness path, no claim of speed.
+   A failing rank fails the run.
 11. Train-CLI phase: ``mmt_tpu_torch.cli`` (the port of train.py) trains
    the flagship config (bf16, b32, the loaders' own num_workers) on a
    synthetic MSRVTT cut-c corpus written by the port's
@@ -141,8 +148,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    loader and its CUDA prefetch: 2 epochs of 8 steps with a continuous
    eval of the 1,000 train videos after each (and before the first), a
    restart to 3 epochs, then ``--only_eval --resume`` on the plain
-   versions.  Launches exactly 16 B1 per eval batch, 16 B2 and 16 B3
-   per step, one B4 per step and per eval; n_steps 16 then 24; finite
+   versions.  Launches exactly 16 B1 per eval batch, 16 B2 and 16 B3 per
+   step, one B4 per step and per eval; n_steps 16 then 24; finite
    epoch losses; the checkpoints and artifacts written; the final sims
    within 2e-2 of the plain versions'.  Prints the loop's median
    data-loading, step and total ms (the trainer's timers) against phase
@@ -155,7 +162,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    window mean and median step and eval-1k through the loader are
    printed beside run D, the recorded Python-path run (PERF.md, RUN_D
    below).  The 2-epoch run is
-   made twice more, with the same launch counts: on the Python path
+   made twice more, its continuous evals on the 32 val videos, launches
+   counted as above: on the Python path
    (``MMT_TPU_NATIVE_ASSEMBLY=0``, ``MMT_TPU_DISABLE_NATIVE=1``) and on
    the native path with ``"async_checkpoint": false``; each run's
    tokenizer must have taken only its own path.  The three runs' loop
@@ -168,7 +176,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    ``python -m mmt_tpu_torch.hf_bert``; then through ``cli.main`` on the
    phase's corpus and config: ``--only_eval --txt_bert_init`` (every
    txt_bert parameter bitwise the asset's; 16 B1 per eval batch, 1 B4),
-   one epoch from the init (finite losses; launches as counted above),
+   one epoch of 2 steps from the init, its continuous evals on the 32
+   val videos (finite losses; launches as counted above),
    and ``--only_eval --load_checkpoint <that run's checkpoint>
    --txt_bert_init <a zero asset>`` (every entry the checkpoint's: the
    checkpoint wins).  Prints the asset's load and merge seconds.
@@ -176,8 +185,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    ``mmt_tpu_torch.bench_loader``'s protocol (the flagship's 7 experts
    at their widths, b32, 30 of up to 40 rows, 200 videos): train and
    eval samples/s at 0, 1, 2 and 8 workers, Python and native path,
-   cold and warm record cache (warm over 10 batches after 5, half the
-   command's default depth); the tokenizer's texts/s on the corpus's
+   cold and warm record cache (warm over 6 batches after 3, under a
+   third of the command's default depth); the tokenizer's texts/s on the corpus's
    captions and on serving's query strings (native ids equal to the
    Python path's); the host's cores and thread pools.
 12. Serve phase, in three parts.  (a) Before phase 11's directory is
@@ -206,8 +215,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    B4's k-major scratch fill, the top-k and the rest); int8's overlap@10
    with exact; the pinned int8 rule of tests/test_serving.py (R@1/5/10
    identical, top-1 identical on >= 99%, overlap@10 >= 0.95, top-k score
-   MAE <= 1e-3) on its planted corpus (512 x 64), and all of it but R@K
-   equality on the 10,000 x 1,000 one.  (c) B1 at the serving text rows
+   MAE <= 1e-3) through ``python -m mmt_tpu_torch.int8_quality`` (its
+   ``main``) on its planted corpus (512 x 64), and all of it but R@K
+   equality on the 10,000 x 1,000 one (the command's default).  (c) B1 at the serving text rows
    (30 and 1,920 x 768; phase 1's bf16 rules, both row tiles bitwise
    equal) and B4 at [1, 1,000], [1, 100,000] and [64, 100,000] (1e-5;
    with its scratch fill's device time) against their plain versions,
@@ -217,7 +227,7 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    ``serving_launches`` are (a)'s counts.
 13. Matrix phase (run in phase 11's scope, after 12 (a), on its corpus):
    three configs through ``cli.main`` at the flagship widths, bf16,
-   b32, one epoch of 12 steps and the evals on the 32 val videos: (a)
+   b32, one epoch of 8 steps and the evals on the 32 val videos: (a)
    bertfrz4 over bertftn input, ordr, mnp, vid_wgh emb, Ranger (k 6);
    (b) collaborative gating (vid_inp agg, vid_wgh nrm), bertftnmxp, gem,
    missing modalities dropped; (c) wo2vfrz word vectors (a seeded
@@ -251,12 +261,13 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    both tiles are printed); each rank's B5 counts against the plain
    version on its staged shard by phase 3's rules; each B5 call's ms.
    (c) In phase 11's scope, after phase 13, on its corpus and config at
-   one epoch of 8 b32 steps and the continuous eval of the 1,000 train
-   videos fused: two ``mmt_tpu_torch.train`` processes over the
-   MMT_TPU_* variables (``dp_cli_rank``; the shipped loader workers,
-   which the group runs at 0) against ``cli.main`` in one process (0
-   workers): per rank and in the one process exactly 16 x 65 B1, 128 B2
-   and B3, 9 B4 and 4 B5; the continuous eval host-staged; every host
+   one epoch of 4 b32 steps, the continuous eval of the 32 val videos
+   fused and no epoch-0 checkpoint: two ``mmt_tpu_torch.train``
+   processes over the MMT_TPU_* variables (``dp_cli_rank``; the shipped
+   loader workers, which the group runs at 0) against ``cli.main`` in
+   one process (0 workers): per rank and in the one process exactly 16
+   x 3 B1, 64 B2 and B3, 5 B4 and 4 B5; the continuous eval
+   host-staged; every host
    batch of both ranks the one process's (``recorded_run``'s digests);
    the step losses the same on both ranks, step 1's within phase 8's
    1e-4 of the one process's, every step's gap printed; the epoch loss
@@ -277,9 +288,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    33,334].  (b) In phase 11's scope after phase 14 (c), on its corpus
    and config with ``model_parallel`` 2: two ``mmt_tpu_torch.train``
    processes (1 data x 2 model ranks, gloo, the card shared) for one
-   epoch of 8 b32 steps and the fused, host-staged continuous eval of
-   the 1,000 train videos: per rank exactly 128 B7, 128 B3 (add_dz off),
-   16 x 65 B6, 9 B4, 4 B5 and no B1 / B2; every host batch and step 1's
+   epoch of 4 b32 steps and the fused, host-staged continuous eval of
+   the 32 val videos: per rank exactly 64 B7, 64 B3 (add_dz off), 16 x
+   3 B6, 5 B4, 4 B5 and no B1 / B2; every host batch and step 1's
    loss (1e-4) against phase 14 (c)'s one-process run, every later
    step's gap printed, the epoch loss within 1e-2 relative (a bound on
    divergence: TP's bf16 gradients take other roundings, which Adam
@@ -287,7 +298,7 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    with the one process's entries and shapes; then ``--only_eval
    --load_checkpoint`` of that file in this one process (16 B1, 1 B4)
    within TP_SIMS_TOL of the TP run's final sims; last an fp32 witness,
-   the epoch's first 4 steps (no continuous eval) in float32 by two TP
+   the epoch's first 2 steps (no continuous eval) in float32 by two TP
    processes and by one: every host batch equal, every step's loss and
    the epoch loss within 1e-5 relative, the final sims within 1e-4.  The launches are the ``sharded_serving_launches`` of the B1
    and B4 entries and the ``tp_cli_launches`` of every entry.
@@ -313,6 +324,17 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    (warm, timed and bare steps), no B1; each line printed, the b32 step
    beside phase 8's staged step and phase 11's window.  (c) Phase 12
    (b)'s HTTP traffic is ``bench_serving.measure``.
+17. Bench-settings phase: ``python -m mmt_tpu_torch.bench`` (its
+   ``main``) with BENCH_DTYPE=fp32, BENCH_TRAIN_BATCH=128 and
+   BENCH_TRAIN_OPT=Ranger, its depth cut to 200 videos in 4 chunks and
+   one timed eval: the line's keys; the run's launches exactly (16 B1 a
+   chunk of each eval, 16 B2, 16 B3 and 1 B4 a step, 1 B4 an eval); B1
+   on its fp32 kernel (one eval under torch.profiler); the
+   fp32 eval's sims within 1e-4 of the plain path's and its ranks by
+   phase 3's rule; B2 and B3 at b128's 27,904 x 512 and 3,840 x 768 by
+   phase 4's rules with their times and bound (the ``b128_shapes`` of
+   their entries; phase 2's fp32 B1 cases are ``ffn_block``'s
+   ``fp32_shapes``).
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -336,6 +358,9 @@ import subprocess
 import sys
 import time
 
+from mmt_tpu_torch.profile_eval import (PROFILE_TRIES, device_events,
+                                        short_kernel_name)
+
 N_VIDEOS, CHUNK = 1000, 50
 TEXT_LAYERS, VIDEO_LAYERS = 12, 4   # one FFN block each
 FFN_LAYERS = TEXT_LAYERS + VIDEO_LAYERS
@@ -354,20 +379,6 @@ def time_ms(torch, fn, reps=20):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
-
-
-def device_events(prof):
-  """The device activities (kernels and copies) of a torch.profiler run,
-  by name, without the GPU user annotations (spans such as
-  ``Optimizer.step#Adam.step`` that enclose kernels counted already), as
-  torch.profiler's own tables count device time."""
-  from torch.autograd import DeviceType
-
-  return [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-
-
-PROFILE_TRIES = 4
 
 
 def device_split(torch, fn, reps=20):
@@ -408,14 +419,6 @@ def device_ms(torch, fn, reps=20):
   ``time_ms`` it leaves out the gaps in which the device waits for the
   host, which set the event time of calls that take under ~0.1 ms."""
   return sum(device_split(torch, fn, reps).values())
-
-
-def short_kernel_name(key):
-  """A device kernel's name without its return type, namespaces and
-  parameter list: ``ffn_tn_gemm_kernel<64, GeluInterEpilogue>``."""
-  for junk in ("void ", "(anonymous namespace)::", "mmt_gemm::"):
-    key = key.replace(junk, "")
-  return key.split("(")[0]
 
 
 class CardSampler:
@@ -620,8 +623,17 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
           flush=True)
     if not bool(torch.isfinite(got).all()):
       raise RuntimeError("ffn_block kernel produced non-finite values")
-    if cd == torch.float32 and max_err > 1e-4:
-      raise RuntimeError(f"ffn_block fp32 error {max_err} > 1e-4")
+    if cd == torch.float32:
+      if max_err > 1e-4:
+        raise RuntimeError(f"ffn_block fp32 error {max_err} > 1e-4")
+      # The FMA kernel bench's BENCH_DTYPE=fp32 eval runs (phase 17 (c)).
+      b_ms, b_by = bound(4 * r * h * i, H100_FP32, args + (got,))
+      print(f"  bound {b_ms:.4f} ms ({b_by}, fp32 at 67 TFLOP/s) card: "
+            f"{card}", flush=True)
+      res.setdefault("fp32_shapes", []).append(
+          {"shape": f"{r} x {h}, I {i}", "max_abs_err": max_err, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None})
     if cd == torch.bfloat16:
       if max_err > 3e-2 or mean_err > 2e-3:
         raise RuntimeError(f"ffn_block bf16 error {max_err}/{mean_err} "
@@ -911,6 +923,7 @@ def reference_phase(torch, flagship, evaluate, dev):
 
 
 TRAIN_BATCH, TRAIN_BIG_BATCH, TRAIN_LR, TRAIN_STEPS = 32, 128, 5e-5, 20
+TIMED_STEPS = 10     # steps timed a path and batch (a depth cut from 20)
 # Kernel path vs plain path, one b32 step from the same state and seed.
 # The only difference is bf16 rounding: the kernels and the plain versions
 # round an element of an intermediate to the neighbouring bf16 value now
@@ -1067,7 +1080,7 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
   batches = {TRAIN_BATCH: batch, TRAIN_BIG_BATCH: make(TRAIN_BIG_BATCH, 202)}
   for batch_size, b in batches.items():
     runs = {False: [], True: []}
-    for i in range(3 + TRAIN_STEPS):
+    for i in range(3 + TIMED_STEPS):
       for plain in (False, True):
         torch.cuda.synchronize()
         tic = time.perf_counter()
@@ -1078,7 +1091,7 @@ def train_step_phase(torch, flagship, ops, ffn, similarity, dev, card):
     k_ms = statistics.median(runs[False]) * 1e3
     p_ms = statistics.median(runs[True]) * 1e3
     times[batch_size] = (k_ms, p_ms)
-    print(f"train step b{batch_size} (median of {TRAIN_STEPS}): "
+    print(f"train step b{batch_size} (median of {TIMED_STEPS}): "
           f"kernel_path_ms={k_ms:.3f} plain_path_ms={p_ms:.3f} "
           f"ratio={k_ms / p_ms:.4f} samples_per_s={batch_size * 1e3 / k_ms:.1f}"
           f" card: {card}", flush=True)
@@ -1114,36 +1127,37 @@ def train_alone_ms(torch, ffn, dropout, shape, dev, gen):
           for k, fn in calls.items()}
 
 
-def train_profile_phase(torch, ffn, dropout, step, alone, dev, gen, card):
-  """TRAIN_PROFILE_STEPS kernel-path steps at b32 and at b128 under
-  torch.profiler, the card's SM clock and power sampled meanwhile: device
-  time and the device's idle share of the wall, the device activities,
-  B2's and B3's kernels in situ a call against their device time alone
-  (phase 4's at b32; at b128's shapes measured right after the window,
-  clock sampled too) times the launches, and the top device operations."""
-  from torch.profiler import ProfilerActivity, profile
-
-  counted = {k: getattr(ffn, f"{k}_cuda") for k in TRAIN_KERNELS}
-  for batch_size in (TRAIN_BATCH, TRAIN_BIG_BATCH):
+def train_profile_phase(torch, ffn, dropout, profile_eval, step, alone, dev,
+                        gen, card):
+  """At b32 ``python -m mmt_tpu_torch.profile_eval --mode train`` at full
+  width (bench's b32 step, TRAIN_PROFILE_STEPS steps traced); at b128
+  TRAIN_PROFILE_STEPS kernel-path steps of the train-step phase under
+  ``profile_eval.session``.  The card's SM clock and power sampled
+  meanwhile; a step launches exactly 16 B2, 16 B3 and 1 B4, which the
+  profiler recorded as often (``check_profile``); device time and idle
+  share, the rollup, B2's and B3's kernels in situ a step against their
+  device time alone (phase 4's at b32; at b128's shapes measured right
+  after the window, clock sampled too) times the launches."""
+  want = {"B2": FFN_LAYERS, "B3": FFN_LAYERS, "B4": 1}
+  with CardSampler() as card_in:
+    res = profile_eval.main(["--mode", "train", "--steps",
+                            str(TRAIN_PROFILE_STEPS), "--top",
+                            str(PROFILE_TOP)])
+  reports = {TRAIN_BATCH: (res, card_in)}
+  n = TRAIN_PROFILE_STEPS
+  step(TRAIN_BIG_BATCH, 6000)                     # warm-up
+  with CardSampler() as card_in:
+    prof, events, wall_ms, launched = profile_eval.session(
+        lambda: [step(TRAIN_BIG_BATCH, 6001 + s) for s in range(n)], dev)
+  rows, rollup, total = profile_eval.breakdown(prof, events, dev, n)
+  reports[TRAIN_BIG_BATCH] = ({
+      "rows": rows, "rollup": rollup, "device_ms": total,
+      "wall_ms": wall_ms / n, "idle": 1 - total * n / wall_ms,
+      "launches": {f: k / n for f, k in launched.items()}}, card_in)
+  for batch_size, (res, card_in) in reports.items():
+    check_profile(res, want, f"train profile b{batch_size}")
     video = (batch_size * VIDEO_TOKENS, 512)
     text = (batch_size * TEXT_TOKENS, 768)
-    step(batch_size, 6000)                     # warm-up
-    torch.cuda.synchronize()
-    for fn in counted.values():
-      fn.launches = 0
-    with CardSampler() as card_in, profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-      tic = time.perf_counter()
-      for s in range(TRAIN_PROFILE_STEPS):
-        step(batch_size, 6001 + s)
-      torch.cuda.synchronize()
-      wall_ms = (time.perf_counter() - tic) * 1e3
-    launches = {k: fn.launches for k, fn in counted.items()}
-    dev_us = lambda e: e.self_device_time_total
-    on_dev = sorted(device_events(prof), key=dev_us, reverse=True)
-    total_ms = sum(map(dev_us, on_dev)) / 1e3
-    if not total_ms > 0:
-      raise RuntimeError("the profiler recorded no device time")
     events = {}   # CUDA-event ms alone, where measured here
     with CardSampler() as card_alone:
       for shape in (video, text):
@@ -1151,46 +1165,40 @@ def train_profile_phase(torch, ffn, dropout, step, alone, dev, gen, card):
           both = train_alone_ms(torch, ffn, dropout, shape, dev, gen)
           alone[shape] = {k: d for k, (d, _) in both.items()}
           events[shape] = {k: e for k, (_, e) in both.items()}
-    n = TRAIN_PROFILE_STEPS
-    print(f"train profile b{batch_size}: {n} kernel-path steps, wall "
-          f"{wall_ms:.3f} ms (under the profiler), device time {total_ms:.3f} "
-          f"ms ({total_ms / n:.3f} a step) in "
-          f"{sum(e.count for e in on_dev)} device activities, device idle "
-          f"share {1 - total_ms / wall_ms:.4f}; {card_in.summary()} card: "
+    total = res["device_ms"]
+    print(f"train profile b{batch_size}: device time {total:.3f} ms a step, "
+          f"wall {res['wall_ms']:.3f} ms a step (under the profiler), "
+          f"device idle share {res['idle']:.4f}; {card_in.summary()} card: "
           f"{card}", flush=True)
     for kname, names in TRAIN_KERNELS.items():
-      mine = [e for e in on_dev if any(k in e.key for k in names)]
-      in_ms = sum(map(dev_us, mine)) / 1e3
-      calls = launches[kname]
-      want = FFN_LAYERS * n
+      mine = [r for r in res["rows"] if any(k in r["key"] for k in names)]
+      in_ms = sum(r["ms_per_run"] for r in mine)
       # Per step 4 video and 12 text blocks.
-      alone_ms = n * (4 * alone[video][kname] + 12 * alone[text][kname])
-      print(f"train profile b{batch_size}: {kname} in situ {in_ms:.3f} ms "
-            f"({in_ms / total_ms:.2%} of device time; {calls} launches, "
-            f"{sum(e.count for e in mine)} kernels; {in_ms / calls:.4f} ms a "
-            f"call) against device time alone x launches {alone_ms:.3f} ms "
-            f"(in situ / alone {in_ms / alone_ms:.4f}; alone: video "
-            f"{alone[video][kname]:.4f}, text {alone[text][kname]:.4f} ms a "
-            f"call)", flush=True)
+      alone_ms = 4 * alone[video][kname] + 12 * alone[text][kname]
+      print(f"train profile b{batch_size}: {kname} in situ {in_ms:.3f} ms a "
+            f"step ({in_ms / total:.2%} of device time; "
+            f"{sum(r['per_run'] for r in mine):g} kernels a step; "
+            f"{in_ms / FFN_LAYERS:.4f} ms a call) against device time alone "
+            f"x launches {alone_ms:.3f} ms (in situ / alone "
+            f"{in_ms / alone_ms:.4f}; alone: video {alone[video][kname]:.4f}"
+            f", text {alone[text][kname]:.4f} ms a call)", flush=True)
       if events:
         # Calls of 0.1 ms and more: their event time is the device's.
-        ev_ms = n * (4 * events[video][kname] + 12 * events[text][kname])
+        ev_ms = 4 * events[video][kname] + 12 * events[text][kname]
         print(f"  {kname} alone by CUDA events: video "
               f"{events[video][kname]:.4f}, text {events[text][kname]:.4f} "
               f"ms a call; in situ / alone {in_ms / ev_ms:.4f}", flush=True)
-      for e in mine:
-        print(f"  {kname} kernel {dev_us(e) / 1e3:.3f} ms x{e.count} "
-              f"{e.key[:110]}", flush=True)
-      if calls != want:
-        raise RuntimeError(f"profiled steps launched {kname} {calls} times, "
-                           f"not {want}")
+      for r in mine:
+        print(f"  {kname} kernel {r['ms_per_run']:.3f} ms x{r['per_run']:g} "
+              f"{r['name']}", flush=True)
     if batch_size != TRAIN_BATCH:
       print(f"train profile b{batch_size}: while timing B2 and B3 alone "
             f"{card_alone.summary()}", flush=True)
-    for e in on_dev[:PROFILE_TOP]:
-      print(f"  top device op {dev_us(e) / 1e3:.3f} ms "
-            f"({dev_us(e) / 1e3 / total_ms:.2%}) x{e.count} {e.key[:110]}",
-            flush=True)
+      for r in res["rows"][:PROFILE_TOP]:
+        print(f"  top device op {r['ms_per_run']:.3f} ms a step "
+              f"({r['share']:.2%}) x{r['per_run']:g} {r['name'][:110]}",
+              flush=True)
+  return reports[TRAIN_BATCH][0]
 
 
 # Rank-kernel cases: (name, videos, captions per video).  (a) 50k x 50k
@@ -1743,7 +1751,9 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
   return res
 
 
-TP_EVAL_VIDEOS, TP_TIMED_EVALS, TP_TIMED_STEPS = N_VIDEOS, 2, 5
+# The walls are the counted eval's and the 2 replication steps' (recorded,
+# no gate; cut from 2 more evals and 5 more steps).
+TP_EVAL_VIDEOS = N_VIDEOS
 TP_TIMEOUT = 900.0
 # TP eval sims against the single-device kernel path: only the order of
 # the FFN's fp32 sums and one bf16 rounding of the reduced partial differ,
@@ -1801,12 +1811,13 @@ def tp_rank(tp, device, tiny, videos):
   model, batches = bench.staged_flagship(dev, tiny=tiny, videos=videos,
                                          tp=tp)
   reset()
+  sync()
+  tic = time.perf_counter()
   res = evaluate.retrieval_eval(model, batches)
   sync()
+  out["eval_wall_s"] = [time.perf_counter() - tic]
   out["eval_launches"] = {n: fn.launches for n, fn in counters.items()}
   out["sims"] = res["sims"].cpu().numpy()
-  out["eval_wall_s"] = [timed(lambda: evaluate.retrieval_eval(model, batches))
-                        for _ in range(TP_TIMED_EVALS)]
   del model, batches, res
 
   arch = flagship.flagship_arch(tiny=tiny)
@@ -1834,15 +1845,12 @@ def tp_rank(tp, device, tiny, videos):
   out["grads"] = ({n: g.numpy() for n, g in grads.items()} if tp.rank == 0
                   else None)
   del grads
-  for seed in (8, 9):
-    run(seed)
-  sync()
+  # Two more steps, timed (no claim of speed), then the replicas.
+  out["step_wall_s"] = [timed(lambda s=s: run(s)) for s in (8, 9)]
   out["replicated"] = {
       n: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
       for n, t in [*model.named_parameters(), *model.named_buffers()]
       if n not in model.shard_dims}
-  out["step_wall_s"] = [timed(lambda i=i: run(100 + i))
-                        for i in range(TP_TIMED_STEPS)]
   del model, opt, batch
 
   # One fp32 all-reduce of each shape the path reduces, mean of 10.
@@ -1973,7 +1981,6 @@ DP_TIMEOUT = 900.0
 # 16 captions x 30 tokens.
 DP_SHAPES = ((TRAIN_BATCH // DP_SIZE * 218, 512),
              (TRAIN_BATCH // DP_SIZE * 30, 768))
-DP_TIMED_STEPS = 3
 # (b): seeded fp32 embeddings, an uneven corpus, so one video pads.
 DP_RANK_VIDEOS, DP_RANK_CAPS, DP_RANK_SEED = 20_001, 2, 14
 # The launch counters a DP rank reads, by the names of the kernels line.
@@ -2103,14 +2110,11 @@ def dp_rank(dp, device, tiny, videos):
   out["grads"] = ({n: p.grad.cpu().numpy()
                    for n, p in model.named_parameters()}
                   if dp.primary else None)
-  for seed in (8, 9):
-    run(seed)
-  sync()
+  # Two more steps, timed (no claim of speed), then the replicas.
+  out["step_wall_s"] = [timed(lambda s=s: run(s)) for s in (8, 9)]
   out["state"] = {
       n: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
       for n, t in [*model.named_parameters(), *model.named_buffers()]}
-  out["step_wall_s"] = [timed(lambda i=i: run(100 + i))
-                        for i in range(DP_TIMED_STEPS)]
   with torch.no_grad():
     outputs = model(batch)
   flat = torch.ones(sum(p.numel() for p in model.parameters()), device=dev)
@@ -2293,58 +2297,56 @@ B1_KERNELS = ("ffn_cast_bf16_kernel", "ffn_tn_gemm_kernel",
 PROFILE_TOP = 10
 
 
-def profile_phase(torch, evaluate, ffn, model, batches, alone, card):
-  """One eval-1k on the kernel path under torch.profiler: device time,
-  wall, the top device operations, B1's total in situ against its
-  kernel-phase time alone times its launches, the device activities
-  (kernels and copies) launched, and the device's idle share of the
-  wall (one stream, so kernel times add)."""
-  from torch.profiler import ProfilerActivity, profile
+def check_profile(res, want, what):
+  """A ``profile_eval`` breakdown: each family's launches a run equal
+  ``want`` (the others 0), its rows sum to its device total, its idle
+  share in [0, 1]; prints the rollup."""
+  expected = dict.fromkeys(res["launches"], 0)
+  expected.update(want)
+  rows_ms = sum(r["ms_per_run"] for r in res["rows"])
+  print(f"{what}: launches a run {res['launches']} (the counters', each "
+        f"family's kernels recorded as often); device {res['device_ms']:.3f}"
+        f" ms a run, the rows' sum {rows_ms:.3f}, wall {res['wall_ms']:.3f}"
+        f", idle share {res['idle']:.4f}; rollup " + ", ".join(
+            f"{cat} {ms:.3f} ms ({ms / res['device_ms']:.2%})"
+            for cat, ms in res["rollup"].items()), flush=True)
+  if res["launches"] != expected:
+    raise RuntimeError(f"{what}: launches a run {res['launches']}, not "
+                       f"{expected}")
+  if (not math.isclose(rows_ms, res["device_ms"], rel_tol=1e-9)
+      or not 0 <= res["idle"] <= 1 or not res["device_ms"] > 0):
+    raise RuntimeError(f"{what}: rows {rows_ms} against the device total "
+                       f"{res['device_ms']}, idle {res['idle']}")
 
-  evaluate.retrieval_eval(model, batches)        # warm-up
-  torch.cuda.synchronize()
-  ffn.ffn_block_cuda.launches = 0
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    tic = time.perf_counter()
-    evaluate.retrieval_eval(model, batches)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - tic) * 1e3
-  b1_launches = ffn.ffn_block_cuda.launches
-  events = prof.key_averages()
-  dev_us = lambda e: e.self_device_time_total
-  dev = sorted(device_events(prof), key=dev_us, reverse=True)
-  total_ms = sum(map(dev_us, dev)) / 1e3
-  n_dev = sum(e.count for e in dev)
-  host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
-  b1 = [e for e in dev if any(k in e.key for k in B1_KERNELS)]
-  b1_ms = sum(map(dev_us, b1)) / 1e3
+
+def profile_phase(profile_eval, alone, card):
+  """``python -m mmt_tpu_torch.profile_eval --mode eval`` at full width:
+  bench's eval-1k (the slice phase's model and inputs, made again from
+  their seeds), one run under torch.profiler.  It launches exactly 320
+  B1 and 1 B4, which the profiler recorded as often (``check_profile``);
+  B1's kernels in situ against their kernel-phase time alone times the
+  launches."""
+  res = profile_eval.main(["--mode", "eval", "--reps", "1", "--top",
+                          str(PROFILE_TOP)])
+  chunks = N_VIDEOS // CHUNK
+  check_profile(res, {"B1": FFN_LAYERS * chunks, "B4": 1},
+                "profile eval-1k")
+  b1 = [r for r in res["rows"] if any(k in r["key"] for k in B1_KERNELS)]
+  b1_ms = sum(r["ms_per_run"] for r in b1)
   # 20 chunks: 4 video blocks of 10,900 x 512 and 12 text blocks of
   # 1,500 x 768 each; alone[shape] is (event ms, device ms) of one call.
-  chunks = N_VIDEOS // CHUNK
   alone_ms = [chunks * (4 * alone[(10900, 512)][k]
                         + 12 * alone[(1500, 768)][k]) for k in (0, 1)]
-  if not total_ms > 0:
-    raise RuntimeError("the profiler recorded no device time")
-  print(f"profile: eval 1k x 1k on the kernel path, wall {wall_ms:.3f} ms "
-        f"(under the profiler), device time {total_ms:.3f} ms in {n_dev} "
-        f"device activities, host self time {host_ms:.3f} ms, device idle "
-        f"share {1 - total_ms / wall_ms:.4f} card: {card}", flush=True)
-  print(f"profile: B1 in situ {b1_ms:.3f} ms ({b1_ms / total_ms:.2%} of "
-        f"device time; {b1_launches} launches, "
-        f"{sum(e.count for e in b1)} kernels) against the kernel phase's "
-        f"time alone x launches: CUDA events {alone_ms[0]:.3f} ms (in situ "
-        f"/ alone {b1_ms / alone_ms[0]:.4f}), device time {alone_ms[1]:.3f} "
-        f"ms ({b1_ms / alone_ms[1]:.4f})", flush=True)
-  for e in b1:
-    print(f"  B1 kernel {dev_us(e) / 1e3:.3f} ms x{e.count} {e.key[:110]}",
-          flush=True)
-  for e in dev[:PROFILE_TOP]:
-    share = dev_us(e) / 1e3 / total_ms
-    print(f"  top device op {dev_us(e) / 1e3:.3f} ms ({share:.2%}) "
-          f"x{e.count} {e.key[:110]}", flush=True)
-  if b1_launches != FFN_LAYERS * chunks:
-    raise RuntimeError(f"profiled eval launched B1 {b1_launches} times")
+  print(f"profile: B1 in situ {b1_ms:.3f} ms a run ({b1_ms / res['device_ms']:.2%} "
+        f"of device time; {sum(r['per_run'] for r in b1):g} kernels a run) "
+        f"against the kernel phase's time alone x launches: CUDA events "
+        f"{alone_ms[0]:.3f} ms (in situ / alone {b1_ms / alone_ms[0]:.4f}), "
+        f"device time {alone_ms[1]:.3f} ms ({b1_ms / alone_ms[1]:.4f}) "
+        f"card: {card}", flush=True)
+  for r in b1:
+    print(f"  B1 kernel {r['ms_per_run']:.3f} ms x{r['per_run']:g} "
+          f"{r['name']}", flush=True)
+  return res
 
 
 # Phase 11: the flagship trained through the port's CLI and real loader.
@@ -2365,9 +2367,9 @@ CLI_COUNTED = {"ffn_block": "ffn_block_cuda",
 # phase 11 on the Python path (H100 80GB HBM3, 700.00 W; PERF.md).
 RUN_D = {"window_ms": 377.012, "median_ms": 173.112,
          "data_loading_ms": 40.763, "eval_s": 3.8675}
-# bench_loader's protocol at half its default depth (--batches 20,
-# --warm 10): time for phase 16.
-LOADER_BENCH_ARGV = ["--batches", "10", "--warm", "5"]
+# bench_loader's protocol at under a third of its default depth
+# (--batches 20, --warm 10): time for phases 16 and 17.
+LOADER_BENCH_ARGV = ["--batches", "6", "--warm", "3"]
 LOADER_BENCH_LIMIT_S = 60.0
 EPOCH2_STEPS = 3                    # epoch 2's first steps, printed
 
@@ -2447,10 +2449,10 @@ def check_tokenizer_path(trainer, native, what):
                        f"{texts}")
 
 
-def loop_summary(seen, step0, eval0, steps):
+def loop_summary(seen, step0, eval0, steps, videos):
   """One 2-epoch run's loop numbers from the trainer's timers: its
-  ``steps`` step timers from ``step0`` and its 3 continuous evals from
-  ``eval0``."""
+  ``steps`` step timers from ``step0`` and its 3 continuous evals of
+  ``videos`` videos from ``eval0``."""
   ms = {k: [x * 1e3 for x in seen[f"train_batch.{k}"][step0:step0 + steps]]
         for k in ("data_loading", "total")}
   per_epoch = CLI_SAMPLES_PER_EPOCH // 32
@@ -2464,7 +2466,8 @@ def loop_summary(seen, step0, eval0, steps):
           "median_ms": statistics.median(ms["total"]),
           "epoch2_ms": [round(x, 3) for x in
                         ms["total"][per_epoch:per_epoch + EPOCH2_STEPS]],
-          "eval_s": eval_s, "videos_s": CLI_TRAIN_VIDEOS / embed_sim}
+          "eval_s": eval_s, "videos_s": videos / embed_sim,
+          "videos": videos}
 
 
 def cli_config(data_dir, save_dir, epochs):
@@ -2484,6 +2487,15 @@ def cli_config(data_dir, save_dir, epochs):
       mix["captions_per_video"] = caps
   cfg["trainer"].update(epochs=epochs, save_dir=str(save_dir),
                         max_samples_per_epoch=CLI_SAMPLES_PER_EPOCH)
+  return cfg
+
+
+def val_continuous_eval(cfg):
+  """``cfg`` with its continuous eval on the val split's CLI_VAL_VIDEOS
+  videos in place of the 1,000 train videos: a depth cut for the runs
+  whose continuous evals no measurement reads (the first run's and the
+  loop breakdown's keep the 1,000)."""
+  cfg["continuous_eval_sets"][0]["args"]["mix"][0]["split_name"] = "val"
   return cfg
 
 
@@ -2766,11 +2778,12 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
     # Two more 2-epoch runs in this call, held to the same launches: the
     # Python path (the two switches) and the native path with the
     # checkpoint written inline (A14.3); each summarised as the first.
-    runs = {"native path": loop_summary(seen, 0, 0, steps)}
+    runs = {"native path": loop_summary(seen, 0, 0, steps,
+                                        CLI_TRAIN_VIDEOS)}
     for what, native, async_ckpt in (
         ("Python path", False, True),
         ("native path, async_checkpoint false", True, False)):
-      cfg = cli_config(data_dir, root / "exp_more", 2)
+      cfg = val_continuous_eval(cli_config(data_dir, root / "exp_more", 2))
       cfg["trainer"]["async_checkpoint"] = async_ckpt
       (root / "flagship_c_more.json").write_text(json.dumps(cfg))
       at = {k: len(v) for k, v in RecordingMeter.seen.items()}
@@ -2782,23 +2795,24 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
         more = cli_run(ffn, similarity, ["--config",
                                          str(root / "flagship_c_more.json"),
                                          "--device", "cuda"],
-                       first, f"2 epochs, {what}")
+                       want(steps, 4, 4 * final_batches),
+                       f"2 epochs, {what}")
       check_tokenizer_path(more, native, what)
       shutil.rmtree(root / "exp_more", ignore_errors=True)
       runs[what] = loop_summary(RecordingMeter.seen, at["train_batch.total"],
-                                at["valid.embds"], steps)
+                                at["valid.embds"], steps, CLI_VAL_VIDEOS)
     for what, r in runs.items():
       print(f"train-cli loop, {what} (2 epochs, {steps} steps): "
             f"data_loading median {r['data_loading_ms']:.3f} ms; b32 step "
             f"window mean {r['window_ms']:.3f} ms, median "
             f"{r['median_ms']:.3f}; epoch 2's first {EPOCH2_STEPS} steps "
-            f"{r['epoch2_ms']} ms; eval-1k through the loader (median of "
-            f"3) {r['eval_s']:.6f} s, {r['videos_s']:.1f} videos/s card: "
-            f"{card}", flush=True)
+            f"{r['epoch2_ms']} ms; continuous eval of {r['videos']} videos "
+            f"through the loader (median of 3) {r['eval_s']:.6f} s, "
+            f"{r['videos_s']:.1f} videos/s card: {card}", flush=True)
     nat, py = runs["native path"], runs["Python path"]
     print("train-cli: native path / Python path in this call: "
           + ", ".join(f"{k} {nat[k] / py[k]:.4f}x" for k in
-                      ("data_loading_ms", "window_ms", "median_ms", "eval_s"))
+                      ("data_loading_ms", "window_ms", "median_ms"))
           + f" card: {card}", flush=True)
     txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
                         per_eval, final_batches, card)
@@ -2955,13 +2969,14 @@ def txt_bert_init_phase(torch, ffn, similarity, root, data_dir, want,
         f"every txt_bert parameter bitwise the asset's card: {card}",
         flush=True)
 
-  # 2. One epoch from the init.
-  _, train_cfg = config("init_train", 1)
+  # 2. One epoch from the init: 2 steps, the continuous eval on val (a
+  # depth cut from 8 steps and the 1,000 train videos).
+  cfg, train_cfg = config("init_train", 1)
+  val_continuous_eval(cfg)["trainer"]["max_samples_per_epoch"] = 2 * 32
+  train_cfg.write_text(json.dumps(cfg))
   cli_run(ffn, similarity, ["--config", str(train_cfg), "--device", "cuda",
                             "--txt_bert_init", asset_path],
-          want(CLI_SAMPLES_PER_EPOCH // 32, 3,
-               2 * per_eval + final_batches),
-          "(d) 1 epoch from the init")
+          want(2, 3, 3 * final_batches), "(d) 1 epoch from the init")
   with open(root / "init_train" / "perf_log.txt") as f:
     losses = [json.loads(line)["loss"] for line in f]
   print(f"train-cli (d): epoch losses from the init {losses}", flush=True)
@@ -3025,87 +3040,6 @@ SERVE_SIM_CASES = ((1, 1_000), (1, 100_000), (64, 100_000),
 SERVE_SPLIT = {"B1": B1_KERNELS, "B4": ("moe_similarity_kernel",),
                "B4 scratch fill": ("k_major_kernel",),
                "top-k": ("topk", "TopK", "radix", "Radix", "sort", "Sort")}
-
-
-def planted_corpus(num_videos, num_queries, modalities=7, dim=512, seed=0,
-                   noise=0.35, weight_noise=0.1):
-  """scripts/int8_quality.py:make_corpus (the same numpy draws): [N, M, D]
-  L2-normalised video embeddings, L1-normalised weights, and queries
-  that are noisy copies of a ground-truth video's (vid, vw, txt, tw,
-  gt)."""
-  import numpy as np
-
-  rng = np.random.RandomState(seed)
-
-  def l2norm(x):
-    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
-
-  def l1norm(w):
-    return w / np.maximum(w.sum(-1, keepdims=True), 1e-12)
-
-  vid = l2norm(rng.randn(num_videos, modalities, dim).astype(np.float32))
-  vw = l1norm(np.abs(rng.randn(num_videos, modalities)).astype(np.float32))
-  gt = rng.randint(0, num_videos, size=num_queries)
-  txt = l2norm(vid[gt] + noise * rng.randn(num_queries, modalities, dim)
-               .astype(np.float32))
-  tw = l1norm(np.abs(vw[gt] + weight_noise
-                     * rng.randn(num_queries, modalities)).astype(np.float32))
-  return vid, vw, txt.astype(np.float32), tw.astype(np.float32), gt
-
-
-def int8_quality(torch, serving, vid, vw, txt, tw, gt, device, topk=10,
-                 batch=256):
-  """scripts/int8_quality.py:quality_report through the port's engine
-  tensors: the same query embeddings scored against the exact and the
-  int8 staged index (``serving.stage_index`` / ``index_similarity``);
-  R@1/5/10 of both, top-1 agreement, overlap@k, and the error of the
-  int8 scores of each query's exact top-k videos."""
-  import numpy as np
-
-  staged = {q: serving.stage_index(vid, vw, device, q) for q in (None, "int8")}
-  idx_f, idx_q, sc_f, sc_q = [], [], [], []
-  with torch.inference_mode():
-    for s in range(0, len(txt), batch):
-      t = torch.from_numpy(txt[s:s + batch]).to(device)
-      w = torch.from_numpy(tw[s:s + batch]).to(device)
-      exact = serving.index_similarity(t, w, staged[None], len(vid))
-      q8 = serving.index_similarity(t, w, staged["int8"], len(vid), "int8")
-      scores_f, top_f = torch.topk(exact, topk)
-      top_q = torch.topk(q8, topk)[1]
-      idx_f.append(top_f.cpu().numpy())
-      idx_q.append(top_q.cpu().numpy())
-      sc_f.append(scores_f.cpu().numpy())
-      sc_q.append(torch.gather(q8, 1, top_f).cpu().numpy())
-  idx_f, idx_q = np.concatenate(idx_f), np.concatenate(idx_q)
-  sc_f, sc_q = np.concatenate(sc_f), np.concatenate(sc_q)
-  rep = {}
-  for k in (1, 5, 10):
-    k = min(k, topk)
-    rep[f"R{k}_fp32"] = float((idx_f[:, :k] == gt[:, None]).any(1).mean())
-    rep[f"R{k}_int8"] = float((idx_q[:, :k] == gt[:, None]).any(1).mean())
-    rep[f"overlap@{k}"] = float(np.mean([
-        len(set(idx_f[q, :k]) & set(idx_q[q, :k])) / k
-        for q in range(len(gt))]))
-  rep["top1_identical"] = float((idx_f[:, 0] == idx_q[:, 0]).mean())
-  rep["score_mae_topk"] = float(np.abs(sc_f - sc_q).mean())
-  rep["score_max_err_topk"] = float(np.abs(sc_f - sc_q).max())
-  return rep
-
-
-def int8_quality_faults(rep):
-  """The pinned rule of tests/test_serving.py's int8 quality test, as a
-  list of what ``rep`` (``int8_quality``'s) breaks: R@1/5/10 identical,
-  top-1 identical on >= 99% of queries, overlap@10 >= 0.95, top-k score
-  MAE <= 1e-3."""
-  faults = [f"R{k}" for k in (1, 5, 10)
-            if rep[f"R{k}_int8"] != rep[f"R{k}_fp32"]]
-  if rep["top1_identical"] < 0.99:
-    faults.append("top1_identical")
-  if rep["overlap@10"] < 0.95:
-    faults.append("overlap@10")
-  if rep["score_mae_topk"] > 1e-3:
-    faults.append("score_mae_topk")
-  return faults
 
 
 def check_hits(hits, topk, ids, what):
@@ -3308,7 +3242,7 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
 
   import numpy as np
 
-  from mmt_tpu_torch import bench_serving, serving
+  from mmt_tpu_torch import bench_serving, int8_quality, serving
 
   root = pathlib.Path(tempfile.mkdtemp(prefix="mmt_serve_"))
   try:
@@ -3368,11 +3302,14 @@ def serve_scale_phase(torch, ops, ffn, similarity, flagship, dev, card,
     # (scripts/int8_quality.py gives the same R@1 and R@10 moves).
     for size in (SERVE_QUALITY_PINNED, SERVE_QUALITY):
       tic = time.perf_counter()
-      rep = int8_quality(torch, serving, *planted_corpus(*size), device=dev)
-      faults = int8_quality_faults(rep)
-      print(f"serve: int8 quality on the planted corpus {size} (videos, "
-            f"queries) in {time.perf_counter() - tic:.1f} s: "
-            f"{json.dumps(rep)}; faults {faults}", flush=True)
+      rep = int8_quality.main(["--videos", str(size[0]), "--queries",
+                               str(size[1])])
+      faults = int8_quality.faults(rep)
+      print(f"serve: python -m mmt_tpu_torch.int8_quality on the planted "
+            f"corpus {size} (videos, queries) in "
+            f"{time.perf_counter() - tic:.1f} s: faults {faults}", flush=True)
+      if rep["backend"] != "cuda" or (rep["videos"], rep["queries"]) != size:
+        raise RuntimeError(f"serve: int8_quality ran {rep}")
       if size != SERVE_QUALITY_PINNED:
         faults = [f for f in faults if f not in ("R1", "R5", "R10")]
       if faults:
@@ -3569,7 +3506,7 @@ def serve_kernel_cases(torch, ffn, similarity, dev, card):
 
 
 # Phase 13: the config matrix through the port's CLI on phase 11's corpus.
-MATRIX_STEPS = 12                       # one epoch of b32 steps a run
+MATRIX_STEPS = 8     # one epoch of b32 steps a run (a depth cut from 12)
 MATRIX_WE_DIM = 300                     # the registry's speech / ocr width
 MATRIX_RUNS = {
     # name: (arch.args, optimizer or None, per-step B2 / B3, B1 per eval
@@ -3859,17 +3796,23 @@ class PhaseClock:
 # Phase 14 (c): the CLI over two processes on phase 11's corpus.
 DP_CLI_TIMEOUT = 600.0
 DP_CLI_LOSS_RTOL, DP_CLI_SIMS_TOL = 1e-3, 2e-2
+DP_CLI_STEPS = 4     # b32 steps of the epoch (a depth cut from 8)
 
 
 def dp_cli_config(data_dir, save_dir, shipped_workers):
-  """Phase 11's config for one epoch, the continuous eval of the 1,000
-  train videos fused (no visualizer, which reads the matrix).  The
-  loaders keep the shipped config's worker threads (which a group runs at
-  0) or, for the one process, run at 0: its batches are then the ones a
-  group's ranks assemble."""
-  cfg = cli_config(data_dir, save_dir, 1)
+  """Phase 11's config for one epoch of DP_CLI_STEPS steps, the
+  continuous eval of the val split's CLI_VAL_VIDEOS videos fused (no
+  visualizer, which reads the matrix), no checkpoint at epoch 0 (depth
+  cuts from 8 steps, the 1,000 train videos and the epoch-0
+  checkpoint).  The loaders keep the shipped
+  config's worker threads (which a group runs at 0) or, for the one
+  process, run at 0: its batches are then the ones a group's ranks
+  assemble."""
+  cfg = val_continuous_eval(cli_config(data_dir, save_dir, 1))
   cfg.pop("visualizer", None)
-  cfg["trainer"]["fused_eval_from_videos"] = CLI_TRAIN_VIDEOS
+  cfg["trainer"].update(fused_eval_from_videos=CLI_VAL_VIDEOS,
+                        skip_first_n_saves=1,
+                        max_samples_per_epoch=32 * DP_CLI_STEPS)
   if not shipped_workers:
     for key in ("train_sets", "continuous_eval_sets", "final_eval_sets"):
       cfg[key][0]["args"]["num_workers"] = 0
@@ -4015,8 +3958,8 @@ def dp_cli_phase(torch, cfg_dir, data_dir, card):
   threaded = sum(cfgs["two"][key][0]["args"]["num_workers"] > 0
                  for key in ("train_sets", "continuous_eval_sets",
                              "final_eval_sets"))
-  per_eval = -(-CLI_TRAIN_VIDEOS // 32)
-  steps = CLI_SAMPLES_PER_EPOCH // 32
+  per_eval = -(-CLI_VAL_VIDEOS // 32)
+  steps = DP_CLI_STEPS
   want = {n: 0 for n in DP_COUNTED}
   want.update(ffn_block=FFN_LAYERS * (2 * per_eval + 1),
               ffn_train_fwd=FFN_LAYERS * steps,
@@ -4141,7 +4084,7 @@ def checkpoint_layout(torch, path):
 TP_CLI_SIZE = 2
 TP_CLI_BF16_LOSS_RTOL = 1e-2
 TP_CLI_FP32_TOLS = (1e-5, 1e-4)
-TP_FP32_STEPS = 4   # the witness's epoch: 4 b32 steps (a depth cut)
+TP_FP32_STEPS = 2   # the witness's epoch: 2 b32 steps (a depth cut from 4)
 
 
 def tp_cli_phase(torch, cfg_dir, data_dir, ref, card):
@@ -4167,8 +4110,8 @@ def tp_cli_phase(torch, cfg_dir, data_dir, ref, card):
   (cfg_dir / "tp_two.json").write_text(json.dumps(cfg))
   (cfg_dir / "tp_eval.json").write_text(json.dumps(
       dp_cli_config(data_dir, eval_exp, shipped_workers=False)))
-  per_eval = -(-CLI_TRAIN_VIDEOS // 32)
-  steps = CLI_SAMPLES_PER_EPOCH // 32
+  per_eval = -(-CLI_VAL_VIDEOS // 32)
+  steps = DP_CLI_STEPS
   want = {n: 0 for n in DP_COUNTED}
   want.update(ffn_partial=FFN_LAYERS * (2 * per_eval + 1),
               ffn_train_fwd_partial=FFN_LAYERS * steps,
@@ -4533,6 +4476,105 @@ def sustained_phase(torch, ffn, similarity, staged_step_ms, cli_window_ms,
   return lines, per_step
 
 
+# Phase 17 (c): bench.main with bench.py's remaining settings, its depth
+# cut (200 videos in 4 chunks of 50, one timed eval; the command's
+# defaults are 1,000 and 5).
+BENCH_SETTINGS = {"BENCH_DTYPE": "fp32", "BENCH_TRAIN_BATCH": "128",
+                  "BENCH_TRAIN_OPT": "Ranger", "BENCH_VIDEOS": "200",
+                  "BENCH_REPS": "1"}
+BENCH_SETTINGS_KEYS = {"metric", "value", "unit", "latency_s_1kx1k",
+                       "backend", "dtype", "kernels", "card",
+                       "train_step_ms_b128",
+                       "train_samples_per_sec_per_chip"}
+FP32_SIMS_TOL = 1e-4      # phase 5's fp32 rule
+
+
+def bench_settings_phase(torch, ffn, dropout, similarity, ranking,
+                         profile_eval, dev, gen, card):
+  """``python -m mmt_tpu_torch.bench`` (``bench.main``) with
+  BENCH_DTYPE=fp32, BENCH_TRAIN_BATCH=128 and BENCH_TRAIN_OPT=Ranger:
+  the line's keys; the whole run's launches exact (16 B1 a chunk of each
+  of the 2 evals, 16 B2, 16 B3 and 1 B4 a step of the 21, 1 B4 an eval);
+  B1 on its fp32 kernel (off the GEMM route; one eval under
+  torch.profiler, its FFN kernels ``ffn_block_f32_kernel`` only);
+  the fp32 eval's sims within FP32_SIMS_TOL of the plain path's and its
+  ranks by phase 3's rule; B2 and B3 at b128's rows by phase 4's rules
+  with their times (``train_ffn_cases``).  Returns those cases and the
+  launches."""
+  from mmt_tpu_torch import bench, ops
+
+  counters = phase16_counters(ffn, similarity)
+  cfg = bench.settings({**os.environ, **BENCH_SETTINGS})
+  chunks = cfg["videos"] // cfg["chunk"]
+  made, real = [], bench.build_full_eval
+
+  def kept(*args, **kw):
+    made.append(real(*args, **kw))
+    return made[-1]
+
+  prev = {k: os.environ.get(k) for k in BENCH_SETTINGS}
+  os.environ.update(BENCH_SETTINGS)
+  bench.build_full_eval = kept
+  try:
+    line = counted_run(
+        torch, counters, lambda: bench.main([]),
+        {"ffn_block": FFN_LAYERS * chunks * 2,
+         "ffn_train_fwd": FFN_LAYERS * (bench.TRAIN_STEPS + 1),
+         "ffn_train_bwd": FFN_LAYERS * (bench.TRAIN_STEPS + 1),
+         "moe_similarity": 2 + bench.TRAIN_STEPS + 1},
+        "bench fp32 / b128 / Ranger")
+  finally:
+    bench.build_full_eval = real
+    for k, v in prev.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  if (set(line) != BENCH_SETTINGS_KEYS or line["dtype"] != "fp32"
+      or line["kernels"] is not True or line["backend"] != "cuda"):
+    raise RuntimeError(f"bench fp32 / b128 / Ranger: the line {line}")
+  run_eval, = made
+  if ffn.gemm_route(512, 3072, torch.float32):
+    raise RuntimeError("fp32 takes the GEMM route")
+  # Late in the process the profiler drops a launch now and then, so the
+  # kernels' names are read here (device_split's rule) and the launches
+  # from the counters above.
+  names = {short_kernel_name(k) for k in device_split(torch, run_eval, 1)
+           if profile_eval.category(k).startswith("cuda ffn")}
+  print(f"bench fp32 eval under the profiler: the FFN kernels "
+        f"{sorted(names)}", flush=True)
+  if not names or any(not n.startswith("ffn_block_f32_kernel")
+                      for n in names):
+    raise RuntimeError(f"bench fp32 eval: B1 ran {names}")
+
+  got = run_eval()
+  with ops.plain_versions():
+    want = run_eval()
+  diff = float((got["sims"] - want["sims"]).abs().max())
+  print(f"bench fp32 eval {tuple(got['sims'].shape)}: kernel vs plain sims "
+        f"max_abs_diff={diff:.3e} (limit {FP32_SIMS_TOL:.0e})", flush=True)
+  if not bool(torch.isfinite(got["sims"]).all()) or diff > FP32_SIMS_TOL:
+    raise RuntimeError(f"bench fp32 eval: sims differ by {diff}")
+  masks = torch.ones(got["sims"].shape[0], 1, device=dev)
+  for what, rank in (("t2v", lambda a: ranking.t2v_ranks(a)),
+                     ("v2t", lambda a: ranking.v2t_ranks(a, masks))):
+    check_rank_rule(torch, f"bench fp32 eval {what} kernel vs plain",
+                    rank(got["sims"]), rank(want["sims"]))
+  print(f"bench fp32 eval wall {line['latency_s_1kx1k']:.6f} s for "
+        f"{cfg['videos']} videos ({line['value']:.1f} videos/s); b128 Ranger "
+        f"step "
+        f"{line['train_step_ms_b128']:.3f} ms "
+        f"({line['train_samples_per_sec_per_chip']:.1f} samples/s) card: "
+        f"{card}", flush=True)
+  cases = {}
+  for r, h in ((TRAIN_BIG_BATCH * VIDEO_TOKENS, 512),
+               (TRAIN_BIG_BATCH * TEXT_TOKENS, 768)):
+    for name, case in train_ffn_cases(torch, ffn, dropout, dev, gen, r, h,
+                                      "b128", card).items():
+      cases.setdefault(name, []).append(case)
+  return cases
+
+
 def finite_metrics(res):
   for which in ("t2v_metrics", "v2t_metrics"):
     vals = [res[which][k] for k in ("R1", "R5", "R10", "R50", "MedR",
@@ -4549,7 +4591,8 @@ def main():
     return 1
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  from mmt_tpu_torch import _build, bench, evaluate, flagship, ops, parallel
+  from mmt_tpu_torch import (_build, bench, evaluate, flagship, ops, parallel,
+                             profile_eval)
   from mmt_tpu_torch.ops import dropout, ffn, ranking, similarity
   from mmt_tpu_torch.train import metrics
 
@@ -4658,7 +4701,7 @@ def main():
         f"plain_path_s={[round(x, 6) for x in runs[True]]}", flush=True)
   del res, res_plain
   clock.done("slice")
-  profile_phase(torch, evaluate, ffn, model, batches, alone, card)
+  profile_phase(profile_eval, alone, card)
   clock.done("profile")
 
   # ---- at-scale phase: the fused eval at 10k videos, no matrix ----
@@ -4674,7 +4717,8 @@ def main():
   train_launches, staged_step_ms, *step_ref, step = train_step_phase(
       torch, flagship, ops, ffn, similarity, dev, card)
   clock.done("train-step")
-  train_profile_phase(torch, ffn, dropout, step, train_alone, dev, gen, card)
+  train_profile_phase(torch, ffn, dropout, profile_eval, step, train_alone,
+                      dev, gen, card)
   del step
   torch.cuda.empty_cache()
   clock.done("train-profile")
@@ -4723,6 +4767,9 @@ def main():
   _, sustained_per_step = sustained_phase(
       torch, ffn, similarity, staged_step_ms, cli_loop["window_ms"], card)
   clock.done("sustained")
+  b128_cases = bench_settings_phase(torch, ffn, dropout, similarity, ranking,
+                                    profile_eval, dev, gen, card)
+  clock.done("bench-settings")
   entries["ffn_block"]["launches"] = launches["ffn_block"]
   entries["moe_similarity"]["launches"] = launches["moe_similarity"]
   for name in ("ffn_train_fwd", "ffn_train_bwd"):
@@ -4768,6 +4815,11 @@ def main():
     entries[name]["max_abs_err"] = max(
         [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in cases])
     entries[name]["sustained_launches_per_step"] = sustained_per_step[name]
+  # Phase 17 (c): B2 and B3 at b128's rows; B1's fp32 cases of phase 2.
+  for name, cases in b128_cases.items():
+    entries[name]["b128_shapes"] = cases
+    entries[name]["max_abs_err"] = max(
+        [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in cases])
   shown = {k: round(v, 1) for k, v in clock.seconds.items()}
   print(f"phases (s): {json.dumps(shown)}; total {clock.total():.1f} s",
         flush=True)

@@ -8,6 +8,7 @@ weights from a seed, synthetic inputs of the real shapes) runs:
   build the [1000, 1000] MoE similarity, rank (t2v and v2t), reduce to
   metrics (``evaluate.retrieval_eval``);
 - the b32 train step (Adam, max-margin loss), 20 steps on one batch;
+  bf16 whatever BENCH_DTYPE says, as bench.py's;
 - with ``BENCH_LARGE=<N>``, the streaming eval at N videos: N / 1000
   salted passes over the 1000 staged videos, then the t2v ranks straight
   from the embeddings (the fused ranks; the [N, N] matrix is never
@@ -19,8 +20,17 @@ weights from a seed, synthetic inputs of the real shapes) runs:
       python -m mmt_tpu_torch.bench --device cpu --tiny
 
 Settings, as bench.py reads them: BENCH_VIDEOS (1000), BENCH_BATCH (50),
-BENCH_REPS (5), BENCH_TRAIN (1), BENCH_LARGE (0); BENCH_KERNELS=0 runs the
-plain PyTorch versions on the card (bench.py's BENCH_PALLAS=0).
+BENCH_REPS (5), BENCH_TRAIN (1), BENCH_LARGE (0); BENCH_DTYPE (bf16, or
+fp32: the towers' compute type in the eval and the streaming eval, so B1
+takes its fp32 kernel and B4 stays fp32; TF32 stays off);
+BENCH_TRAIN_BATCH (32: the step's batch, key train_step_ms_b<N>);
+BENCH_TRAIN_OPT (Adam, or any optimizer train/optim.py registers, such
+as Ranger, at lr 5e-5 and weight decay 0; another name raises);
+BENCH_KERNELS=0 runs the plain PyTorch versions on the card (bench.py's
+BENCH_PALLAS=0).
+
+  BENCH_DTYPE=fp32 BENCH_TRAIN_BATCH=128 BENCH_TRAIN_OPT=Ranger \\
+      python -m mmt_tpu_torch.bench
 
 Prints ONE JSON line with bench.py's keys, less those that only its TPU
 setup has (vs_baseline, against a TPU north star; dispatch_rtt_s and
@@ -45,6 +55,34 @@ from mmt_tpu_torch.ops import ranking
 
 N_VIDEOS, BATCH, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1000, 50, 32, 20, 5e-5
 TINY_VOCAB = 512   # the tiny text tower's vocabulary
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def settings(environ=os.environ):
+  """The BENCH_* settings (see the module docstring) with bench.py's
+  defaults; an unknown BENCH_DTYPE raises."""
+  dtype = environ.get("BENCH_DTYPE", "bf16")
+  if dtype not in DTYPES:
+    raise ValueError(f"BENCH_DTYPE={dtype!r}: one of {sorted(DTYPES)}")
+  return {"videos": int(environ.get("BENCH_VIDEOS", str(N_VIDEOS))),
+          "chunk": int(environ.get("BENCH_BATCH", str(BATCH))),
+          "reps": int(environ.get("BENCH_REPS", "5")),
+          "train": environ.get("BENCH_TRAIN", "1") == "1",
+          "n_large": int(environ.get("BENCH_LARGE", "0")),
+          "dtype": dtype,
+          "train_batch": int(environ.get("BENCH_TRAIN_BATCH",
+                                         str(TRAIN_BATCH))),
+          "train_opt": environ.get("BENCH_TRAIN_OPT", "Adam"),
+          "kernels": environ.get("BENCH_KERNELS", "1") == "1"}
+
+
+def kernel_path(device, kernels):
+  """The context the benchmark's programs run in: the CUDA kernels on
+  the card, unless ``kernels`` is false; the plain versions otherwise
+  (which CPU tensors take anyway)."""
+  if torch.device(device).type == "cuda" and kernels:
+    return contextlib.nullcontext()
+  return ops.plain_versions()
 
 
 def card_line():
@@ -62,8 +100,10 @@ def sync(device):
 
 
 def staged_flagship(device="cuda", *, tiny=False, videos=N_VIDEOS,
-                    chunk=BATCH, tp=None, **geometry):
-  """The flagship CENet (bf16, seed 0) and ``videos`` distinct videos of
+                    chunk=BATCH, tp=None, compute_dtype=torch.bfloat16,
+                    **geometry):
+  """The flagship CENet (``compute_dtype``, bf16 by default; seed 0) and
+  ``videos`` distinct videos of
   synthetic inputs staged on ``device`` as chunks of ``chunk`` (chunk c
   from seed 1 + c), one caption each.  With a ``tp``
   (``parallel.TensorParallel``) the model is this rank's shards of the
@@ -72,7 +112,7 @@ def staged_flagship(device="cuda", *, tiny=False, videos=N_VIDEOS,
   if videos % chunk:
     raise ValueError(f"{videos} videos do not divide into chunks of {chunk}: "
                      "a truncated remainder would overstate throughput")
-  model = flagship.flagship_model(device=device, compute_dtype=torch.bfloat16,
+  model = flagship.flagship_model(device=device, compute_dtype=compute_dtype,
                                   seed=0, tiny=tiny, tp=tp,
                                   **flagship.arch_keywords(geometry))
   staged = [flagship.batch_to_torch(b, device) for b in flagship_batches(
@@ -114,11 +154,11 @@ def salted_passes(staged, n_videos, vocab):
 
 
 def build_full_eval(device="cuda", *, tiny=False, videos=N_VIDEOS,
-                    chunk=BATCH):
+                    chunk=BATCH, compute_dtype=torch.bfloat16):
   """The 1k x 1k matrix eval as chip_smoke.py times it.  Returns
   run_eval() -> the eval's result, its work ended."""
   model, staged = staged_flagship(device, tiny=tiny, videos=videos,
-                                  chunk=chunk)
+                                  chunk=chunk, compute_dtype=compute_dtype)
 
   def run_eval():
     res = evaluate.retrieval_eval(model, staged)
@@ -129,14 +169,14 @@ def build_full_eval(device="cuda", *, tiny=False, videos=N_VIDEOS,
 
 
 def build_streaming_eval(device="cuda", *, tiny=False, videos=N_VIDEOS,
-                         chunk=BATCH):
+                         chunk=BATCH, compute_dtype=torch.bfloat16):
   """Large-corpus eval with no sims matrix (bench.py:build_streaming_eval):
   the corpus streams through the embed in passes over the staged videos
   and is ranked straight from the accumulated embeddings.  Returns
   run(n_videos) -> wall seconds, a host read of the rank sum being the
   completion barrier."""
   model, staged = staged_flagship(device, tiny=tiny, videos=videos,
-                                  chunk=chunk)
+                                  chunk=chunk, compute_dtype=compute_dtype)
 
   def run(n_videos):
     tic = time.perf_counter()
@@ -163,10 +203,12 @@ def streaming_eval(run, n_large, staged_videos=N_VIDEOS):
 
 
 def train_stepper(device="cuda", *, tiny=False, batch_size=TRAIN_BATCH,
-                  lr=TRAIN_LR, **geometry):
+                  lr=TRAIN_LR, opt="Adam", **geometry):
   """bench.py:_bench_train_step's step on the flagship (bf16, seed 0, in
   train mode: dropout 0.1) and its batch of ``batch_size`` (seed 0):
-  Adam at ``lr``, max-margin loss (0.05, fix_norm), merge 'avg'.
+  the optimizer ``opt`` (a name ``train.optim.build_optimizer`` knows,
+  else it raises) at ``lr`` and weight decay 0, max-margin loss (0.05,
+  fix_norm), merge 'avg'.
   Returns (model, batch on ``device``, one() -> the step's loss, a device
   tensor not synchronised); the dropout masks come from one generator
   seeded 2."""
@@ -178,7 +220,7 @@ def train_stepper(device="cuda", *, tiny=False, batch_size=TRAIN_BATCH,
   batch, = flagship_batches(model, 1, batch_size, 0, tiny, geometry)
   batch = flagship.batch_to_torch(batch, device)
   opt, lr = optim.build_optimizer(
-      {"type": "Adam", "args": {"lr": lr, "weight_decay": 0}},
+      {"type": opt, "args": {"lr": lr, "weight_decay": 0}},
       model.parameters())
   loss_fn = losses.max_margin_ranking_loss(0.05, True)
   gen = torch.Generator(device=device).manual_seed(2)
@@ -205,11 +247,14 @@ def chained_step_ms(one, reps=1):
   return best
 
 
-def bench_train_step(device="cuda", *, tiny=False):
-  """ms per train step at b32 (bench.py:_bench_train_step): Adam (lr
-  5e-5), max-margin loss (0.05, fix_norm), steps chained on the device
-  with one synchronisation at the end, after one warm-up step."""
-  return chained_step_ms(train_stepper(device, tiny=tiny)[2])
+def bench_train_step(device="cuda", *, tiny=False, batch_size=TRAIN_BATCH,
+                     opt="Adam"):
+  """ms per train step at ``batch_size`` (bench.py:_bench_train_step):
+  ``opt`` (lr 5e-5), max-margin loss (0.05, fix_norm), steps chained on
+  the device with one synchronisation at the end, after one warm-up
+  step."""
+  return chained_step_ms(train_stepper(device, tiny=tiny,
+                                       batch_size=batch_size, opt=opt)[2])
 
 
 def main(argv=None):
@@ -220,24 +265,22 @@ def main(argv=None):
                       help="the flagship's test-width copy")
   args = parser.parse_args(argv)
   device = torch.device(args.device)
-  videos = int(os.environ.get("BENCH_VIDEOS", str(N_VIDEOS)))
-  chunk = int(os.environ.get("BENCH_BATCH", str(BATCH)))
-  reps = int(os.environ.get("BENCH_REPS", "5"))
-  n_large = int(os.environ.get("BENCH_LARGE", "0"))
+  cfg = settings()
+  videos, chunk, train_batch = cfg["videos"], cfg["chunk"], cfg["train_batch"]
   card = None
   if device.type == "cuda":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-  kernels = (device.type == "cuda"
-             and os.environ.get("BENCH_KERNELS", "1") == "1")
+  kernels = device.type == "cuda" and cfg["kernels"]
+  dtype = DTYPES[cfg["dtype"]]
 
-  with contextlib.nullcontext() if kernels else ops.plain_versions():
+  with kernel_path(device, kernels):
     run_eval = build_full_eval(device, tiny=args.tiny, videos=videos,
-                               chunk=chunk)
+                               chunk=chunk, compute_dtype=dtype)
     run_eval()   # warm-up
     times = []
-    for _ in range(reps):
+    for _ in range(cfg["reps"]):
       tic = time.perf_counter()
       run_eval()
       times.append(time.perf_counter() - tic)
@@ -249,18 +292,19 @@ def main(argv=None):
         "unit": "videos/s/chip",
         "latency_s_1kx1k": latency,
         "backend": device.type,
-        "dtype": "bf16",
+        "dtype": cfg["dtype"],
         "kernels": kernels,
         "card": card,
     }
-    if os.environ.get("BENCH_TRAIN", "1") == "1":
-      ms = bench_train_step(device, tiny=args.tiny)
-      result[f"train_step_ms_b{TRAIN_BATCH}"] = ms
-      result["train_samples_per_sec_per_chip"] = TRAIN_BATCH * 1e3 / ms
-    if n_large:
+    if cfg["train"]:
+      ms = bench_train_step(device, tiny=args.tiny, batch_size=train_batch,
+                            opt=cfg["train_opt"])
+      result[f"train_step_ms_b{train_batch}"] = ms
+      result["train_samples_per_sec_per_chip"] = train_batch * 1e3 / ms
+    if cfg["n_large"]:
       run = build_streaming_eval(device, tiny=args.tiny, videos=videos,
-                                 chunk=chunk)
-      result["streaming_eval"] = streaming_eval(run, n_large, videos)
+                                 chunk=chunk, compute_dtype=dtype)
+      result["streaming_eval"] = streaming_eval(run, cfg["n_large"], videos)
   print(json.dumps(result))
   return result
 

@@ -11,7 +11,9 @@ Builds tokenizer -> data loaders -> model -> loss -> optimizer ->
 schedule -> visualizer -> trainer, then trains and runs the final eval,
 writing the JAX CLI's artifacts (``.pth`` checkpoints in place of
 ``.msgpack``).  The JAX CLI's ``.msgpack`` checkpoints and inits are read
-too.  ``--device`` is a torch device and defaults to ``cuda``; without a
+too: ``--resume EXPDIR`` takes the highest-epoch checkpoint of either
+suffix (the ``.pth`` at equal epochs), and the purge of stale
+checkpoints deletes only ``.pth`` files.  ``--device`` is a torch device and defaults to ``cuda``; without a
 card, pass ``--device cpu``: the port never falls back to the CPU by
 itself.
 
@@ -248,9 +250,9 @@ def main(argv=None):
   parser.add_argument("--config", default=None, type=str,
                       help="config file path")
   parser.add_argument("--resume", default=None, type=str,
-                      help="path to the experiment dir to resume, or to "
-                           "one of its checkpoints (a JAX experiment's "
-                           ".msgpack is resumed by naming it)")
+                      help="path to the experiment dir to resume (its "
+                           "newest .pth or JAX .msgpack checkpoint), or to "
+                           "one of its checkpoints")
   parser.add_argument("--load_checkpoint", default=None, type=str,
                       help="checkpoint (.pth, or the JAX CLI's .msgpack) "
                            "path for a warm start")

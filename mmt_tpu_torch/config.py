@@ -6,8 +6,8 @@ the bert-base-cased text geometry), the txt_agg micro-DSL, the monitor
 string, and the experiment ``Config`` with the reference's JSON surface
 (parse_config.py:36-201 semantics: save_dir derivation, resume-vs-fresh
 logic, config re-serialization).  Field names and defaults are the same;
-tests hold them equal.  ``last_checkpoint_path`` finds the port's
-``.pth`` checkpoints.
+tests hold them equal.  ``last_checkpoint_path`` finds the newest of the
+port's ``.pth`` and the JAX package's ``.msgpack`` checkpoints.
 """
 
 from __future__ import annotations
@@ -198,16 +198,10 @@ def from_args(args, primary: bool = True) -> Config:
         "If resuming an experiment then no checkpoint should be provided")
     exp_dir = pathlib.Path(args.resume)
     if exp_dir.is_file():
-      # A checkpoint named explicitly: how a JAX experiment is resumed,
-      # since auto-resume picks up .pth checkpoints only.
+      # A checkpoint named explicitly.
       resume, exp_dir = str(exp_dir), exp_dir.parent
     else:
       resume = last_checkpoint_path(exp_dir)
-      if resume is None and any(exp_dir.glob("checkpoint-epoch*.msgpack")):
-        raise FileNotFoundError(
-            f"{exp_dir} holds no .pth checkpoint, only the JAX CLI's "
-            f".msgpack ones: name the one to resume from, as --resume "
-            f"{exp_dir / 'checkpoint-epochN.msgpack'}")
     cfg_fname = exp_dir / "config.json"
   else:
     assert getattr(args, "config", None) is not None, (

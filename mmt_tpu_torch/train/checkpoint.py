@@ -21,8 +21,10 @@ utils/util.py:71-82 semantics):
 
 ``load_checkpoint`` also reads the JAX package's ``.msgpack`` checkpoints
 (``serialization.msgpack_restore``, then ``convert.checkpoint_from_flax``)
-into the same layout; ``last_checkpoint`` and the purge stay ``.pth``
-only, so a JAX experiment is resumed by naming its file.
+into the same layout; ``last_checkpoint`` takes either suffix (the
+highest epoch; at equal epochs the ``.pth``, which the port wrote after
+resuming), so ``--resume EXPDIR`` resumes a JAX experiment, while the
+purge deletes only the port's ``.pth`` files.
 
 Under data parallelism only the primary rank saves and purges (the
 trainer gates every write: ``Trainer._save_checkpoint``), while every
@@ -50,9 +52,10 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-# .pth only: auto-resume and the purge never pick up (or delete) the JAX
-# package's .msgpack checkpoints sharing an exp dir.
+# The purge deletes .pth files only: never the JAX package's .msgpack
+# checkpoints sharing an exp dir, which auto-resume also reads.
 CKPT_RE = r"checkpoint-epoch(\d+)\.pth$"
+RESUME_RE = r"checkpoint-epoch(\d+)\.(pth|msgpack)$"
 BEST_NAME = "trained_model.pth"
 POS_EMB = "vid_bert.embeddings.position_embeddings.weight"
 
@@ -225,14 +228,17 @@ def param_names_by_position(model, optimizer):
 
 
 def last_checkpoint(exp_dir) -> Optional[str]:
-  """Highest-epoch checkpoint in a directory (utils/util.py:71-82)."""
-  best, best_epoch = None, -1
+  """Highest-epoch checkpoint in a directory (utils/util.py:71-82), the
+  port's ``.pth`` or the JAX package's ``.msgpack``; at equal epochs the
+  ``.pth``."""
+  best, best_key = None, None
   if not os.path.isdir(exp_dir):
     return None
   for fname in os.listdir(exp_dir):
-    m = re.search(CKPT_RE, fname)
-    if m and int(m.group(1)) > best_epoch:
-      best_epoch = int(m.group(1))
+    m = re.search(RESUME_RE, fname)
+    key = m and (int(m.group(1)), m.group(2) == "pth")
+    if m and (best_key is None or key > best_key):
+      best_key = key
       best = os.path.join(exp_dir, fname)
   return best
 

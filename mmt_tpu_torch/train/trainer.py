@@ -61,11 +61,21 @@ writes, and every read (resume, warm start, the text-tower init) is cut
 to the rank's shards.  A request that cannot be honored raises the JAX
 trainer's ValueError (one process, a world or a train batch that does not
 divide); the replicated fallback above is for M = 1 only.
+
+Debug and observability switches, each a ``trainer`` config key or an
+environment variable, as the JAX trainer reads them (mmt_tpu/train/
+trainer.py:185-194): ``debug_nans`` / MMT_TPU_DEBUG_NANS raises
+FloatingPointError at the first NaN of ``train()`` and ``evaluate()``
+(``nan_trap``; jax_debug_nans in the JAX package), ``profile_dir`` /
+MMT_TPU_PROFILE traces the first trained epoch, ``sanity_checks`` /
+MMT_TPU_SANITY_CHECKS validates the first batch of each epoch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import itertools
 import json
 import logging
@@ -192,6 +202,64 @@ def check_device(device) -> torch.device:
   return device
 
 
+def _tensors(obj):
+  """The tensors in a module's output (nested tuples, lists, dicts)."""
+  if isinstance(obj, torch.Tensor):
+    yield obj
+  elif isinstance(obj, dict):
+    for v in obj.values():
+      yield from _tensors(v)
+  elif isinstance(obj, (tuple, list)):
+    for v in obj:
+      yield from _tensors(v)
+
+
+@contextlib.contextmanager
+def nan_trap(model, enabled=True):
+  """While open (and ``enabled``), the first NaN raises
+  FloatingPointError, as jax_debug_nans does: in the forward a hook on
+  every submodule names the module whose output first holds one; in the
+  backward ``torch.autograd.detect_anomaly(check_nan=True)`` names the
+  function whose gradient first does (the kernels' autograd.Functions
+  included).  Values and launches are unchanged; on exit the hooks go and
+  the anomaly mode is what it was."""
+  if not enabled:
+    yield
+    return
+  names = {}
+  for name, module in model.named_modules():
+    names.setdefault(module, name or type(model).__name__)
+
+  def check(module, inputs, output):
+    for t in _tensors(output):
+      if t.is_floating_point() and bool(torch.isnan(t).any()):
+        raise FloatingPointError(
+            f"debug_nans: NaN in the output of module {names[module]!r} "
+            f"({type(module).__name__})")
+
+  handles = [m.register_forward_hook(check) for m in names]
+  try:
+    with torch.autograd.detect_anomaly(check_nan=True):
+      yield
+  except RuntimeError as err:
+    if "nan values" not in str(err):
+      raise
+    raise FloatingPointError(f"debug_nans: NaN in the backward: {err}") \
+        from err
+  finally:
+    for h in handles:
+      h.remove()
+
+
+def _nans_trapped(method):
+  """``method`` under ``nan_trap(self.model, self.debug_nans)``."""
+  @functools.wraps(method)
+  def run(self, *args, **kwargs):
+    with nan_trap(self.model, self.debug_nans):
+      return method(self, *args, **kwargs)
+  return run
+
+
 def _read_async(vals):
   """Start the device->host copy of a stacked loss window: (host tensor,
   event to wait on before reading it, or None)."""
@@ -275,10 +343,17 @@ class Trainer:
     from mmt_tpu_torch.utils.hparams import get_hparams_from_config
     self.hparams = get_hparams_from_config(config)
 
-    # A torch.profiler trace of the first trained epoch.
-    self.profile_dir = cfg_trainer.get("profile_dir")
-    # Batch invariants on the first batch of each epoch, on the host.
-    self.sanity_checks = bool(cfg_trainer.get("sanity_checks"))
+    # Debug and observability switches: a NaN raises (``nan_trap``); a
+    # torch.profiler trace of the first trained epoch; batch invariants
+    # on the first batch of each epoch, on the host.
+    self.debug_nans = bool(cfg_trainer.get("debug_nans")
+                           or os.environ.get("MMT_TPU_DEBUG_NANS"))
+    if self.debug_nans:
+      logger.info("debug_nans enabled")
+    self.profile_dir = (cfg_trainer.get("profile_dir")
+                        or os.environ.get("MMT_TPU_PROFILE"))
+    self.sanity_checks = bool(cfg_trainer.get("sanity_checks")
+                              or os.environ.get("MMT_TPU_SANITY_CHECKS"))
     # Eval sets with >= this many videos rank on the device from the
     # embeddings (ops/ranking.py fused path); the [Q, V] similarity
     # matrix is never materialized.  Applies where no sims artifact is
@@ -472,6 +547,7 @@ class Trainer:
   # ------------------------------------------------------------------
   # Train loop
   # ------------------------------------------------------------------
+  @_nans_trapped
   def train(self):
     not_improved_count = 0
     for epoch in range(self.start_epoch, self.epochs + 1):
@@ -857,6 +933,7 @@ class Trainer:
               tokenizer=self.tokenizer)
     return result
 
+  @_nans_trapped
   def evaluate(self):
     """Final eval: load best ckpt, run final_eval sets, write artifacts
     (base/base_trainer.py:244-297)."""

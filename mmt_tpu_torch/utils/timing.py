@@ -45,6 +45,17 @@ def update_perf_log(entries: dict, path):
     f.write(json.dumps(entries, default=str) + "\n")
 
 
+def export_trace(prof, logdir):
+  """Write a torch.profiler session as a Chrome trace,
+  ``<logdir>/trace.json``; returns its path."""
+  import pathlib
+
+  out = pathlib.Path(logdir)
+  out.mkdir(parents=True, exist_ok=True)
+  prof.export_chrome_trace(str(out / "trace.json"))
+  return out / "trace.json"
+
+
 @contextlib.contextmanager
 def profiler_trace(logdir, enabled: bool = False):
   """torch.profiler trace around a region (host and, where there is a
@@ -53,8 +64,6 @@ def profiler_trace(logdir, enabled: bool = False):
   if not enabled:
     yield
     return
-  import pathlib
-
   import torch
 
   activities = [torch.profiler.ProfilerActivity.CPU]
@@ -62,6 +71,4 @@ def profiler_trace(logdir, enabled: bool = False):
     activities.append(torch.profiler.ProfilerActivity.CUDA)
   with torch.profiler.profile(activities=activities) as prof:
     yield
-  out = pathlib.Path(logdir)
-  out.mkdir(parents=True, exist_ok=True)
-  prof.export_chrome_trace(str(out / "trace.json"))
+  export_trace(prof, logdir)

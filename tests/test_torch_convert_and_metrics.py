@@ -104,6 +104,14 @@ def test_port_imports_no_jax():
       "                                    txt['text_weights'][:, 0],\n"
       "                                    staged, 3, q)\n"
       "    assert sims.shape[0] == 3\n"
+      "import os\n"
+      "os.environ.update(BENCH_VIDEOS='4', BENCH_BATCH='2')\n"
+      "from mmt_tpu_torch import int8_quality, profile_eval\n"
+      "res = profile_eval.profile('eval', 1, 'cpu', tiny=True)\n"
+      "assert res['rows'] and res['idle'] is None\n"
+      "rep = int8_quality.main(['--videos', '40', '--queries', '8',\n"
+      "                         '--dim', '16', '--device', 'cpu'])\n"
+      "assert rep['videos'] == 40 and rep['backend'] == 'cpu'\n"
       "new = set(sys.modules) - before\n"
       "bad = sorted(m for m in new if m.split('.')[0] in\n"
       "             ('jax', 'jaxlib', 'flax', 'optax', 'mmt_tpu'))\n"

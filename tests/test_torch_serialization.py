@@ -425,16 +425,18 @@ def test_resume_restarts_a_jax_experiment(jax_exp, tmp_path):
   --resume: the weights and Adam moments carried over, the counters
   resumed, and the resumed epoch's loss within 1e-4 relative of the JAX
   CLI's own restart from the same checkpoint (its build_trainer and
-  train, as train.py --resume runs them)."""
+  train, as train.py --resume runs them).  ``--resume`` of the directory
+  (``python -m mmt_tpu_torch.train``'s path, ``cli.main``) takes that
+  newest .msgpack and gives bitwise the same counters, epoch losses and
+  weights; where a directory holds both suffixes the highest epoch wins,
+  and the .pth at equal epochs."""
   import train as jax_cli
   from mmt_tpu import config as jax_config
   from mmt_tpu_torch import config as config_lib
 
   exp = jax_exp[1]
-  for name in ("jax", "port"):
+  for name in ("jax", "port", "port_dir"):
     _copy_epoch1(exp, tmp_path / name)
-  with pytest.raises(FileNotFoundError, match="only the JAX CLI.s .msgpack"):
-    cli.main(["--resume", str(tmp_path / "port"), "--device", "cpu"])
   jax_trainer = jax_cli.build_trainer(jax_config.from_args(argparse.Namespace(
       resume=str(tmp_path / "jax"), config=None, load_checkpoint=None,
       only_eval=False, txt_bert_init=None)))
@@ -461,6 +463,31 @@ def test_resume_restarts_a_jax_experiment(jax_exp, tmp_path):
   np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
   assert (port.n_steps, port.n_samples) == (jax_trainer.n_steps,
                                             jax_trainer.n_samples)
+
+  by_dir = cli.main(["--resume", str(tmp_path / "port_dir"), "--device",
+                     "cpu"])
+  assert by_dir.config.resume == str(tmp_path / "port_dir" /
+                                     "checkpoint-epoch1.msgpack")
+  assert (by_dir.n_steps, by_dir.n_samples) == (port.n_steps,
+                                                port.n_samples)
+  assert _epoch_losses(tmp_path / "port_dir") == got
+  last = {name: ckpt_lib.load_checkpoint(
+      tmp_path / name / f"checkpoint-epoch{port.epoch}.pth")["state_dict"]
+      for name in ("port", "port_dir")}
+  assert_same_tensors(last["port_dir"], last["port"])
+
+  # Both suffixes in one directory: the highest epoch, the .pth at a tie.
+  both = tmp_path / "port"
+  newest = both / f"checkpoint-epoch{port.epoch}.pth"
+  assert config_lib.last_checkpoint_path(both) == str(newest)
+  shutil.copy(ckpt, both / f"checkpoint-epoch{port.epoch}.msgpack")
+  assert config_lib.last_checkpoint_path(both) == str(newest)
+  shutil.copy(ckpt, both / f"checkpoint-epoch{port.epoch + 1}.msgpack")
+  assert config_lib.last_checkpoint_path(both) == str(
+      both / f"checkpoint-epoch{port.epoch + 1}.msgpack")
+  # The purge of the resumed runs left the JAX files in place.
+  assert ckpt.exists() and (tmp_path / "port_dir" /
+                            "checkpoint-epoch1.msgpack").exists()
 
 
 # ---------------------------------------------------------------------------

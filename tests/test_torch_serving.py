@@ -444,17 +444,17 @@ def test_http_api_and_statz(world, indexes):
 
 def test_int8_quality_pinned_and_equal_to_jax():
   """The pinned int8 rule of tests/test_serving.py on the same planted
-  corpus, through the port's staged tensors (chip_smoke.py's helpers,
-  which phase 12 runs at 10,000 videos on the card); the report equals
-  scripts/int8_quality.py's."""
+  corpus, through the port's staged tensors (mmt_tpu_torch.int8_quality,
+  which chip_smoke.py's phase 12 runs at 10,000 videos on the card); the
+  report equals scripts/int8_quality.py's."""
+  from mmt_tpu_torch import int8_quality as port
   sys.path.insert(0, str(REPO / "scripts"))
   import int8_quality
-  smoke = _load_by_path("chip_smoke", REPO / "chip_smoke.py")
-  corpus = smoke.planted_corpus(512, 64, seed=0)
+  corpus = port.make_corpus(512, 64, seed=0)
   for got, want in zip(corpus, int8_quality.make_corpus(512, 64, seed=0)):
     assert np.array_equal(got, want)
-  rep = smoke.int8_quality(torch, serving, *corpus, device="cpu")
-  assert smoke.int8_quality_faults(rep) == [], rep
+  rep = port.quality_report(*corpus, device="cpu")
+  assert port.faults(rep) == [], rep
   want = int8_quality.quality_report(*corpus, topk=10)
   for key in want:
     if key.startswith(("R", "overlap", "top1")):

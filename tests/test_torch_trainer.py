@@ -411,15 +411,19 @@ def test_async_writer_keeps_order_and_surfaces_errors(tmp_path, async_enabled):
 
 
 def test_purge_keeps_the_newest_and_last_checkpoint_finds_pth(tmp_path):
+  """The purge deletes stale .pth files only; auto-resume takes the
+  highest epoch of either suffix, the .pth at equal epochs."""
   for epoch in (1, 3, 10, 2):
     (tmp_path / f"checkpoint-epoch{epoch}.pth").write_bytes(b"x")
-  (tmp_path / "checkpoint-epoch99.msgpack").write_bytes(b"x")
+  for epoch in (9, 10):
+    (tmp_path / f"checkpoint-epoch{epoch}.msgpack").write_bytes(b"x")
   (tmp_path / "trained_model.pth").write_bytes(b"x")
   assert ckpt_lib.last_checkpoint(tmp_path).endswith("checkpoint-epoch10.pth")
   ckpt_lib.purge_stale_checkpoints(tmp_path, num_keep=2)
   left = sorted(p.name for p in tmp_path.iterdir())
-  assert left == ["checkpoint-epoch10.pth", "checkpoint-epoch3.pth",
-                  "checkpoint-epoch99.msgpack", "trained_model.pth"]
+  assert left == ["checkpoint-epoch10.msgpack", "checkpoint-epoch10.pth",
+                  "checkpoint-epoch3.pth", "checkpoint-epoch9.msgpack",
+                  "trained_model.pth"]
   assert ckpt_lib.last_checkpoint(tmp_path / "missing") is None
 
 

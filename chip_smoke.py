@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (mmt_tpu_torch) once on one NVIDIA GPU.
 
   python3 chip_smoke.py          # from the repository root, one card
+  python3 chip_smoke.py --fp32   # the fp32 path alone (``fp32_main``)
 
 Phases, each of which raises (exit code 1, no final line) on failure:
 
@@ -19,7 +20,10 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    M = 7, D = 512, plus a ragged
    37 x 53 case with all-zero weight rows), with the max abs error and
    both times.  Tolerances: FFN fp32 atol 1e-4; FFN bf16 atol 3e-2 and
-   mean abs error <= 2e-3; similarity atol 1e-5.  The bf16 FFN block
+   mean abs error <= 2e-3; similarity atol 1e-5.  The fp32 cases take the
+   fp32 route (the SIMT GEMMs of csrc/ffn_sgemm.cuh), held also to the FMA
+   kernel (``tile=-1``, atol 1e-4), every fp32 row tile bitwise equal,
+   with their device time, the FMA kernel's time and the fp32 bound.  The bf16 FFN block
    takes the TMA + wgmma GEMM route at these widths: its device time
    under torch.profiler (``device_ms``: the event time of a call under
    ~0.1 ms is the host's) and achieved TFLOP/s,
@@ -53,7 +57,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
 4. Train-kernel phase: the FFN train forward (B2) and backward (B3,
    add_dz on and off) against their plain versions at the b32 train
    shapes (video 6,976 x 512, text 960 x 768, ragged 1,013 x 768, I =
-   3072), bf16 and fp32, masks at p = 0.1 from a seeded generator.
+   3072), bf16 and fp32 (fp32 also at b128's 27,904 x 512 and 3,840 x
+   768), masks at p = 0.1 from a seeded generator.
    Tolerances: fp32 atol 1e-4 on every output; bf16 fp32 outputs max 3e-2
    and mean 2e-3; bf16 compute-dtype outputs within 2 bf16 ulps of the
    plain version's (the ulp of the larger of the two magnitudes) plus an
@@ -62,6 +67,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    WMMA kernel's (``tile=-1``) by the same rules, every row tile bitwise
    equal, and beside the event and plain times its ``device_ms``, the
    WMMA kernel's event and device times, ``host_ms`` and ``gemms_ms``.
+   In fp32 they take the fp32 route: against the FMA kernel
+   (``tile=-1``) by the same rules, every fp32 row tile bitwise equal, and
+   the device time beside the FMA kernel's and the fp32 bound.
 5. Reference phase: a tiny fp32 CENet on the card (kernels) against the
    same weights on the CPU (plain versions), sims atol 1e-4.
 6. Slice phase (then a profile phase): the full-width flagship CENet
@@ -124,7 +132,9 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    inputs in every row tile.  A
    partial is not normalised, so the rules of phase 4 hold on its fp32
    outputs divided by the plain version's largest magnitude; the
-   compute-dtype outputs keep phase 4's ulp rule.
+   compute-dtype outputs keep phase 4's ulp rule.  In fp32 B6, B7 and B3
+   take the fp32 route: B6 bitwise equal to the FMA kernel, B7 and B3
+   against theirs by those rules, B7 bitwise B6 in every fp32 row tile.
 10. Tensor-parallel phase: ``parallel.spawn`` starts two ranks that
    share the card over gloo (NCCL refuses two ranks on one device).
    Each builds the flagship from the same seed and keeps its shards.
@@ -298,8 +308,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    with the one process's entries and shapes; then ``--only_eval
    --load_checkpoint`` of that file in this one process (16 B1, 1 B4)
    within TP_SIMS_TOL of the TP run's final sims; last an fp32 witness,
-   the epoch's first 2 steps (no continuous eval) in float32 by two TP
-   processes and by one: every host batch equal, every step's loss and
+   the epoch's first 2 steps (no continuous eval) in float32 (the
+   kernels' fp32 route) by two TP processes and by one: every host batch equal, every step's loss and
    the epoch loss within 1e-5 relative, the final sims within 1e-4.  The launches are the ``sharded_serving_launches`` of the B1
    and B4 entries and the ``tp_cli_launches`` of every entry.
 
@@ -329,12 +339,27 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    BENCH_TRAIN_OPT=Ranger, its depth cut to 200 videos in 4 chunks and
    one timed eval: the line's keys; the run's launches exactly (16 B1 a
    chunk of each eval, 16 B2, 16 B3 and 1 B4 a step, 1 B4 an eval); B1
-   on its fp32 kernel (one eval under torch.profiler); the
+   on the fp32 route (one eval under torch.profiler: only the route's
+   kernels); the
    fp32 eval's sims within 1e-4 of the plain path's and its ranks by
    phase 3's rule; B2 and B3 at b128's 27,904 x 512 and 3,840 x 768 by
    phase 4's rules with their times and bound (the ``b128_shapes`` of
    their entries; phase 2's fp32 B1 cases are ``ffn_block``'s
    ``fp32_shapes``).
+18. Shipped-config phase (in phase 11's scope, after phase 15 (b), on
+   its corpus): ``cli.main`` on configs/eccv20/msrvtt_jsfusion_trainval
+   .json as shipped, its compute dtype unset (fp32), only the data,
+   splits, epochs and save_dir changed: one epoch of 4 b32 steps and the
+   final eval of the 32 val videos.  Exactly 16 B2 and 16 B3 a step, 16
+   B1 an eval batch, 1 B4 a step and for the eval; every FFN call on the
+   fp32 route (0 on the FMA kernels, from the tile ids the wrappers pass
+   C); the model in fp32; finite losses.  Prints the step median and the
+   eval's seconds: the ``fp32_cli_launches`` of the B1-B4 entries.
+
+``--fp32`` runs B1, B2 and B3 in fp32 at the flagship's shapes as the
+tree's wrappers route them, then phase 18 without its route check: run
+from the roots of two trees (one a ``git archive`` of the other's
+parent) in one call, it compares them on one card.
 
 Each phase prints its seconds, and the run its total.  The last two
 lines of stdout are one JSON object of kernel results (each kernel's
@@ -488,20 +513,49 @@ def as_tuple(out):
   return out if isinstance(out, tuple) else (out,)
 
 
+def route_tiles(torch, ffn, cd):
+  """The row tiles of the route of compute type ``cd``: the bf16 GEMM
+  route's or the fp32 route's."""
+  return ffn.F32_TILES if cd == torch.float32 else ffn.GEMM_TILES
+
+
+def on_route(torch, ffn, h, i, cd):
+  """True if calls at widths H, I in ``cd`` take a route (bf16's TMA +
+  wgmma GEMM route, or the fp32 route), not the WMMA / FMA kernel."""
+  return ffn.gemm_route(h, i, cd) or ffn.f32_route(h, i, cd)
+
+
+def route_label(torch, ffn, r, h, i, cd, dev):
+  """The route a call at R x H, I in ``cd`` takes, with its row tile."""
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  if ffn.gemm_route(h, i, cd):
+    return f"gemm, {ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)]}-row tile"
+  if ffn.f32_route(h, i, cd):
+    return f"f32, {ffn.F32_TILES[ffn.pick_f32_tile(r, h, i, sms)]}-row tile"
+  return "wmma/fma"
+
+
 def check_tiles_equal(torch, ffn, what, kernel, args, kw):
-  """Every row tile of the GEMM route gives the same bits (the same
-  wgmma chain over K) in every output; prints each tile's time.  Raises
-  otherwise."""
-  outs = [as_tuple(kernel(*args, **kw, tile=t))
-          for t in range(len(ffn.GEMM_TILES))]
+  """Every row tile of the route of the call's compute type gives the
+  same bits (the same wgmma chain, or the same fmaf chain, over K) in
+  every output; prints each tile's time.  Raises otherwise."""
+  tiles = route_tiles(torch, ffn, kw["compute_dtype"])
+  outs = [as_tuple(kernel(*args, **kw, tile=t)) for t in range(len(tiles))]
   same = [all(map(torch.equal, outs[0], o)) for o in outs]
   by_tile = {rows: round(time_ms(torch, lambda t=t: kernel(*args, **kw,
                                                            tile=t)), 4)
-             for t, rows in enumerate(ffn.GEMM_TILES)}
-  print(f"  {what} row tiles {ffn.GEMM_TILES}: outputs bitwise equal {same};"
+             for t, rows in enumerate(tiles)}
+  print(f"  {what} row tiles {tiles}: outputs bitwise equal {same};"
         f" kernel_ms by tile {by_tile}", flush=True)
   if not all(same):
     raise RuntimeError(f"{what}: a row tile changed the values")
+
+
+# The FMA kernels (``tile=-1`` at an fp32 route width) are the fp32
+# route's witness and what it replaced on the path: their CUDA-event time
+# over FMA_REPS calls (each takes milliseconds, so the events time the
+# device).
+FMA_REPS = 5
 
 
 # The eval block's gradients under autograd on the kernel path (the vjp of
@@ -593,7 +647,11 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
                                               torch.bfloat16),
            (10900, 512, 3072, torch.float32), (1500, 768, 3072,
                                                torch.float32),
-           (1013, 768, 3072, torch.float32)]
+           (1013, 768, 3072, torch.float32),
+           # fp32's smallest calls, where pick_f32_tile takes the 32-row
+           # tile: the text rows of an eval's last batch of 8 and of one
+           # query.
+           (240, 768, 3072, torch.float32), (30, 768, 3072, torch.float32)]
   res, alone = {"max_abs_err": 0.0, "library_ms": None}, {}
   for r, h, i, cd in cases:
     rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
@@ -611,10 +669,7 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
     ms = time_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw))
     plain_ms = time_ms(torch, lambda: ffn.ffn_block_plain(*args, **kw))
     name = str(cd).replace("torch.", "")
-    route = "gemm" if ffn.gemm_route(h, i, cd) else "wmma/fma"
-    if ffn.gemm_route(h, i, cd):
-      sms = torch.cuda.get_device_properties(dev).multi_processor_count
-      route += f", {ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)]}-row tile"
+    route = route_label(torch, ffn, r, h, i, cd, dev)
     dev_ms = device_ms(torch, lambda: ffn.ffn_block_cuda(*args, **kw))
     print(f"ffn_block R={r} H={h} I={i} {name} ({route} route): max_abs_err="
           f"{max_err:.3e} mean_abs_err={mean_err:.3e} kernel_ms={ms:.4f} "
@@ -626,13 +681,29 @@ def ffn_phase(torch, ops, ffn, dev, gen, card):
     if cd == torch.float32:
       if max_err > 1e-4:
         raise RuntimeError(f"ffn_block fp32 error {max_err} > 1e-4")
-      # The FMA kernel bench's BENCH_DTYPE=fp32 eval runs (phase 17 (c)).
+      # The fp32 route every shipped config's evals run (compute_dtype
+      # unset), held to the FMA kernel it replaced by the same rule.
+      if not ffn.f32_route(h, i, cd):
+        raise RuntimeError(f"ffn_block fp32 at H={h}, I={i} is off the "
+                           "fp32 route")
+      fma = lambda: ffn.ffn_block_cuda(*args, **kw, tile=-1)
+      fma_err = float((got - fma()).abs().max())
+      fma_ms = time_ms(torch, fma, FMA_REPS)
       b_ms, b_by = bound(4 * r * h * i, H100_FP32, args + (got,))
-      print(f"  bound {b_ms:.4f} ms ({b_by}, fp32 at 67 TFLOP/s) card: "
-            f"{card}", flush=True)
+      print(f"  vs FMA kernel max_abs_err={fma_err:.3e}; fma_ms={fma_ms:.4f} "
+            f"({fma_ms / dev_ms:.2f}x the route's device time); bound "
+            f"{b_ms:.4f} ms ({b_by}, fp32 at 67 TFLOP/s), share "
+            f"{b_ms / dev_ms:.2%} card: {card}", flush=True)
+      if fma_err > 1e-4:
+        raise RuntimeError(f"ffn_block fp32 route vs FMA kernel {fma_err} "
+                           "> 1e-4")
+      if r != 1013:
+        check_tiles_equal(torch, ffn, f"ffn_block R={r} H={h} fp32",
+                          ffn.ffn_block_cuda, args, kw)
       res.setdefault("fp32_shapes", []).append(
-          {"shape": f"{r} x {h}, I {i}", "max_abs_err": max_err, "ms": ms,
-           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+          {"shape": f"{r} x {h}, I {i}", "route": route,
+           "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+           "fma_ms": fma_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": None})
     if cd == torch.bfloat16:
       if max_err > 3e-2 or mean_err > 2e-3:
@@ -751,6 +822,8 @@ def sim_phase(torch, similarity, dev, gen, card):
 
 
 TRAIN_SHAPES = ((6976, 512), (960, 768), (1013, 768))   # b32 video, text
+# fp32 B2 and B3 also at b128's rows (the fp32 route's largest calls).
+TRAIN_F32_B128_SHAPES = ((27904, 512), (3840, 768))
 TRAIN_I, TRAIN_P = 3072, 0.1
 # bf16 outputs in the compute dtype: within 2 bf16 ulps, plus an absolute
 # floor for values near zero, where a small absolute difference is many
@@ -822,9 +895,10 @@ TRAIN_OUTS = {"ffn_train_fwd": (("out", "inter", "z"), ("inter", "z")),
 def check_train_kernel(torch, ffn, what, kname, cd, args, kw, i=TRAIN_I,
                        check=check_outputs):
   """B2 or B3 (``kname``) on these operands (width I) against its plain
-  version by ``check``'s rules and, on the GEMM route, against the WMMA
-  kernel (``tile=-1``) by the same rules, with every row tile bitwise
-  equal.  Returns the kernel's outputs and what ``check`` returns."""
+  version by ``check``'s rules and, on a route (bf16's GEMM route, the
+  fp32 route), against the WMMA / FMA kernel (``tile=-1``) by the same
+  rules, with every row tile bitwise equal.  Returns the kernel's outputs
+  and what ``check`` returns."""
   kernel, plain = (getattr(ffn, f"{kname}_cuda"),
                    getattr(ffn, f"{kname}_plain"))
   names, cd_names = TRAIN_OUTS[kname]
@@ -832,8 +906,9 @@ def check_train_kernel(torch, ffn, what, kname, cd, args, kw, i=TRAIN_I,
   outs = lambda t: dict(zip(names, t))
   err = check(torch, f"{what} vs plain", cd, outs(got),
               outs(plain(*args, **kw)), cd_names)
-  if ffn.gemm_route(args[0].shape[1], i, cd):
-    check(torch, f"{what} vs WMMA kernel", cd, outs(got),
+  if on_route(torch, ffn, args[0].shape[1], i, cd):
+    witness = "FMA" if cd == torch.float32 else "WMMA"
+    check(torch, f"{what} vs {witness} kernel", cd, outs(got),
           outs(kernel(*args, **kw, tile=-1)), cd_names)
     check_tiles_equal(torch, ffn, what, kernel, args, kw)
   return got, err
@@ -841,22 +916,28 @@ def check_train_kernel(torch, ffn, what, kname, cd, args, kw, i=TRAIN_I,
 
 def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
   """B2 and B3 (add_dz on and off) against their plain versions at the
-  b32 train shapes, and on the GEMM route (bf16) also against the WMMA
-  kernel (``tile=-1``), timed against both.  Returns each kernel's line
-  entries (the worst bf16 error, and the video bf16 times and bound: no
-  single PyTorch call computes either) and the device ms of one bf16 call
-  of each by shape, for the train profile."""
+  b32 train shapes (fp32 also at b128's), and on a route (bf16's GEMM
+  route, the fp32 route) also against the WMMA / FMA kernel
+  (``tile=-1``), timed against both.  Returns each kernel's line entries
+  (the worst bf16 error, the video bf16 times and bound: no single
+  PyTorch call computes either; every fp32 case's times and bound) and
+  the device ms of one bf16 call of each by shape, for the train
+  profile."""
   res = {name: {"max_abs_err": 0.0, "library_ms": None}
          for name in ("ffn_train_fwd", "ffn_train_bwd")}
   alone = {}
   i = TRAIN_I
   for cd in (torch.bfloat16, torch.float32):
-    for r, h in TRAIN_SHAPES:
+    shapes = TRAIN_SHAPES + (TRAIN_F32_B128_SHAPES if cd == torch.float32
+                             else ())
+    for r, h in shapes:
       fargs, dy = train_inputs(torch, dropout, r, h, cd, dev, gen)
       _, drop, w1, _, w2, _, gamma, _ = fargs
       kw = dict(eps=1e-12, compute_dtype=cd)
       tag = f"R={r} H={h} I={i} {str(cd).replace('torch.', '')}"
       route = ffn.gemm_route(h, i, cd)
+      if cd == torch.float32 and not ffn.f32_route(h, i, cd):
+        raise RuntimeError(f"train kernels fp32 {tag}: off the fp32 route")
       fwd_out, err_f = check_train_kernel(
           torch, ffn, f"ffn_train_fwd {tag}", "ffn_train_fwd", cd, fargs, kw)
       _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
@@ -879,10 +960,24 @@ def train_kernel_phase(torch, ffn, dropout, dev, gen, card):
                          getattr(ffn, f"{kname}_plain"))
         ms = time_ms(torch, lambda: kernel(*args, **kkw))
         plain_ms = time_ms(torch, lambda: plain(*args, **kkw))
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16, args + tuple(out))
-        line = (f"{kname} {tag} ({'gemm' if route else 'wmma/fma'} route): "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-                f"{b_ms:.4f} ({b_by})")
+        rate = H100_FP32 if cd == torch.float32 else H100_BF16
+        b_ms, b_by = bound(4 * r * h * i, rate, args + tuple(out))
+        line = (f"{kname} {tag} ({route_label(torch, ffn, r, h, i, cd, dev)}"
+                f" route): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+        if cd == torch.float32:
+          dev_ms = device_ms(torch, lambda: kernel(*args, **kkw))
+          fma_ms = time_ms(torch, lambda: kernel(*args, **kkw, tile=-1),
+                           FMA_REPS)
+          line += (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
+                   f"TFLOP/s, {b_ms / dev_ms:.2%} of the bound) fma_ms="
+                   f"{fma_ms:.4f} ({fma_ms / dev_ms:.2f}x)")
+          res[kname].setdefault("fp32_shapes", []).append(
+              {"shape": f"{r} x {h}, I {i}",
+               "route": route_label(torch, ffn, r, h, i, cd, dev),
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "fma_ms": fma_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None})
         if route:
           dev_ms = device_ms(torch, lambda: kernel(*args, **kkw))
           wmma = lambda: kernel(*args, **kkw, tile=-1)
@@ -1648,15 +1743,16 @@ def check_partial(torch, what, cd, got, want, cd_names):
 
 
 def check_b7_is_b6(torch, ffn, what, args, kw):
-  """B7's partial is B6's, bit for bit, in every row tile of the GEMM
-  route: GEMM 1 computes g alike under both epilogues and GEMM 2 is the
-  same.  Raises otherwise."""
+  """B7's partial is B6's, bit for bit, in every row tile of the route
+  of the call's compute type: GEMM 1 computes g alike under both
+  epilogues and GEMM 2 is the same.  Raises otherwise."""
+  tiles = route_tiles(torch, ffn, kw["compute_dtype"])
   same = [torch.equal(ffn.ffn_train_fwd_partial_cuda(*args, **kw,
                                                      tile=t)[0],
                       ffn.ffn_partial_cuda(*args, **kw, tile=t))
-          for t in range(len(ffn.GEMM_TILES))]
+          for t in range(len(tiles))]
   print(f"  {what} out bitwise equal to ffn_partial's by row tile "
-        f"{ffn.GEMM_TILES}: {same}", flush=True)
+        f"{tiles}: {same}", flush=True)
   if not all(same):
     raise RuntimeError(f"{what}: B7's partial differs from B6's")
 
@@ -1664,10 +1760,11 @@ def check_b7_is_b6(torch, ffn, what, args, kw):
 def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
   """B6 and B7, and B3 with add_dz off on B7's residuals, against their
   plain versions at the two-rank shapes (I/mp = 1536), bf16 and fp32; on
-  the GEMM route B7 also against its WMMA kernel (``tile=-1``) and B6.
-  Returns B6's and B7's line entries: the worst bf16 error, and the
-  video-shape bf16 times and bound (no single PyTorch call computes
-  either)."""
+  a route B7 also against its WMMA / FMA kernel (``tile=-1``) and B6, and
+  on the fp32 route B6 against the FMA kernel bit for bit (both take each
+  output as one ascending-k fmaf chain).  Returns B6's and B7's line
+  entries: the worst bf16 error, the video-shape bf16 times and bound (no
+  single PyTorch call computes either), and each fp32 case's times."""
   res = {name: {"max_abs_err": 0.0, "library_ms": None}
          for name in PARTIAL_SHAPES}
   i = TP_I
@@ -1683,35 +1780,50 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
         w1, w2 = (rand(i, h) * 0.02).to(cd), (rand(h, i) * 0.02).to(cd)
         args, kw = (x, w1, rand(i) * 0.02, w2), dict(compute_dtype=cd)
         tag = f"R={r} H={h} I={i} {str(cd).replace('torch.', '')}"
-        route = ffn.gemm_route(h, i, cd)
+        f32 = cd == torch.float32
+        route = on_route(torch, ffn, h, i, cd)
         got, want = outs(kfn(*args, **kw)), outs(pfn(*args, **kw))
         torch.cuda.synchronize()
         err = check_partial(torch, f"{kname} {tag}", cd, got, want,
                             ("inter",))
         ms = time_ms(torch, lambda: kfn(*args, **kw))
         plain_ms = time_ms(torch, lambda: pfn(*args, **kw))
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16,
+        b_ms, b_by = bound(4 * r * h * i, H100_FP32 if f32 else H100_BF16,
                            args + tuple(got.values()))
-        extra, dev_ms = "", None
-        if cd == torch.bfloat16:
-          split = device_split(torch, lambda: kfn(*args, **kw))
-          dev_ms = sum(split.values())
-          extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
-                   "TFLOP/s) by kernel {" + ", ".join(
-                       f"{short_kernel_name(k)}: {v:.4f}"
-                       for k, v in split.items()) + "}")
+        split = device_split(torch, lambda: kfn(*args, **kw))
+        dev_ms = sum(split.values())
+        extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
+                 "TFLOP/s) by kernel {" + ", ".join(
+                     f"{short_kernel_name(k)}: {v:.4f}"
+                     for k, v in split.items()) + "}")
         if cd == torch.bfloat16 and not train:
           extra += (f" gemms_ms={gemms_ms(torch, x, w1, w2):.4f} (two bf16 "
                     "torch.mm alone)")
+        witness = (kfn(*args, **kw, tile=-1) if route and (f32 or train)
+                   else None)
+        if route and f32 and not train:
+          same = torch.equal(got["out"], witness)
+          print(f"  {kname} {tag} out bitwise equal to the FMA kernel's: "
+                f"{same}", flush=True)
+          if not same:
+            raise RuntimeError(f"{kname} {tag}: the fp32 route's partial "
+                               "differs from the FMA kernel's")
         if route and train:
-          wmma = lambda: kfn(*args, **kw, tile=-1)
-          check_partial(torch, f"{kname} {tag} vs WMMA kernel", cd, got,
-                        outs(wmma()), ("inter",))
+          name = "FMA" if f32 else "WMMA"
+          check_partial(torch, f"{kname} {tag} vs {name} kernel", cd, got,
+                        outs(witness), ("inter",))
           check_b7_is_b6(torch, ffn, f"{kname} {tag}", args, kw)
-          extra += (f" wmma_ms={time_ms(torch, wmma):.4f} wmma_device_ms="
-                    f"{device_ms(torch, wmma):.4f} host_ms="
-                    f"{host_ms(torch, lambda: kfn(*args, **kw))}")
-        print(f"{kname} {tag} ({'gemm' if route else 'wmma/fma'} route): "
+          if not f32:
+            wmma = lambda: kfn(*args, **kw, tile=-1)
+            extra += (f" wmma_ms={time_ms(torch, wmma):.4f} wmma_device_ms="
+                      f"{device_ms(torch, wmma):.4f} host_ms="
+                      f"{host_ms(torch, lambda: kfn(*args, **kw))}")
+        fma_ms = None
+        if route and f32:
+          fma_ms = time_ms(torch, lambda: kfn(*args, **kw, tile=-1), FMA_REPS)
+          extra += f" fma_ms={fma_ms:.4f} ({fma_ms / dev_ms:.2f}x)"
+        label = route_label(torch, ffn, r, h, i, cd, dev)
+        print(f"{kname} {tag} ({label} route): "
               f"kernel_ms={ms:.4f} ({tflops(r, h, i, ms):.1f} TFLOP/s) "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}){extra} "
               f"card: {card}", flush=True)
@@ -1722,6 +1834,12 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
           if (r, h) == shapes[0]:
             res[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, device_ms=dev_ms)
+        elif route:
+          res[kname].setdefault("fp32_shapes", []).append(
+              {"shape": f"{r} x {h}, I {i}", "route": label,
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "fma_ms": fma_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None})
         if not train:
           continue
         # B3 as the tensor-parallel backward runs it, on B7's residuals.
@@ -1738,13 +1856,19 @@ def partial_kernel_phase(torch, ffn, dropout, dev, gen, card):
         ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch,
                            lambda: ffn.ffn_train_bwd_plain(*bargs, **bkw))
-        b_ms, b_by = bound(4 * r * h * i, H100_BF16, bargs + tuple(got_b))
+        b_ms, b_by = bound(4 * r * h * i, H100_FP32 if f32 else H100_BF16,
+                           bargs + tuple(got_b))
         extra = ""
         if ffn.gemm_route(h, i, cd):
           dev_ms, wmma = device_ms(torch, kernel), lambda: kernel(-1)
           extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
                    f"TFLOP/s) wmma_ms={time_ms(torch, wmma):.4f} "
                    f"wmma_device_ms={device_ms(torch, wmma):.4f}")
+        elif ffn.f32_route(h, i, cd):
+          dev_ms = device_ms(torch, kernel)
+          fma_ms = time_ms(torch, lambda: kernel(-1), FMA_REPS)
+          extra = (f" device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} "
+                   f"TFLOP/s) fma_ms={fma_ms:.4f} ({fma_ms / dev_ms:.2f}x)")
         print(f"ffn_train_bwd add_dz=False {tag}: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}){extra} "
               f"card: {card}", flush=True)
@@ -2470,12 +2594,14 @@ def loop_summary(seen, step0, eval0, steps, videos):
           "videos": videos}
 
 
-def cli_config(data_dir, save_dir, epochs):
+def cli_config(data_dir, save_dir, epochs, compute_dtype="bfloat16"):
   """The flagship config with only the data, splits, compute dtype,
-  epochs, samples per epoch and save_dir changed."""
+  epochs, samples per epoch and save_dir changed; ``compute_dtype`` None
+  leaves the shipped config's (unset: CENet's fp32)."""
   with open(FLAGSHIP_CONFIG) as f:
     cfg = json.load(f)
-  cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+  if compute_dtype is not None:
+    cfg["arch"]["args"]["compute_dtype"] = compute_dtype
   for key, split, caps in (("train_sets", "trainval", None),
                            ("continuous_eval_sets", "train", 1),
                            ("final_eval_sets", "val", 1)):
@@ -2605,55 +2731,12 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
   environment still exist (phase 12 (a)).  Returns the launch counts of
   the first run, its loop summary (``loop_summary``) and what ``then``
   returned."""
-  import signal
-  import tempfile
-
   import numpy as np
 
-  from mmt_tpu_torch import bench_loader, bench_sustained
-  from mmt_tpu_torch.data import synthetic
+  from mmt_tpu_torch import bench_loader
   from mmt_tpu_torch.data import native_assembler as nasm
-  from mmt_tpu_torch.experts import compute_dims
-  from mmt_tpu_torch.train import trainer as trainer_lib
-  from mmt_tpu_torch.utils import timing
 
-  class RecordingMeter(timing.AverageMeter):
-    """The trainer's timers, also keeping every value (medians)."""
-    seen = {}
-
-    def update(self, key, val, n=1):
-      super().update(key, val, n)
-      RecordingMeter.seen.setdefault(key, []).append(val)
-
-  root = pathlib.Path(tempfile.mkdtemp(prefix="mmt_train_cli_"))
-  prev_sigterm = signal.getsignal(signal.SIGTERM)
-  prev_meter = trainer_lib.AverageMeter
-  prev_vocab = os.environ.get("MMT_TPU_BERT_VOCAB")
-  shims = contextlib.ExitStack()
-  try:
-    with open(FLAGSHIP_CONFIG) as f:
-      dims = {m: d["dim"] for m, d in compute_dims(json.load(f)).items()}
-    tic = time.perf_counter()
-    data_dir = synthetic.generate(
-        root, num_videos=CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS,
-        num_test=CLI_VAL_VIDEOS, experts=dims,
-        captions_per_video=CLI_CAPTIONS, max_feats=CLI_MAX_FEATS, cut="c")
-    vocab = (root / "vocab.txt").read_text().splitlines()
-    vocab += [f"[unused{i}]" for i in range(CLI_VOCAB - len(vocab))]
-    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
-    corpus_s = time.perf_counter() - tic
-    size = sum(p.stat().st_size for p in data_dir.rglob("*")) / 2 ** 30
-    print(f"train-cli: corpus of {CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS} videos "
-          f"(cut c, {len(dims)} experts, {sum(dims.values())} floats a "
-          f"row, up to {CLI_MAX_FEATS} rows, {CLI_CAPTIONS} captions) "
-          f"written in {corpus_s:.1f} s, {size:.2f} GiB; vocab "
-          f"{len(vocab)}", flush=True)
-    if corpus_s > CLI_CORPUS_LIMIT_S:
-      print(f"train-cli: writing the corpus took over "
-            f"{CLI_CORPUS_LIMIT_S:.0f} s", flush=True)
-    os.environ["MMT_TPU_BERT_VOCAB"] = str(root / "vocab.txt")
-    trainer_lib.AverageMeter = RecordingMeter
-    shims.enter_context(bench_sustained.flagship_expert_names(dims))
+  with cli_corpus() as (root, data_dir, dims, RecordingMeter):
     exp = root / "exp"
     cfg_path = root / "flagship_c.json"
     cfg_path.write_text(json.dumps(cli_config(data_dir, exp, 2)))
@@ -2818,6 +2901,66 @@ def train_cli_phase(torch, ops, ffn, similarity, staged_step_ms,
                         per_eval, final_batches, card)
     return (first, runs["native path"],
             then(cfg_path, exp) if then is not None else None)
+
+
+@contextlib.contextmanager
+def cli_corpus():
+  """Phase 11's corpus and the environment of its runs: a synthetic
+  MSRVTT cut-c corpus at the flagship's 7 experts and widths
+  (CLI_TRAIN_VIDEOS train and CLI_VAL_VIDEOS val videos, the vocab padded
+  to CLI_VOCAB entries) in a temporary directory, MMT_TPU_BERT_VOCAB set
+  to its vocab, the expert files read under the flagship's names, and
+  the trainer's timers recorded.  Yields (root, data_dir, dims, the
+  meter class, whose ``seen`` maps each timer to every value); restores
+  the environment, the trainer's meter and SIGTERM's handler and removes
+  the directory on exit."""
+  import signal
+  import tempfile
+
+  from mmt_tpu_torch import bench_sustained
+  from mmt_tpu_torch.data import synthetic
+  from mmt_tpu_torch.experts import compute_dims
+  from mmt_tpu_torch.train import trainer as trainer_lib
+  from mmt_tpu_torch.utils import timing
+
+  class RecordingMeter(timing.AverageMeter):
+    """The trainer's timers, also keeping every value (medians)."""
+    seen = {}
+
+    def update(self, key, val, n=1):
+      super().update(key, val, n)
+      RecordingMeter.seen.setdefault(key, []).append(val)
+
+  root = pathlib.Path(tempfile.mkdtemp(prefix="mmt_train_cli_"))
+  prev_sigterm = signal.getsignal(signal.SIGTERM)
+  prev_meter = trainer_lib.AverageMeter
+  prev_vocab = os.environ.get("MMT_TPU_BERT_VOCAB")
+  shims = contextlib.ExitStack()
+  try:
+    with open(FLAGSHIP_CONFIG) as f:
+      dims = {m: d["dim"] for m, d in compute_dims(json.load(f)).items()}
+    tic = time.perf_counter()
+    data_dir = synthetic.generate(
+        root, num_videos=CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS,
+        num_test=CLI_VAL_VIDEOS, experts=dims,
+        captions_per_video=CLI_CAPTIONS, max_feats=CLI_MAX_FEATS, cut="c")
+    vocab = (root / "vocab.txt").read_text().splitlines()
+    vocab += [f"[unused{i}]" for i in range(CLI_VOCAB - len(vocab))]
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    corpus_s = time.perf_counter() - tic
+    size = sum(p.stat().st_size for p in data_dir.rglob("*")) / 2 ** 30
+    print(f"train-cli: corpus of {CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS} videos "
+          f"(cut c, {len(dims)} experts, {sum(dims.values())} floats a "
+          f"row, up to {CLI_MAX_FEATS} rows, {CLI_CAPTIONS} captions) "
+          f"written in {corpus_s:.1f} s, {size:.2f} GiB; vocab "
+          f"{len(vocab)}", flush=True)
+    if corpus_s > CLI_CORPUS_LIMIT_S:
+      print(f"train-cli: writing the corpus took over "
+            f"{CLI_CORPUS_LIMIT_S:.0f} s", flush=True)
+    os.environ["MMT_TPU_BERT_VOCAB"] = str(root / "vocab.txt")
+    trainer_lib.AverageMeter = RecordingMeter
+    shims.enter_context(bench_sustained.flagship_expert_names(dims))
+    yield root, data_dir, dims, RecordingMeter
   finally:
     trainer_lib.AverageMeter = prev_meter
     shims.close()
@@ -4245,6 +4388,95 @@ def tp_fp32_witness(torch, cfg_dir, data_dir, card):
     shutil.rmtree(exp, ignore_errors=True)
 
 
+# Phase 18: the shipped flagship config as it is (fp32) through the CLI.
+FP32_CLI_STEPS = 4   # one epoch of b32 steps
+
+
+def fp32_cli_config(data_dir, save_dir):
+  """The shipped flagship config with its compute dtype left unset
+  (CENet's fp32) and only the data, splits, epochs (one, of
+  FP32_CLI_STEPS b32 steps) and save_dir changed, as ``cli_config``; no
+  continuous eval, so the run's one eval is the final eval of the
+  CLI_VAL_VIDEOS val videos."""
+  cfg = cli_config(data_dir, save_dir, 1, compute_dtype=None)
+  if "compute_dtype" in cfg["arch"]["args"]:
+    raise RuntimeError("fp32 cli: the shipped config sets compute_dtype")
+  cfg["continuous_eval_sets"] = []
+  cfg["trainer"]["max_samples_per_epoch"] = 32 * FP32_CLI_STEPS
+  return cfg
+
+
+@contextlib.contextmanager
+def recorded_tiles(ffn):
+  """While open, the tile id of every FFN call the wrappers hand the C
+  entry points (``ffn._launch``'s last argument; -1 the WMMA / FMA
+  kernel), as (entry point, tile) in the yielded list."""
+  calls, real = [], ffn._launch
+
+  def recording(lib, name, dev, *args):
+    calls.append((name, args[-1]))
+    return real(lib, name, dev, *args)
+
+  ffn._launch = recording
+  try:
+    yield calls
+  finally:
+    ffn._launch = real
+
+
+def fp32_cli_phase(torch, ffn, similarity, cfg_dir, data_dir, meter, card,
+                   require_route=True):
+  """``cli.main`` on the shipped flagship config in fp32
+  (``fp32_cli_config``) on phase 11's corpus: exactly 16 B2 and 16 B3 a
+  step, 16 B1 an eval batch, one B4 a step and for the eval, and (with
+  ``require_route``) every FFN call on the fp32 route: 0 calls of the FMA
+  kernels.  Prints the step median (the trainer's ``train_batch.total``
+  timer) and the eval's seconds (``valid.*``).  Returns the launches and
+  those two numbers."""
+  exp = cfg_dir / "fp32_exp"
+  cfg_path = cfg_dir / "fp32.json"
+  cfg_path.write_text(json.dumps(fp32_cli_config(data_dir, exp)))
+  batches = -(-CLI_VAL_VIDEOS // 32)
+  want = {"ffn_block": FFN_LAYERS * batches,
+          "ffn_train_fwd": FFN_LAYERS * FP32_CLI_STEPS,
+          "ffn_train_bwd": FFN_LAYERS * FP32_CLI_STEPS,
+          "moe_similarity": FP32_CLI_STEPS + 1}
+  at = {k: len(v) for k, v in meter.seen.items()}
+  with recorded_tiles(ffn) as calls:
+    trainer = cli_run(ffn, similarity, ["--config", str(cfg_path),
+                                        "--device", "cuda"], want,
+                      "fp32 as shipped")
+  seen = {k: v[at.get(k, 0):] for k, v in meter.seen.items()}
+  dtypes = {p.dtype for p in trainer.model.parameters()}
+  cd = trainer.model._arch["compute_dtype"]
+  steps_ms = [x * 1e3 for x in seen["train_batch.total"]]
+  eval_s = sum(seen[k][0] for k in ("valid.embds", "valid.conf_mat",
+                                    "valid.metrics"))
+  ffn_launches = sum(want[k] for k in CLI_COUNTED)
+  if len(calls) != ffn_launches:
+    raise RuntimeError(f"fp32 cli: {len(calls)} FFN calls recorded, "
+                       f"{ffn_launches} launched")
+  fma = sum(1 for _, tile in calls if tile < 0)
+  by_entry = {n: sum(1 for m, _ in calls if m == n)
+              for n in sorted({m for m, _ in calls})}
+  with open(exp / "perf_log.txt") as f:
+    losses = [json.loads(line)["loss"] for line in f]
+  print(f"fp32 cli: compute dtype {cd}, parameters {sorted(map(str, dtypes))}"
+        f"; {len(calls)} FFN calls {by_entry}, {fma} of them on the FMA "
+        f"kernels; epoch loss {losses}; b32 step median "
+        f"{statistics.median(steps_ms):.3f} ms (all {[round(x, 3) for x in steps_ms]}"
+        f"); final eval of {CLI_VAL_VIDEOS} videos {eval_s:.6f} s (embed "
+        f"{seen['valid.embds'][0]:.6f}) card: {card}", flush=True)
+  if cd != torch.float32 or len(steps_ms) != FP32_CLI_STEPS:
+    raise RuntimeError(f"fp32 cli: compute dtype {cd}, steps {steps_ms}")
+  if not all(math.isfinite(x) for x in losses):
+    raise RuntimeError(f"fp32 cli: epoch losses {losses}")
+  if require_route and fma:
+    raise RuntimeError(f"fp32 cli: {fma} FFN calls took the FMA kernels")
+  shutil.rmtree(exp, ignore_errors=True)
+  return want, statistics.median(steps_ms), eval_s
+
+
 # Phase 16: the port's measurement commands on the card.
 GEOMETRY_REPS = 5         # bench_geometry's BENCH_REPS default
 GEOMETRY_TOL = 2e-2       # kernel path vs plain path, eval sims
@@ -4487,6 +4719,8 @@ BENCH_SETTINGS_KEYS = {"metric", "value", "unit", "latency_s_1kx1k",
                        "train_step_ms_b128",
                        "train_samples_per_sec_per_chip"}
 FP32_SIMS_TOL = 1e-4      # phase 5's fp32 rule
+# B1's kernels on the fp32 route: its two GEMMs and its LayerNorm pass.
+F32_ROUTE_KERNELS = ("ffn_sgemm_kernel<", "ffn_ln_rows_kernel<false, float>")
 
 
 def bench_settings_phase(torch, ffn, dropout, similarity, ranking,
@@ -4495,8 +4729,8 @@ def bench_settings_phase(torch, ffn, dropout, similarity, ranking,
   BENCH_DTYPE=fp32, BENCH_TRAIN_BATCH=128 and BENCH_TRAIN_OPT=Ranger:
   the line's keys; the whole run's launches exact (16 B1 a chunk of each
   of the 2 evals, 16 B2, 16 B3 and 1 B4 a step of the 21, 1 B4 an eval);
-  B1 on its fp32 kernel (off the GEMM route; one eval under
-  torch.profiler, its FFN kernels ``ffn_block_f32_kernel`` only);
+  B1 on the fp32 route (one eval under torch.profiler, its FFN kernels
+  the route's SIMT GEMMs and LayerNorm pass only, no FMA kernel);
   the fp32 eval's sims within FP32_SIMS_TOL of the plain path's and its
   ranks by phase 3's rule; B2 and B3 at b128's rows by phase 4's rules
   with their times (``train_ffn_cases``).  Returns those cases and the
@@ -4534,8 +4768,9 @@ def bench_settings_phase(torch, ffn, dropout, similarity, ranking,
       or line["kernels"] is not True or line["backend"] != "cuda"):
     raise RuntimeError(f"bench fp32 / b128 / Ranger: the line {line}")
   run_eval, = made
-  if ffn.gemm_route(512, 3072, torch.float32):
-    raise RuntimeError("fp32 takes the GEMM route")
+  if not (ffn.f32_route(512, 3072, torch.float32)
+          and ffn.f32_route(768, 3072, torch.float32)):
+    raise RuntimeError("fp32 is off its route at the flagship's widths")
   # Late in the process the profiler drops a launch now and then, so the
   # kernels' names are read here (device_split's rule) and the launches
   # from the counters above.
@@ -4543,8 +4778,7 @@ def bench_settings_phase(torch, ffn, dropout, similarity, ranking,
            if profile_eval.category(k).startswith("cuda ffn")}
   print(f"bench fp32 eval under the profiler: the FFN kernels "
         f"{sorted(names)}", flush=True)
-  if not names or any(not n.startswith("ffn_block_f32_kernel")
-                      for n in names):
+  if not names or any(not n.startswith(F32_ROUTE_KERNELS) for n in names):
     raise RuntimeError(f"bench fp32 eval: B1 ran {names}")
 
   got = run_eval()
@@ -4583,8 +4817,73 @@ def finite_metrics(res):
       raise RuntimeError(f"non-finite {which}: {vals}")
 
 
+# ``--fp32``: B1 at the eval shapes, B2 and B3 at the b32 and b128 ones.
+FP32_ALONE_SHAPES = {"ffn_block": ((10900, 512), (1500, 768)),
+                     "ffn_train": TRAIN_SHAPES[:2] + TRAIN_F32_B128_SHAPES}
+
+
+def fp32_main():
+  """``python3 chip_smoke.py --fp32``: the fp32 path alone, to compare two
+  trees of the repository on one card (run it from each tree's root).
+  B1 at the eval shapes and B2 and B3 (add_dz on) at the b32 and b128
+  ones, in fp32, each routed as the tree's wrappers route it: its
+  CUDA-event and device ms and the tile id it passed (-1: the FMA
+  kernel); then phase 18's CLI run of the shipped config (fp32) on phase
+  11's corpus, without its route check.  Prints no final line."""
+  import torch
+
+  if not torch.cuda.is_available():
+    print("chip_smoke --fp32: no CUDA device; nothing was run",
+          file=sys.stderr)
+    return 1
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  from mmt_tpu_torch import _build, bench
+  from mmt_tpu_torch.ops import dropout, ffn, similarity
+
+  card = bench.card_line()
+  print(f"card: {card}", flush=True)
+  tic = time.perf_counter()
+  _build.load_library()
+  print(f"build: {_build.build().name} in {time.perf_counter() - tic:.1f} s",
+        flush=True)
+  dev = torch.device("cuda", 0)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  cd, i = torch.float32, TRAIN_I
+  kw = dict(eps=1e-12, compute_dtype=cd)
+  calls = []
+  for r, h in FP32_ALONE_SHAPES["ffn_block"]:
+    fargs, _ = train_inputs(torch, dropout, r, h, cd, dev, gen)
+    args = fargs[:1] + fargs[2:]
+    calls.append((f"ffn_block R={r} H={h}",
+                  lambda a=args: ffn.ffn_block_cuda(*a, **kw)))
+  for r, h in FP32_ALONE_SHAPES["ffn_train"]:
+    fargs, dy = train_inputs(torch, dropout, r, h, cd, dev, gen)
+    _, inter, z = ffn.ffn_train_fwd_plain(*fargs, **kw)
+    bargs = (dy, z, inter, fargs[1], fargs[2], fargs[4], fargs[6])
+    calls.append((f"ffn_train_fwd R={r} H={h}",
+                  lambda a=fargs: ffn.ffn_train_fwd_cuda(*a, **kw)))
+    calls.append((f"ffn_train_bwd R={r} H={h}",
+                  lambda a=bargs: ffn.ffn_train_bwd_cuda(*a, **kw)))
+  for what, fn in calls:
+    with recorded_tiles(ffn) as tiles:
+      fn()
+    r, h = (int(v[2:]) for v in what.split()[1:3])
+    ms, dev_ms = time_ms(torch, fn, 10), device_ms(torch, fn, 5)
+    print(f"{what} I={i} fp32 (tile {tiles[0][1]}): kernel_ms={ms:.4f} "
+          f"device_ms={dev_ms:.4f} ({tflops(r, h, i, dev_ms):.1f} TFLOP/s) "
+          f"card: {card}", flush=True)
+  with cli_corpus() as (root, data_dir, _, meter):
+    fp32_cli_phase(torch, ffn, similarity, root, data_dir, meter, card,
+                   require_route=False)
+  return 0
+
+
 def main():
   import torch
+
+  if sys.argv[1:] == ["--fp32"]:
+    return fp32_main()
 
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4595,6 +4894,7 @@ def main():
                              profile_eval)
   from mmt_tpu_torch.ops import dropout, ffn, ranking, similarity
   from mmt_tpu_torch.train import metrics
+  from mmt_tpu_torch.train import trainer as trainer_lib
 
   clock = PhaseClock()
 
@@ -4746,15 +5046,19 @@ def main():
     dp_cli, ref = dp_cli_phase(torch, cfg_path.parent, data_dir, card)
     clock.done("dp-cli")
     tp_cli = tp_cli_phase(torch, cfg_path.parent, data_dir, ref, card)
-    return served_cli, matrix, dp_cli, tp_cli
+    clock.done("tp-cli")
+    fp32_cli = fp32_cli_phase(torch, ffn, similarity, cfg_path.parent,
+                              data_dir, trainer_lib.AverageMeter, card)
+    return served_cli, matrix, dp_cli, tp_cli, fp32_cli
 
   cli_launches, cli_loop, (serve_launches, matrix_launches,
-                           dp_launches["c"], tp_cli_launches) = (
+                           dp_launches["c"], tp_cli_launches,
+                           (fp32_cli_launches, *_)) = (
       train_cli_phase(torch, ops, ffn, similarity, staged_step_ms, k_s, card,
                       then=serve_cli))
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
         flush=True)
-  clock.done("tp-cli")
+  clock.done("fp32-cli")
   served = serve_scale_phase(torch, ops, ffn, similarity, flagship, dev,
                              card, clock)
   clock.done("serve-sharded")
@@ -4815,6 +5119,9 @@ def main():
     entries[name]["max_abs_err"] = max(
         [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in cases])
     entries[name]["sustained_launches_per_step"] = sustained_per_step[name]
+  # Phase 18: the shipped config in fp32 through the CLI (its launches).
+  for name, n in fp32_cli_launches.items():
+    entries[name]["fp32_cli_launches"] = n
   # Phase 17 (c): B2 and B3 at b128's rows; B1's fp32 cases of phase 2.
   for name, cases in b128_cases.items():
     entries[name]["b128_shapes"] = cases

@@ -28,7 +28,8 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu",
            "fused_ranks.cu")
-HEADERS = ("ffn_common.cuh", "ffn_gemm.cuh", "sim_tile.cuh")
+HEADERS = ("ffn_common.cuh", "ffn_gemm.cuh", "ffn_sgemm.cuh",
+           "sim_tile.cuh")
 NATIVE = CSRC.parent / "native"
 BUILD_DIR = CSRC.parent.parent / "build" / "mmt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

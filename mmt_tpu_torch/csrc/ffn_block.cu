@@ -81,10 +81,22 @@
 // LayerNorm is a row pass and not GEMM 2's epilogue: a block owns 128 of
 // the H = 512 / 768 columns, and a block of all H columns would hold a
 // [64, 768] fp32 accumulator, 384 registers a thread of one warpgroup.
-// Other widths and fp32 keep the WMMA / FMA kernels.  The caller
-// chooses the route (ops/ffn.py:gemm_route): a tile id >= 0 takes this
-// one, whose launcher refuses a shape or type it does not take; -1 the
-// WMMA / FMA kernel.
+//
+// In fp32 (the compute type of every configuration under configs/eccv20/,
+// which leave CENet's compute_dtype at its default) all four take the
+// fp32 route at the same widths: the same two products and row pass in
+// fp32 through the SIMT GEMM of ffn_sgemm.cuh (exact fmaf, no TF32), with
+// no cast pass, g [R, I] in fp32 and inter and z stored in fp32; the
+// epilogues and the row pass are the bf16 route's, instantiated for fp32.
+// What bounds it: 4 R H I FLOP at the 67 TFLOP/s of fp32 FMA (1.02 ms at
+// the video eval shape), against which g's round trip (2 x 134 MB there)
+// is ~0.08 ms.  Every output of the products is one fmaf chain in
+// ascending k, as the FMA kernel's, so the partial modes give its bits.
+//
+// Other widths keep the WMMA / FMA kernels.  The caller chooses the
+// route (ops/ffn.py:gemm_route, f32_route): a tile id >= 0 takes the
+// compute type's route, whose launcher refuses a shape it does not take;
+// -1 the WMMA / FMA kernel, which also serves as the routes' witness.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +106,7 @@
 
 #include "ffn_common.cuh"
 #include "ffn_gemm.cuh"
+#include "ffn_sgemm.cuh"
 
 namespace {
 
@@ -435,35 +448,35 @@ ffn_cast_bf16_kernel(const float4* __restrict__ x,
   }
 }
 
-// GEMM 1's epilogue for B1 and B6: g = bf16(GELU_erf(acc + b1)), [R, ld].
+// GEMM 1's epilogue for B1 and B6: g = TC(GELU_erf(acc + b1)), [R, ld]
+// (bf16 on the GEMM route, fp32 on the fp32 route).
+template <typename TC>
 struct GeluEpilogue {
   const float* b1;
-  bf16* g;
+  TC* g;
   int ld;
   __device__ __forceinline__ void operator()(int r, int c, float v0,
                                              float v1) const {
     const float2 b = *reinterpret_cast<const float2*>(b1 + c);
-    *reinterpret_cast<__nv_bfloat162*>(g + size_t(r) * ld + c) =
-        __floats2bfloat162_rn(gelu_erf(v0 + b.x), gelu_erf(v1 + b.y));
+    store2(g + size_t(r) * ld + c, gelu_erf(v0 + b.x), gelu_erf(v1 + b.y));
   }
 };
 
-// GEMM 1's epilogue for B2: u = acc + b1 in fp32, stored as inter =
-// bf16(u) for the backward, and g = bf16(GELU_erf(u)) of the unrounded u.
+// GEMM 1's epilogue for B2 and B7: u = acc + b1 in fp32, stored as inter =
+// TC(u) for the backward, and g = TC(GELU_erf(u)) of the unrounded u.
+template <typename TC>
 struct GeluInterEpilogue {
   const float* b1;
-  bf16* inter;
-  bf16* g;
+  TC* inter;
+  TC* g;
   int ld;
   __device__ __forceinline__ void operator()(int r, int c, float v0,
                                              float v1) const {
     const size_t at = size_t(r) * ld + c;
     const float2 b = *reinterpret_cast<const float2*>(b1 + c);
     const float u0 = v0 + b.x, u1 = v1 + b.y;
-    *reinterpret_cast<__nv_bfloat162*>(inter + at) =
-        __floats2bfloat162_rn(u0, u1);
-    *reinterpret_cast<__nv_bfloat162*>(g + at) =
-        __floats2bfloat162_rn(gelu_erf(u0), gelu_erf(u1));
+    store2(inter + at, u0, u1);
+    store2(g + at, gelu_erf(u0), gelu_erf(u1));
   }
 };
 
@@ -505,11 +518,12 @@ struct DropResidualEpilogue {
 
 // LayerNorm of the rows of y [R, H] in place (fast variance, as
 // layer_norm_epilogue), one warp per row, H % 128 == 0 and H <= MAX_H.
-// kWriteZ (B2) also stores the rows before the norm as z [R, H] in bf16.
-template <bool kWriteZ>
+// kWriteZ (B2) also stores the rows before the norm as z [R, H] in the
+// compute type TC.
+template <bool kWriteZ, typename TC>
 __global__ void __launch_bounds__(256)
 ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, bf16* __restrict__ z,
+                   const float* __restrict__ beta, TC* __restrict__ z,
                    int R, int H, float eps) {
   constexpr int kMaxV = MAX_H / 128;  // float4s a lane
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -525,7 +539,7 @@ ffn_ln_rows_kernel(float* __restrict__ y, const float* __restrict__ gamma,
     if (j < nv) {
       v[j] = yr[j * 32 + lane];
       if constexpr (kWriteZ) {
-        store_bf16x4(z + size_t(row) * H + (j * 32 + lane) * 4, v[j]);
+        store4(z + size_t(row) * H + (j * 32 + lane) * 4, v[j]);
       }
       s += v[j].x + v[j].y + v[j].z + v[j].w;
       s2 += v[j].x * v[j].x + v[j].y * v[j].y + v[j].z * v[j].z +
@@ -598,10 +612,11 @@ int launch_route(const float* x, const void* w1, const float* b1,
   if constexpr (kInter) {
     err = mmt_gemm::tn_gemm(
         xbb, w1b, R, I, H, tile,
-        GeluInterEpilogue{b1, static_cast<bf16*>(inter), gb, I}, stream);
+        GeluInterEpilogue<bf16>{b1, static_cast<bf16*>(inter), gb, I},
+        stream);
   } else {
     err = mmt_gemm::tn_gemm(xbb, w1b, R, I, H, tile,
-                            GeluEpilogue{b1, gb, I}, stream);
+                            GeluEpilogue<bf16>{b1, gb, I}, stream);
   }
   if (err) return err;
   if constexpr (kPartial) {
@@ -617,29 +632,114 @@ int launch_route(const float* x, const void* w1, const float* b1,
                               ResidualEpilogue{b2, x, out, H}, stream);
     }
     if (err) return err;
-    ffn_ln_rows_kernel<kTrain><<<(R + 7) / 8, 256, 0, stream>>>(
+    ffn_ln_rows_kernel<kTrain, bf16><<<(R + 7) / 8, 256, 0, stream>>>(
         out, gamma, beta, static_cast<bf16*>(z), R, H, eps);
     return static_cast<int>(cudaGetLastError());
   }
+}
+
+// B1, B6, B2 or B7 on the fp32 route: the same two products and row pass
+// as launch_route, in fp32 through ffn_sgemm.cuh, with no cast pass (x is
+// fp32 already); g [R, I] is fp32 scratch from the caller and ``tile`` an
+// id of mmt_sgemm::kTileRows.  Takes fp32 with H and I multiples of 128
+// and H <= MAX_H, and every pointer its mode reads or writes non-null and
+// 16-byte aligned, else cudaErrorInvalidValue.
+template <Mode kMode>
+int launch_f32_route(const float* x, const float* w1, const float* b1,
+                     const float* w2, const float* b2, const float* gamma,
+                     const float* beta, const float* drop, float* out,
+                     float* inter, float* z, float* g, int R, int H, int I,
+                     float eps, int compute_dtype, int tile,
+                     cudaStream_t stream) {
+  constexpr bool kInter =
+      kMode == Mode::kTrain || kMode == Mode::kTrainPartial;
+  constexpr bool kPartial =
+      kMode == Mode::kPartial || kMode == Mode::kTrainPartial;
+  constexpr bool kTrain = kMode == Mode::kTrain;
+  if (compute_dtype != 0 || H <= 0 || I <= 0 || H % mmt_sgemm::BN ||
+      I % mmt_sgemm::BN || H > MAX_H || R <= 0 || tile < 0 ||
+      tile >= mmt_sgemm::kNumTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[] = {x,    w1,   b1,    w2,   out,  g,
+                        kPartial ? x : b2,  kPartial ? x : gamma,
+                        kPartial ? x : beta, kTrain ? drop : x,
+                        kInter ? inter : x, kTrain ? z : x};
+  for (const void* p : ptrs) {
+    if (p == nullptr || !aligned16(p)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  int err;
+  if constexpr (kInter) {
+    err = mmt_sgemm::sgemm<true>(x, w1, R, I, H, tile,
+                                 GeluInterEpilogue<float>{b1, inter, g, I},
+                                 stream);
+  } else {
+    err = mmt_sgemm::sgemm<true>(x, w1, R, I, H, tile,
+                                 GeluEpilogue<float>{b1, g, I}, stream);
+  }
+  if (err) return err;
+  if constexpr (kPartial) {
+    return mmt_sgemm::sgemm<true>(g, w2, R, H, I, tile,
+                                  mmt_gemm::PartialEpilogue{out, H}, stream);
+  } else {
+    if constexpr (kTrain) {
+      err = mmt_sgemm::sgemm<true>(g, w2, R, H, I, tile,
+                                   DropResidualEpilogue{b2, drop, x, out, H},
+                                   stream);
+    } else {
+      err = mmt_sgemm::sgemm<true>(g, w2, R, H, I, tile,
+                                   ResidualEpilogue{b2, x, out, H}, stream);
+    }
+    if (err) return err;
+    ffn_ln_rows_kernel<kTrain, float><<<(R + 7) / 8, 256, 0, stream>>>(
+        out, gamma, beta, z, R, H, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// The route of ``tile`` >= 0 by compute type: the fp32 route (g fp32
+// [R, I], xb unused) or the bf16 GEMM route (xb, g bf16); each refuses a
+// shape or type it does not take.
+template <Mode kMode>
+int launch_routes(const float* x, const void* w1, const float* b1,
+                  const void* w2, const float* b2, const float* gamma,
+                  const float* beta, const float* drop, float* out,
+                  void* inter, void* z, void* xb, void* g, int R, int H,
+                  int I, float eps, int compute_dtype, int tile,
+                  cudaStream_t stream) {
+  if (compute_dtype == 0) {
+    return launch_f32_route<kMode>(
+        x, static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+        b2, gamma, beta, drop, out, static_cast<float*>(inter),
+        static_cast<float*>(z), static_cast<float*>(g), R, H, I, eps,
+        compute_dtype, tile, stream);
+  }
+  return launch_route<kMode>(x, w1, b1, w2, b2, gamma, beta, drop, out, inter,
+                             z, xb, g, R, H, I, eps, compute_dtype, tile,
+                             stream);
 }
 
 }  // namespace
 
 // compute_dtype (shared with mmt_tpu_torch/ops/ffn.py): 0 = float32,
 // 1 = bfloat16.  x, biases, gamma, beta and out are float32.  ``tile`` >= 0
-// takes the GEMM route with that block tile (an unknown id, or a shape or
-// type the route does not take, is refused), xb [R, H] and g [R, I] bf16
-// scratch; -1 the WMMA or FMA kernel, xb and g unused.
+// takes the route of the compute type with that block tile (an unknown
+// id, or a shape the route does not take, is refused): in bf16 the GEMM
+// route, xb [R, H] and g [R, I] bf16 scratch; in fp32 the fp32 route, g
+// [R, I] fp32 scratch and xb unused.  -1 the WMMA or FMA kernel, xb and g
+// unused.
 extern "C" int mmt_ffn_block(const float* x, const void* w1, const float* b1,
                              const void* w2, const float* b2,
                              const float* gamma, const float* beta, float* out,
                              void* xb, void* g, int R, int H, int I, float eps,
                              int compute_dtype, int tile, void* stream_ptr) {
   if (tile >= 0) {
-    return launch_route<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr,
-                                     out, nullptr, nullptr, xb, g, R, H, I, eps,
-                                     compute_dtype, tile,
-                                     static_cast<cudaStream_t>(stream_ptr));
+    return launch_routes<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta,
+                                      nullptr, out, nullptr, nullptr, xb, g,
+                                      R, H, I, eps, compute_dtype, tile,
+                                      static_cast<cudaStream_t>(stream_ptr));
   }
   if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kEval>(x, w1, b1, w2, b2, gamma, beta, nullptr, out,
@@ -658,10 +758,10 @@ extern "C" int mmt_ffn_train_fwd(const float* x, const float* drop,
                                  int compute_dtype, int tile,
                                  void* stream_ptr) {
   if (tile >= 0) {
-    return launch_route<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop,
-                                      out, inter, z, xb, g, R, H, I, eps,
-                                      compute_dtype, tile,
-                                      static_cast<cudaStream_t>(stream_ptr));
+    return launch_routes<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop,
+                                       out, inter, z, xb, g, R, H, I, eps,
+                                       compute_dtype, tile,
+                                       static_cast<cudaStream_t>(stream_ptr));
   }
   if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kTrain>(x, w1, b1, w2, b2, gamma, beta, drop, out,
@@ -678,11 +778,10 @@ extern "C" int mmt_ffn_partial(const float* x, const void* w1,
                                void* xb, void* g, int R, int H, int I,
                                int compute_dtype, int tile, void* stream_ptr) {
   if (tile >= 0) {
-    return launch_route<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr,
-                                        nullptr, nullptr, out, nullptr, nullptr,
-                                        xb, g, R, H, I, 0.0f, compute_dtype,
-                                        tile,
-                                        static_cast<cudaStream_t>(stream_ptr));
+    return launch_routes<Mode::kPartial>(
+        x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, out, nullptr,
+        nullptr, xb, g, R, H, I, 0.0f, compute_dtype, tile,
+        static_cast<cudaStream_t>(stream_ptr));
   }
   if (tile != -1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Mode::kPartial>(x, w1, b1, w2, nullptr, nullptr, nullptr,
@@ -699,7 +798,7 @@ extern "C" int mmt_ffn_train_fwd_partial(const float* x, const void* w1,
                                          int compute_dtype, int tile,
                                          void* stream_ptr) {
   if (tile >= 0) {
-    return launch_route<Mode::kTrainPartial>(
+    return launch_routes<Mode::kTrainPartial>(
         x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, out, inter,
         nullptr, xb, g, R, H, I, 0.0f, compute_dtype, tile,
         static_cast<cudaStream_t>(stream_ptr));

@@ -46,9 +46,26 @@ __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 
-// Four bf16 values at p (8-byte aligned) as fp32, and back (round to
-// nearest even): the row passes' vector loads and stores.
-__device__ __forceinline__ float4 load_bf16x4(const bf16* p) {
+// Two values at p (8-byte aligned in fp32, 4 in bf16) and four (16 /
+// 8), in either compute type, as fp32 and back; bf16 stores round to
+// nearest even.  The row passes and epilogues of the bf16 and fp32 routes
+// read and write their compute-type tensors through these.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const float2 lo = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
@@ -56,8 +73,10 @@ __device__ __forceinline__ float4 load_bf16x4(const bf16* p) {
       *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-
-__device__ __forceinline__ void store_bf16x4(bf16* p, float4 v) {
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
   uint2 raw;

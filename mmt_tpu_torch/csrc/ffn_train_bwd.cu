@@ -52,6 +52,16 @@
 // from L2 once per 128 (or 64) rows instead of once per 16, and the text
 // shape (960 rows) gives 90 blocks of 64 rows in GEMM B and 360 in GEMM
 // A, against the WMMA kernel's 60.
+//
+// In fp32 at the same widths B3 takes the fp32 route in three launches:
+// the same row pass (dz and dffn in fp32), then GEMM A and GEMM B through
+// the SIMT GEMM of ffn_sgemm.cuh (exact fmaf, no TF32), which stages the
+// weights k-major in shared memory itself and so reads W2 [H, I] and W1
+// [I, H] as stored: no transposed copies.  What bounds it: 4 R H I FLOP
+// at the 67 TFLOP/s of fp32 FMA (0.66 ms at the b32 video shape), plus
+// inter read and dinter written in fp32 (86 MB each there, ~0.05 ms).
+// The ids of ffn_sgemm.cuh's row tiles (128, 64, 32) give the text
+// shape's GEMM B 180 blocks of 32 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +71,7 @@
 
 #include "ffn_common.cuh"
 #include "ffn_gemm.cuh"
+#include "ffn_sgemm.cuh"
 
 namespace {
 
@@ -368,14 +379,15 @@ ffn_transpose_bf16_kernel(const uint16_t* __restrict__ w1,
 }
 
 // LayerNorm backward of dy at z, one warp per row, with ln_backward's
-// arithmetic (fast variance, fp32): stores dz and dffn = dz * drop in
-// bf16, both rounded from the unrounded fp32 dz, and that fp32 dz to dx
-// unless dx is null.  H % 128 == 0 and H <= MAX_H.
+// arithmetic (fast variance, fp32): stores dz and dffn = dz * drop in the
+// compute type TC, both rounded from the unrounded fp32 dz, and that fp32
+// dz to dx unless dx is null.  H % 128 == 0 and H <= MAX_H.
+template <typename TC>
 __global__ void __launch_bounds__(256)
-ffn_ln_bwd_rows_kernel(const float* __restrict__ dy, const bf16* __restrict__ z,
+ffn_ln_bwd_rows_kernel(const float* __restrict__ dy, const TC* __restrict__ z,
                        const float* __restrict__ drop,
-                       const float* __restrict__ gamma, bf16* __restrict__ dz,
-                       bf16* __restrict__ dffn, float* __restrict__ dx, int R,
+                       const float* __restrict__ gamma, TC* __restrict__ dz,
+                       TC* __restrict__ dffn, float* __restrict__ dx, int R,
                        int H, float eps) {
   constexpr int kMaxV = MAX_H / 128;  // groups of 4 columns a lane
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -387,7 +399,7 @@ ffn_ln_bwd_rows_kernel(const float* __restrict__ dy, const bf16* __restrict__ z,
 #pragma unroll
   for (int j = 0; j < kMaxV; ++j) {
     if (j < nv) {
-      const float4 v = load_bf16x4(z + base + (j * 32 + lane) * 4);
+      const float4 v = load4(z + base + (j * 32 + lane) * 4);
       zh[j] = v;
       s += v.x + v.y + v.z + v.w;
       s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
@@ -431,27 +443,27 @@ ffn_ln_bwd_rows_kernel(const float* __restrict__ dy, const bf16* __restrict__ z,
                                    rstd * (dg[j].z - mg - zh[j].z * mgz),
                                    rstd * (dg[j].w - mg - zh[j].w * mgz));
       const float4 m = *reinterpret_cast<const float4*>(drop + base + c);
-      store_bf16x4(dz + base + c, d);
-      store_bf16x4(dffn + base + c,
-                   make_float4(d.x * m.x, d.y * m.y, d.z * m.z, d.w * m.w));
+      store4(dz + base + c, d);
+      store4(dffn + base + c,
+             make_float4(d.x * m.x, d.y * m.y, d.z * m.z, d.w * m.w));
       if (dx != nullptr) *reinterpret_cast<float4*>(dx + base + c) = d;
     }
   }
 }
 
-// GEMM A's epilogue: dinter = bf16(acc * (Phi(u) + u phi(u))) at
-// u = inter, [R, ld]; stored, and GEMM B's A operand.
+// GEMM A's epilogue: dinter = TC(acc * (Phi(u) + u phi(u))) at
+// u = inter, [R, ld]; stored, and GEMM B's A operand (bf16 on the GEMM
+// route, fp32 on the fp32 route).
+template <typename TC>
 struct DgeluEpilogue {
-  const bf16* inter;
-  bf16* dinter;
+  const TC* inter;
+  TC* dinter;
   int ld;
   __device__ __forceinline__ void operator()(int r, int c, float v0,
                                              float v1) const {
     const size_t at = size_t(r) * ld + c;
-    const float2 u = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(inter + at));
-    *reinterpret_cast<__nv_bfloat162*>(dinter + at) = __floats2bfloat162_rn(
-        v0 * gelu_erf_grad(u.x), v1 * gelu_erf_grad(u.y));
+    const float2 u = load2(inter + at);
+    store2(dinter + at, v0 * gelu_erf_grad(u.x), v1 * gelu_erf_grad(u.y));
   }
 };
 
@@ -499,15 +511,15 @@ int launch_bwd_route(const float* dy, const void* z, const void* inter,
       static_cast<uint16_t*>(w1t), static_cast<uint16_t*>(w2t), H, I);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  ffn_ln_bwd_rows_kernel<<<(R + 7) / 8, 256, 0, stream>>>(
+  ffn_ln_bwd_rows_kernel<bf16><<<(R + 7) / 8, 256, 0, stream>>>(
       dy, static_cast<const bf16*>(z), drop, gamma, static_cast<bf16*>(dz),
       static_cast<bf16*>(dffn), add_dz ? dx : nullptr, R, H, eps);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   err = mmt_gemm::tn_gemm(static_cast<const bf16*>(dffn), w2tb, R, I, H,
                           tile,
-                          DgeluEpilogue{static_cast<const bf16*>(inter),
-                                        dinterb, I},
+                          DgeluEpilogue<bf16>{static_cast<const bf16*>(inter),
+                                              dinterb, I},
                           stream);
   if (err) return err;
   if (add_dz) {
@@ -518,14 +530,57 @@ int launch_bwd_route(const float* dy, const void* z, const void* inter,
                            mmt_gemm::PartialEpilogue{dx, H}, stream);
 }
 
+// B3 on the fp32 route: the row pass and the two products of
+// launch_bwd_route in fp32 through ffn_sgemm.cuh, which reads W2 [H, I]
+// and W1 [I, H] as stored (N contiguous: no transposed copies); dffn
+// [R, H] is fp32 scratch from the caller, ``tile`` an id of
+// mmt_sgemm::kTileRows.  Takes fp32 with H and I multiples of 128 and
+// H <= MAX_H, and every pointer non-null and 16-byte aligned, else
+// cudaErrorInvalidValue.
+int launch_bwd_f32_route(const float* dy, const float* z, const float* inter,
+                         const float* drop, const float* w1, const float* w2,
+                         const float* gamma, float* dx, float* dz,
+                         float* dinter, float* dffn, int R, int H, int I,
+                         float eps, int compute_dtype, int add_dz, int tile,
+                         cudaStream_t stream) {
+  if (compute_dtype != 0 || H <= 0 || I <= 0 || H % mmt_sgemm::BN ||
+      I % mmt_sgemm::BN || H > MAX_H || R <= 0 || tile < 0 ||
+      tile >= mmt_sgemm::kNumTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[] = {dy, z,  inter,  drop, w1,  w2,
+                        gamma, dx, dz, dinter, dffn};
+  for (const void* p : ptrs) {
+    if (p == nullptr || !aligned16(p)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  ffn_ln_bwd_rows_kernel<float><<<(R + 7) / 8, 256, 0, stream>>>(
+      dy, z, drop, gamma, dz, dffn, add_dz ? dx : nullptr, R, H, eps);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = mmt_sgemm::sgemm<false>(dffn, w2, R, I, H, tile,
+                                DgeluEpilogue<float>{inter, dinter, I},
+                                stream);
+  if (err) return err;
+  if (add_dz) {
+    return mmt_sgemm::sgemm<false>(dinter, w1, R, H, I, tile,
+                                   AccumulateEpilogue{dx, H}, stream);
+  }
+  return mmt_sgemm::sgemm<false>(dinter, w1, R, H, I, tile,
+                                 mmt_gemm::PartialEpilogue{dx, H}, stream);
+}
+
 }  // namespace
 
 // compute_dtype (shared with mmt_tpu_torch/ops/ffn.py): 0 = float32,
 // 1 = bfloat16.  dy, drop, gamma and dx are float32; z, inter, w1, w2, dz
-// and dinter are in the compute type.  ``tile`` >= 0 takes the GEMM route
-// with that block tile (an unknown id, or a shape or type the route does
-// not take, is refused), dffn [R, H], w1t [H, I] and w2t [I, H] bf16
-// scratch; -1 the WMMA or FMA kernel, the scratch unused.
+// and dinter are in the compute type.  ``tile`` >= 0 takes the route of
+// the compute type with that block tile (an unknown id, or a shape the
+// route does not take, is refused): in bf16 the GEMM route, dffn [R, H],
+// w1t [H, I] and w2t [I, H] bf16 scratch; in fp32 the fp32 route, dffn
+// [R, H] fp32 scratch, w1t and w2t unused.  -1 the WMMA or FMA kernel, the
+// scratch unused.
 extern "C" int mmt_ffn_train_bwd(const float* dy, const void* z,
                                  const void* inter, const float* drop,
                                  const void* w1, const void* w2,
@@ -535,6 +590,14 @@ extern "C" int mmt_ffn_train_bwd(const float* dy, const void* z,
                                  int compute_dtype, int add_dz, int tile,
                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (tile >= 0 && compute_dtype == 0) {
+    return launch_bwd_f32_route(
+        dy, static_cast<const float*>(z), static_cast<const float*>(inter),
+        drop, static_cast<const float*>(w1), static_cast<const float*>(w2),
+        gamma, dx, static_cast<float*>(dz), static_cast<float*>(dinter),
+        static_cast<float*>(dffn), R, H, I, eps, compute_dtype, add_dz, tile,
+        stream);
+  }
   if (tile >= 0) {
     return launch_bwd_route(dy, z, inter, drop, w1, w2, gamma, dx, dz, dinter,
                             dffn, w1t, w2t, R, H, I, eps, compute_dtype, add_dz,

@@ -8,8 +8,11 @@ residual) and their tensor-parallel partials (B6, B7) in
 csrc/ffn_block.cu, the train backward (B3) in csrc/ffn_train_bwd.cu.  In
 bf16 at the flagship's widths all five run as two TMA + wgmma GEMMs with
 fused epilogues and row passes (csrc/ffn_gemm.cuh; ``gemm_route``,
-``pick_gemm_tile``); otherwise one kernel keeps the [R, I] intermediate
-out of device memory.
+``pick_gemm_tile``); in fp32 (CENet's default compute dtype, which no
+shipped config changes) at the same widths as the same two GEMMs and row
+passes on the fp32 SIMT GEMM (csrc/ffn_sgemm.cuh, exact fmaf;
+``f32_route``, ``pick_f32_tile``); otherwise one kernel (WMMA in bf16,
+FMA in fp32) keeps the [R, I] intermediate out of device memory.
 Under autograd the eval blocks' backward is the vjp of ``ffn_block_ref``,
 the port of the JAX package's XLA reference, recomputed (as
 mmt_tpu/ops/ffn.py:_fused_ffn_fn's).  The ``*_plain`` functions are the same
@@ -91,9 +94,10 @@ def gemm_route(h, i, compute_dtype) -> bool:
   """True if the eval block (B1), the train forward (B2) and backward
   (B3) and the partials (B6, B7) take the TMA + wgmma GEMM route at
   widths H, I:
-  bf16, H and I multiples of GEMM_COLS.  Else the WMMA kernel (bf16) or
-  the FMA kernel (fp32).  The one place the route is chosen: the wrappers
-  pass the C entry points a tile id on it and -1 off it."""
+  bf16, H and I multiples of GEMM_COLS.  Else, in bf16, the WMMA kernel;
+  fp32 has a route of its own (``f32_route``).  With ``f32_route`` the
+  one place a route is chosen: the wrappers pass the C entry points a
+  tile id on a route and -1 off it."""
   return (compute_dtype == torch.bfloat16 and h % GEMM_COLS == 0
           and i % GEMM_COLS == 0 and h <= MAX_H)
 
@@ -107,12 +111,50 @@ def pick_gemm_tile(rows, h, sms) -> int:
   return 0 if -(-rows // GEMM_TILES[0]) * (h // 128) >= sms else 1
 
 
+# Row tiles of the fp32 route (csrc/ffn_sgemm.cuh: kTileRows), by id as
+# GEMM_TILES; every tile runs the same ascending-k fmaf chain for an
+# output element, so all give the same bits.  F32_TILE_RATES: the rows a
+# block of each tile computes in a unit of time, relative to the largest
+# (its microtile does fewer FMAs a shared-memory load), as the three
+# tiles ran at 6,976-27,904 rows on an H100 (PERF.md, the fp32 route).
+F32_TILES = (128, 64, 32)
+F32_TILE_RATES = (1.0, 0.87, 0.55)
+F32_COLS = 128     # csrc/ffn_sgemm.cuh: BN, the columns of a block tile
+
+
+def f32_route(h, i, compute_dtype) -> bool:
+  """True if B1, B2, B3, B6 and B7 take the fp32 route at widths H, I:
+  fp32, H and I multiples of F32_COLS, H <= MAX_H (every FFN of
+  configs/eccv20/, whose fp32 is CENet's default compute dtype).  Else,
+  in fp32, the FMA kernel."""
+  return (compute_dtype == torch.float32 and h % F32_COLS == 0
+          and i % F32_COLS == 0 and h <= MAX_H)
+
+
+def pick_f32_tile(rows, h, i, sms) -> int:
+  """Id of the fp32 route's row tile for ``rows`` rows at widths H, I on
+  a card with ``sms`` SMs, for every mode: the tile with which the
+  busiest SM ends both GEMMs first.  For each GEMM ([rows, I] with K = H,
+  then [rows, H] with K = I, in tiles of 128 columns) that SM takes
+  ceil(blocks / sms) blocks of the tile's rows times K, at the tile's
+  rate (F32_TILE_RATES); the larger tile at a tie.  At I = 3,072: video
+  10,900 and 6,976 x 512 and text 1,500 and 1,920 x 768, 128 rows; text
+  960 and 3,840 x 768 and 872 and 1,744 x 512, 64; a query's 30 x 768
+  and an eval's last 240 x 768, 32."""
+  def cost(tile):
+    t_rows = F32_TILES[tile]
+    row_tiles = -(-rows // t_rows)
+    return sum(-(-row_tiles * (n // F32_COLS) // sms) * t_rows * k
+               for n, k in ((i, h), (h, i))) / F32_TILE_RATES[tile]
+  return min(range(len(F32_TILES)), key=cost)
+
+
 def _check_operands(kernel, *, f32, cd, rows, h, i, compute_dtype,
                     tma=False):
   """Raise ValueError unless the operands are what the kernel takes:
   ``f32`` / ``cd`` map names to (tensor, shape) in float32 / the compute
   dtype, ``cd`` including the weights w1 [I, H] and w2 [H, I]; with
-  ``tma`` (the GEMM route) every operand 16-byte aligned.  Returns the
+  ``tma`` (a route) every operand 16-byte aligned.  Returns the
   operands' device."""
   def require(cond, msg):
     # msg formats lazily: a check that passes costs no formatting.
@@ -162,63 +204,83 @@ def _launch(lib, name, dev, *args):
 _SMS = {}   # SM count by device index
 
 
+def _on_route(h, i, compute_dtype) -> bool:
+  """True if calls at widths H, I take a route (bf16's GEMM route or the
+  fp32 route), whose vector loads need 16-byte aligned operands."""
+  return gemm_route(h, i, compute_dtype) or f32_route(h, i, compute_dtype)
+
+
 def _route_tile(rows, h, i, compute_dtype, tile, dev):
-  """The tile id a call passes C: -1 off the route, or when ``tile`` is -1
-  (the WMMA / FMA kernel at any shape, for checks); else ``tile``, picked
-  by ``pick_gemm_tile`` when None."""
-  if tile == -1 or not gemm_route(h, i, compute_dtype):
+  """The tile id a call passes C: -1 off the routes, or when ``tile`` is
+  -1 (the WMMA / FMA kernel at any shape, for checks); else ``tile``,
+  picked by ``pick_gemm_tile`` (bf16) or ``pick_f32_tile`` (fp32) when
+  None."""
+  if tile == -1 or not _on_route(h, i, compute_dtype):
     return -1
   if tile is None:
     if dev.index not in _SMS:
       _SMS[dev.index] = torch.cuda.get_device_properties(
           dev).multi_processor_count
-    tile = pick_gemm_tile(rows, h, _SMS[dev.index])
+    sms = _SMS[dev.index]
+    tile = (pick_f32_tile(rows, h, i, sms) if compute_dtype == torch.float32
+            else pick_gemm_tile(rows, h, sms))
   return tile
 
 
-def _bf16_parts(dev, *sizes):
-  """One bf16 allocation of parts of ``sizes`` values, and each part's
-  address.  Every size on the route is a multiple of 128 values, so
+def _parts(dev, dtype, *sizes):
+  """One allocation of parts of ``sizes`` values in ``dtype``, and each
+  part's address.  Every size on a route is a multiple of 128 values, so
   every part starts 256-byte aligned."""
-  buf = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+  buf = torch.empty(sum(sizes), dtype=dtype, device=dev)
   at = [buf.data_ptr()]
   for n in sizes[:-1]:
-    at.append(at[-1] + 2 * n)
+    at.append(at[-1] + buf.element_size() * n)
   return buf, at
 
 
 def _gemm_scratch(rows, h, i, compute_dtype, tile, dev):
   """(scratch, the addresses of xb [R, H] and g [R, I] in it, tile id) of
-  a GEMM-route call of B1, B6, B2 or B7.  Off the route (None, None, None,
-  -1).  ``tile`` as for ``_route_tile``."""
+  a route call of B1, B6, B2 or B7: on the GEMM route both bf16; on the
+  fp32 route g alone, fp32 (xb None: x is fp32 already).  Off the routes
+  (None, None, None, -1).  ``tile`` as for ``_route_tile``."""
   tile = _route_tile(rows, h, i, compute_dtype, tile, dev)
   if tile < 0:
     return None, None, None, -1
-  buf, (xb, g) = _bf16_parts(dev, rows * h, rows * i)
+  if compute_dtype == torch.float32:
+    buf, (g,) = _parts(dev, torch.float32, rows * i)
+    return buf, None, g, tile
+  buf, (xb, g) = _parts(dev, torch.bfloat16, rows * h, rows * i)
   return buf, xb, g, tile
 
 
 def _bwd_scratch(rows, h, i, compute_dtype, tile, dev):
   """(scratch, the addresses of dffn [R, H], w1t [H, I] and w2t [I, H] in
-  it, tile id) of a GEMM-route call of B3: the LayerNorm backward's
-  rounded dffn and the weights transposed for the TN GEMMs.  Off the
-  route (None, None, None, None, -1)."""
+  it, tile id) of a route call of B3: on the GEMM route the LayerNorm
+  backward's rounded dffn and the weights transposed for the TN GEMMs,
+  bf16; on the fp32 route dffn alone, fp32 (its GEMM reads the weights
+  as stored: w1t and w2t None).  Off the routes (None, None, None, None,
+  -1)."""
   tile = _route_tile(rows, h, i, compute_dtype, tile, dev)
   if tile < 0:
     return None, None, None, None, -1
-  buf, (dffn, w1t, w2t) = _bf16_parts(dev, rows * h, h * i, i * h)
+  if compute_dtype == torch.float32:
+    buf, (dffn,) = _parts(dev, torch.float32, rows * h)
+    return buf, dffn, None, None, tile
+  buf, (dffn, w1t, w2t) = _parts(dev, torch.bfloat16, rows * h, h * i,
+                                 i * h)
   return buf, dffn, w1t, w2t, tile
 
 
 def ffn_block_cuda(x, w1, b1, w2, b2, gamma, beta, *, eps, compute_dtype,
                    tile=None):
   """Launch csrc/ffn_block.cu on x [R, H] (CUDA); returns fp32 [R, H].
-  ``tile`` (an id of ``GEMM_TILES``) overrides ``pick_gemm_tile`` on the
-  GEMM route: for checks."""
+  ``tile`` (an id of ``GEMM_TILES`` in bf16, of ``F32_TILES`` in fp32)
+  overrides ``pick_gemm_tile`` / ``pick_f32_tile`` on a route, and -1
+  runs the WMMA / FMA kernel there: for checks."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_block", rows=r, h=h, i=i, compute_dtype=compute_dtype,
-      tma=gemm_route(h, i, compute_dtype),
+      tma=_on_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,)), b2=(b2, (h,)),
                gamma=(gamma, (h,)), beta=(beta, (h,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
@@ -310,11 +372,11 @@ def ffn_train_fwd_cuda(x, drop, w1, b1, w2, b2, gamma, beta, *, eps,
                        compute_dtype, tile=None):
   """Launch B2 (csrc/ffn_block.cu, train forward); same contract as
   ``ffn_train_fwd_plain``, with w1/w2 in the compute dtype.  ``tile`` as
-  for ``ffn_block_cuda``; -1 runs the WMMA kernel on the route too."""
+  for ``ffn_block_cuda``."""
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_train_fwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
-      tma=gemm_route(h, i, compute_dtype),
+      tma=_on_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), drop=(drop, (r, h)), b1=(b1, (i,)),
                b2=(b2, (h,)), gamma=(gamma, (h,)), beta=(beta, (h,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
@@ -359,7 +421,7 @@ def ffn_train_bwd_cuda(dy, z, inter, drop, w1, w2, gamma, *, eps,
   r, h, i = _weight_shapes(z, w1)
   dev = _check_operands(
       "ffn_train_bwd", rows=r, h=h, i=i, compute_dtype=compute_dtype,
-      tma=gemm_route(h, i, compute_dtype),
+      tma=_on_route(h, i, compute_dtype),
       f32=dict(dy=(dy, (r, h)), drop=(drop, (r, h)), gamma=(gamma, (h,))),
       cd=dict(z=(z, (r, h)), inter=(inter, (r, i)), w1=(w1, (i, h)),
               w2=(w2, (h, i))))
@@ -503,7 +565,7 @@ def ffn_partial_cuda(x, w1, b1, w2, *, compute_dtype, tile=None):
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
-      tma=gemm_route(h, i, compute_dtype),
+      tma=_on_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)
@@ -525,7 +587,7 @@ def ffn_train_fwd_partial_cuda(x, w1, b1, w2, *, compute_dtype, tile=None):
   r, h, i = _weight_shapes(x, w1)
   dev = _check_operands(
       "ffn_train_fwd_partial", rows=r, h=h, i=i, compute_dtype=compute_dtype,
-      tma=gemm_route(h, i, compute_dtype),
+      tma=_on_route(h, i, compute_dtype),
       f32=dict(x=(x, (r, h)), b1=(b1, (i,))),
       cd=dict(w1=(w1, (i, h)), w2=(w2, (h, i))))
   out = torch.empty((r, h), dtype=torch.float32, device=dev)

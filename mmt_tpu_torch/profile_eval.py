@@ -53,9 +53,9 @@ PROFILE_TRIES = 4
 # The __global__ kernels of csrc/, by the source that defines them.
 CUDA_FFN_KERNELS = ("ffn_block_bf16_kernel", "ffn_block_f32_kernel",
                     "ffn_cast_bf16_kernel", "ffn_ln_rows_kernel",
-                    "ffn_tn_gemm_kernel", "ffn_train_bwd_bf16_kernel",
-                    "ffn_train_bwd_f32_kernel", "ffn_transpose_bf16_kernel",
-                    "ffn_ln_bwd_rows_kernel")
+                    "ffn_tn_gemm_kernel", "ffn_sgemm_kernel",
+                    "ffn_train_bwd_bf16_kernel", "ffn_train_bwd_f32_kernel",
+                    "ffn_transpose_bf16_kernel", "ffn_ln_bwd_rows_kernel")
 CUDA_SIM_KERNELS = ("moe_similarity_kernel", "fused_ranks_kernel",
                     "k_major_kernel")
 # (category, pattern), the first that matches a name files it.
@@ -75,16 +75,19 @@ CATEGORIES = (
 OTHER = "other"
 
 # The kernel each wrapper runs exactly once a launch, on each of its
-# routes (csrc/): B1 and B2 end in their residual GEMM on the GEMM route
-# (ffn_block.cu:launch_route) and are one WMMA / FMA kernel of their Mode
-# off it; B3 starts its GEMM route with one LayerNorm-backward row pass
-# (ffn_train_bwd.cu:launch_bwd_route); B4 and B5 are one kernel each
-# (their k-major copies are shared).  B6 and B7 run only under tensor
-# parallelism, which the benchmark's programs do not use.
+# routes (csrc/): B1 and B2 end in their residual GEMM on the bf16 GEMM
+# route (ffn_tn_gemm_kernel) and on the fp32 route (ffn_sgemm_kernel)
+# (ffn_block.cu:launch_route, launch_f32_route), and are one WMMA / FMA
+# kernel of their Mode off them; B3 starts both its routes with one
+# LayerNorm-backward row pass (ffn_train_bwd.cu:launch_bwd_route,
+# launch_bwd_f32_route); B4 and B5 are one kernel each (their k-major
+# copies are shared).  B6 and B7 run only under tensor parallelism, which
+# the benchmark's programs do not use.
+_GEMMS = r"ffn_(?:tn_gemm|sgemm)_kernel<[^>]*"
 LAUNCH_MARKERS = {
-    "B1": re.compile(r"(?<![A-Za-z])ResidualEpilogue>"
+    "B1": re.compile(_GEMMS + r"(?<![A-Za-z])ResidualEpilogue>"
                      r"|ffn_block_(?:bf16|f32)_kernel<.*(?:Mode\)0|kEval)>"),
-    "B2": re.compile(r"DropResidualEpilogue>"
+    "B2": re.compile(_GEMMS + r"DropResidualEpilogue>"
                      r"|ffn_block_(?:bf16|f32)_kernel<.*(?:Mode\)1|kTrain)>"),
     "B3": re.compile(r"ffn_ln_bwd_rows_kernel|ffn_train_bwd_(?:bf16|f32)_"),
     "B4": re.compile(r"moe_similarity_kernel"),
@@ -115,7 +118,8 @@ def device_events(prof):
 def short_kernel_name(key):
   """A device kernel's name without its return type, namespaces and
   parameter list: ``ffn_tn_gemm_kernel<64, GeluInterEpilogue>``."""
-  for junk in ("void ", "(anonymous namespace)::", "mmt_gemm::"):
+  for junk in ("void ", "(anonymous namespace)::", "mmt_gemm::",
+               "mmt_sgemm::"):
     key = key.replace(junk, "")
   return key.split("(")[0]
 

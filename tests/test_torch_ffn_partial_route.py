@@ -57,7 +57,11 @@ def launches(monkeypatch):
     (128, 256, BF, -1, -1),       # the WMMA kernel at a route shape
     (192, 768, BF, None, -1),     # off the route: WMMA
     (192, 768, BF, 0, -1),        # off it whatever tile is asked for
-    (128, 256, F32, None, -1)])   # fp32: FMA
+    # fp32 on its own route, the 32-row tile (the case keeps the name it
+    # had when fp32 ran the FMA kernel).
+    pytest.param(128, 256, F32, None, 2, id="128-256-cd6-None--1"),
+    (128, 256, F32, -1, -1),      # the FMA kernel at a route shape
+    (192, 768, F32, None, -1)])   # fp32 off its route: FMA
 def test_wrapper_passes_c_the_tile_and_scratch(h, i, cd, tile, want,
                                                launches):
   r = 40
@@ -75,6 +79,8 @@ def test_wrapper_passes_c_the_tile_and_scratch(h, i, cd, tile, want,
   assert args[12] == want
   if want < 0:
     assert (xb, g) == (None, None)
+  elif cd == F32:   # g [R, I] alone: x is fp32 already
+    assert xb is None and g is not None
   else:   # one bf16 buffer: xb [R, H], then g [R, I]
     assert g - xb == 2 * r * h
 
@@ -136,14 +142,17 @@ class _GroupOfOne(TensorParallel):
 @pytest.mark.parametrize("h,i,cd,want", [
     (128, 256, BF, 1),       # the route: 40 rows, the 64-row tile
     (192, 768, BF, -1),      # off it: WMMA
-    (128, 256, F32, -1)])    # fp32: FMA
+    # fp32 on its own route: the 32-row tile (the case keeps the name it
+    # had when fp32 ran the FMA kernel).
+    pytest.param(128, 256, F32, 2, id="128-256-cd2--1"),
+    (192, 768, F32, -1)])    # fp32 off its route: FMA
 def test_tp_train_block_launches_b7_with_the_route_tile(h, i, cd, want,
                                                         launches,
                                                         monkeypatch):
   """FFNBlockTrain(tp=) on the kernel path (``ops.use_kernel`` patched,
   the operand checks run on the operands passed off as CUDA tensors)
-  launches B7 once, with the tile gemm_route and pick_gemm_tile give,
-  and not B2."""
+  launches B7 once, with the tile the deciders give (gemm_route and
+  pick_gemm_tile, f32_route and pick_f32_tile), and not B2."""
   check = ffn._check_operands
   monkeypatch.setattr(ffn.ops, "use_kernel", lambda x: True)
   monkeypatch.setattr(

@@ -91,13 +91,24 @@ def test_python_route_limits_match_the_c_launcher():
     (128, 256, torch.bfloat16, 1, 1),     # on the route: the tile asked for
     (128, 256, torch.bfloat16, 0, 0),
     (192, 768, torch.bfloat16, 0, -1),    # off it: -1 (WMMA), whatever tile
-    (128, 256, torch.float32, None, -1)])  # fp32: -1 (FMA)
-def test_wrappers_pass_c_the_route_as_the_tile_id(h, i, dtype, tile, want):
+    # fp32 takes its own route here, the 32-row tile picked for 40 rows
+    # (the case keeps the name it had when fp32 ran the FMA kernel).
+    pytest.param(128, 256, torch.float32, None, 2,
+                 id="128-256-dtype3-None--1"),
+    (192, 768, torch.float32, None, -1),  # fp32 off its route: -1 (FMA)
+    (128, 256, torch.float32, -1, -1),    # the FMA kernel at a route shape
+    (128, 256, torch.float32, 0, 0)])     # the fp32 tile asked for
+def test_wrappers_pass_c_the_route_as_the_tile_id(h, i, dtype, tile, want,
+                                                  monkeypatch):
+  monkeypatch.setitem(ffn._SMS, None, H100_SMS)
   cpu = torch.device("cpu")
   buf, xb, g, got = ffn._gemm_scratch(40, h, i, dtype, tile, cpu)
   assert got == want
   if want < 0:
     assert (buf, xb, g) == (None, None, None)
+  elif dtype == torch.float32:   # g alone, fp32: x needs no cast
+    assert buf.dtype == torch.float32 and buf.numel() == 40 * i
+    assert (xb, g) == (None, buf.data_ptr())
   else:
     assert buf.dtype == torch.bfloat16 and buf.numel() == 40 * (h + i)
     assert (xb, g) == (buf.data_ptr(), buf.data_ptr() + 2 * 40 * h)

@@ -67,7 +67,7 @@ def test_both_modes_on_the_cpu(mode, monkeypatch, tmp_path, capsys):
 
 def test_categories_of_the_kernels_and_library_names():
   kernels = csrc_kernels()
-  assert len(kernels) == 12
+  assert len(kernels) == 13
   assert kernels == set(profile_eval.CUDA_FFN_KERNELS
                         + profile_eval.CUDA_SIM_KERNELS)
   for name in kernels:
@@ -139,6 +139,49 @@ def test_launch_markers_count_one_kernel_a_launch():
   ]
   assert profile_eval.recorded_launches(events) == {
       "B1": 19, "B2": 7, "B3": 7, "B4": 1, "B5": 2}
+
+
+# The fp32 route's kernels as the profiler names them: the SIMT GEMM by
+# its tile, B-operand layout and epilogue; the row passes by compute type.
+SGEMM = ("void mmt_sgemm::ffn_sgemm_kernel<{}, {}, (anonymous namespace)::"
+         "{}>(float const*, float const*, int, int, int, (anonymous "
+         "namespace)::{})")
+
+
+@pytest.mark.parametrize("tile,layout,epilogue", [
+    (128, "true", "GeluEpilogue<float>"),
+    (64, "true", "GeluInterEpilogue<float>"),
+    (32, "true", "ResidualEpilogue"),
+    (128, "false", "DgeluEpilogue<float>"),
+    (64, "false", "AccumulateEpilogue")])
+def test_the_fp32_route_is_the_ports_ffn_not_library_matmul(tile, layout,
+                                                             epilogue):
+  """The SIMT GEMM's name holds "gemm", which files a library's matmul:
+  it is filed with the port's FFN kernels first."""
+  name = SGEMM.format(tile, layout, epilogue, epilogue)
+  assert profile_eval.category(name) == "cuda ffn (B1-B3, B6, B7)"
+  assert profile_eval.short_kernel_name(name).startswith("ffn_sgemm_kernel<")
+
+
+def test_launch_markers_count_one_kernel_a_launch_on_the_fp32_route():
+  """B1 and B2 on the fp32 route: GEMM 1, GEMM 2 and the row pass, of
+  which GEMM 2 (its residual epilogue) marks a launch; B3: the row pass,
+  GEMM A and GEMM B, of which the row pass marks it."""
+  row = "void (anonymous namespace)::{}<{}>(float const*)"
+  b1, b2, b3 = 3, 5, 7
+  events = [
+      _event(SGEMM.format(128, "true", "GeluEpilogue<float>", "x"), b1),
+      _event(SGEMM.format(128, "true", "ResidualEpilogue", "x"), b1),
+      _event(row.format("ffn_ln_rows_kernel", "false, float"), b1),
+      _event(SGEMM.format(32, "true", "GeluInterEpilogue<float>", "x"), b2),
+      _event(SGEMM.format(32, "true", "DropResidualEpilogue", "x"), b2),
+      _event(row.format("ffn_ln_rows_kernel", "true, float"), b2),
+      _event(row.format("ffn_ln_bwd_rows_kernel", "float"), b3),
+      _event(SGEMM.format(64, "false", "DgeluEpilogue<float>", "x"), b3),
+      _event(SGEMM.format(64, "false", "AccumulateEpilogue", "x"), b3),
+  ]
+  assert profile_eval.recorded_launches(events) == {
+      "B1": b1, "B2": b2, "B3": b3, "B4": 0, "B5": 0}
 
 
 def test_a_short_launch_count_runs_again_then_raises(monkeypatch, capsys):

@@ -100,7 +100,8 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    only by the candidates that lie between the two paths' GT values (the
    fused path computes the GT similarity directly); the peak device
    memory of both rankings; B5's time at 10k; the fused eval's wall time
-   on both paths, median of 3 after a warm-up, taken in turns.
+   on both paths, AT_SCALE_TURNS (1, a depth cut from 3) after a warm-up,
+   taken in turns.
 8. Train-step phase: the full-width flagship in bf16, b32, Adam (lr
    5e-5) on the max-margin loss (margin 0.05, fix_norm).  One step must
    launch exactly 16 B2, 16 B3, >= 1 similarity and 0 eval FFN kernels;
@@ -355,6 +356,28 @@ Phases, each of which raises (exit code 1, no final line) on failure:
    fp32 route (0 on the FMA kernels, from the tile ids the wrappers pass
    C); the model in fp32; finite losses.  Prints the step median and the
    eval's seconds: the ``fp32_cli_launches`` of the B1-B4 entries.
+19. User-expert and switches phase (in phase 11's scope, after phase
+   18): ``register_expert(ExpertSpec("user_clip", 512, 10,
+   feat_width=1.0))`` and its tables drawn by ``data/synthetic.py`` for
+   phase 11's videos.  (a) ``cli.main`` on the flagship config (bf16)
+   with user_clip as an eighth expert, one epoch of 4 b32 steps and the
+   final eval of the 32 val videos: a video sequence of 1 + 8 x 31 = 249
+   tokens, ``CENet.video_seq_len`` equal to every sequence the video
+   tower took; exactly 16 B2 and 16 B3 a step, 16 B1 an eval batch, 1 B4
+   a step and for the eval; the first step's loss and gradients against
+   the plain path by ``check_step``'s rules; the step median and the
+   eval's seconds; B1 at 7,968 and 12,450 x 512, B2 and B3 at 7,968 x 512
+   and B4 at 32 x 32 with K 4,096 against their plain versions, with
+   device ms, plain ms and bound (the ``user_expert_shapes`` and
+   ``user_expert_cli_launches`` of the B1-B4 entries).  (b) The kernel
+   switches: the same CLI for 2 steps (the train loader at 0 workers, so
+   that the runs draw the same batches) and the final eval under
+   MMT_TPU_PALLAS_FFN=0, under MMT_TPU_PALLAS_SIMILARITY=0 and with both
+   unset: exactly the switched family at 0 launches, the other at its
+   count; the first steps' losses within 1e-4 of the unswitched run's;
+   B5 on its kernel under the similarity switch; ``serve.main`` (an index
+   build and one query batch) under MMT_TPU_PALLAS_FFN=0 with 0 B1
+   launches (the ``switch_launches`` of the entries).
 
 ``--fp32`` runs B1, B2 and B3 in fp32 at the flagship's shapes as the
 tree's wrappers route them, then phase 18 without its route check: run
@@ -1562,6 +1585,7 @@ def rank_kernel_phase(torch, ranking, similarity, dev, gen, card):
 
 
 AT_SCALE_VIDEOS = 10_000
+AT_SCALE_TURNS = 1   # timed turns a path (a depth cut from 3)
 
 
 def between_gts(torch, a, g_fused, gtcol):
@@ -1707,11 +1731,12 @@ def at_scale_phase(torch, modules, model, staged, dev, card):
   wall(False)
   wall(True)
   runs = {False: [], True: []}
-  for _ in range(3):
+  for _ in range(AT_SCALE_TURNS):
     for plain_path in (False, True):
       runs[plain_path].append(wall(plain_path))
   k_s, p_s = statistics.median(runs[False]), statistics.median(runs[True])
-  print(f"fused eval {n} videos wall (median of 3): kernel_path_s={k_s:.6f} "
+  print(f"fused eval {n} videos wall (median of {AT_SCALE_TURNS}): "
+        f"kernel_path_s={k_s:.6f} "
         f"plain_path_s={p_s:.6f} ratio={k_s / p_s:.4f} "
         f"videos_per_s={n / k_s:.1f} card: {card}", flush=True)
   print(f"fused eval runs kernel_path_s={[round(x, 6) for x in runs[False]]} "
@@ -4477,6 +4502,297 @@ def fp32_cli_phase(torch, ffn, similarity, cfg_dir, data_dir, meter, card,
   return want, statistics.median(steps_ms), eval_s
 
 
+# Phase 19: a user-registered expert through the CLI, and the per-family
+# kernel switches.
+USER_EXPERT, USER_DIM, USER_IDX = "user_clip", 512, 10   # idx 10: unused
+USER_CLI_STEPS = 4      # (a): one epoch of b32 steps
+SWITCH_CLI_STEPS = 2    # (b): one epoch of b32 steps a run
+# (b): the runs, each with its switch set (an empty dict: both unset).
+SWITCH_RUNS = (("MMT_TPU_PALLAS_FFN=0", {"MMT_TPU_PALLAS_FFN": "0"}),
+               ("MMT_TPU_PALLAS_SIMILARITY=0",
+                {"MMT_TPU_PALLAS_SIMILARITY": "0"}),
+               ("both unset", {}))
+
+
+def user_cli_config(data_dir, save_dir, steps):
+  """Phase 11's config (bf16) with USER_EXPERT added to the flagship's
+  seven modalities, one epoch of ``steps`` b32 steps and no continuous
+  eval: the run's one eval is the final eval of the CLI_VAL_VIDEOS val
+  videos."""
+  cfg = cli_config(data_dir, save_dir, 1)
+  cfg["experts"]["modalities"].append(USER_EXPERT)
+  cfg["continuous_eval_sets"] = []
+  cfg["trainer"]["max_samples_per_epoch"] = 32 * steps
+  return cfg
+
+
+@contextlib.contextmanager
+def user_expert(data_dir):
+  """Within the block USER_EXPERT is registered (``register_expert``) and
+  its three tables lie beside the flagship's in phase 11's corpus: drawn
+  by ``data/synthetic.py`` for the same videos (seed 0: the same topics
+  and topic directions, its own features).  Both go on exit."""
+  from mmt_tpu_torch import experts
+  from mmt_tpu_torch.data import synthetic
+
+  data_dir = pathlib.Path(data_dir)
+  tmp = data_dir.parent / "user_expert_corpus"
+  tic = time.perf_counter()
+  synthetic.generate(tmp, num_videos=CLI_TRAIN_VIDEOS + CLI_VAL_VIDEOS,
+                     num_test=CLI_VAL_VIDEOS,
+                     experts={USER_EXPERT: USER_DIM},
+                     captions_per_video=CLI_CAPTIONS,
+                     max_feats=CLI_MAX_FEATS, cut="c")
+  tables = []
+  for src in sorted((tmp / "MSRVTT" / "aggregated_feats").glob(
+      f"{USER_EXPERT}-*.pickle")):
+    tables.append(data_dir / "aggregated_feats" / src.name)
+    shutil.move(str(src), tables[-1])
+  shutil.rmtree(tmp, ignore_errors=True)
+  print(f"user-expert: {USER_EXPERT} ({USER_DIM} floats a row, idx "
+        f"{USER_IDX}) tables {[p.name for p in tables]} written in "
+        f"{time.perf_counter() - tic:.1f} s", flush=True)
+  experts.register_expert(experts.ExpertSpec(USER_EXPERT, USER_DIM, USER_IDX,
+                                             feat_width=1.0))
+  try:
+    yield
+  finally:
+    experts.EXPERT_REGISTRY.pop(USER_EXPERT, None)
+    for path in tables:
+      path.unlink(missing_ok=True)
+
+
+@contextlib.contextmanager
+def video_lengths(torch):
+  """While open, the [batch, tokens] of every sequence the video tower
+  (``FeatureBert``) takes, in the yielded list."""
+  from mmt_tpu_torch.models.bert import FeatureBert
+  seen = []
+
+  def hook(module, args):
+    if isinstance(module, FeatureBert):
+      seen.append(tuple(args[0].shape[:2]))
+
+  handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+  try:
+    yield seen
+  finally:
+    handle.remove()
+
+
+def first_step_check(torch, ops, cfg_path, dev, what):
+  """The first train step of ``cfg_path``'s run on the kernel path
+  against the plain path (phase 8's ``check_step``), from one trainer's
+  initial weights, its first batch and one dropout seed."""
+  import argparse
+
+  from mmt_tpu_torch import cli, config as config_lib
+  from mmt_tpu_torch.data import loader as loader_lib
+  from mmt_tpu_torch.models.cenet import similarity_from_outputs
+  from mmt_tpu_torch.train.trainer import model_batch
+
+  ns = argparse.Namespace(config=str(cfg_path), resume=None,
+                          load_checkpoint=None, only_eval=False,
+                          txt_bert_init=None)
+  trainer = cli.build_trainer(config_lib.from_args(ns), device=dev)
+  model = trainer.model.train()
+  entry = trainer.data_loaders["train_sets"][0]
+  batch = next(loader_lib.device_prefetch(
+      iter([model_batch(next(iter(entry["loader"])))]), trainer.device))
+  state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+  def step(plain):
+    model.load_state_dict(state0)
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=trainer.device).manual_seed(19)
+    with ops.plain_versions() if plain else contextlib.nullcontext():
+      out = model(batch, train=True, generator=gen)
+      loss = trainer.loss_fn(similarity_from_outputs(out, merge="avg"))
+      loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in
+                                  model.named_parameters() if p.requires_grad}
+
+  loss_k, grads_k = step(False)
+  loss_p, grads_p = step(True)
+  check_step(torch, what, loss_k, loss_p, grads_k, grads_p)
+  del trainer, model, batch, state0, grads_k, grads_p
+  torch.cuda.empty_cache()
+  return loss_k, loss_p
+
+
+def user_expert_cli_phase(torch, ops, ffn, dropout, similarity, ranking,
+                          cfg_dir, data_dir, meter, dev, card):
+  """Phase 19, on phase 11's corpus with USER_EXPERT's tables added
+  (``user_expert``).  (a) ``cli.main`` on the flagship config with the
+  registered expert as an eighth modality (``user_cli_config``, bf16):
+  USER_CLI_STEPS b32 steps and the final eval of the val videos, the
+  launches exact (16 B2 and 16 B3 a step, 16 B1 an eval batch, one B4 a
+  step and for the eval); the model's ``video_seq_len`` equal to every
+  sequence the video tower took; the first step against the plain path
+  (``first_step_check``); the step median and the eval's seconds; B1,
+  B2, B3 and B4 at the run's new shapes against their plain versions.
+  (b) The switches: ``cli.main`` for SWITCH_CLI_STEPS steps and the same
+  eval under each of SWITCH_RUNS, exactly the switched family at 0
+  launches and the other at its count, the first steps' losses within
+  STEP_LOSS_TOL of the unswitched run's; B5 under the similarity switch
+  still on its kernel; one ``serve.main`` index build and query batch
+  under MMT_TPU_PALLAS_FFN=0 with 0 B1 launches.  Returns (a)'s
+  launches, (b)'s, and the kernel cases by kernel."""
+  from mmt_tpu_torch import serve, serving
+
+  batches = -(-CLI_VAL_VIDEOS // 32)
+
+  def want(steps, plain=()):
+    ffn_on, sim_on = "ffn" not in plain, "similarity" not in plain
+    return {"ffn_block": FFN_LAYERS * batches * ffn_on,
+            "ffn_train_fwd": FFN_LAYERS * steps * ffn_on,
+            "ffn_train_bwd": FFN_LAYERS * steps * ffn_on,
+            "moe_similarity": (steps + 1) * sim_on}
+
+  out = {"switch_launches": {}}
+  with user_expert(data_dir):
+    # (a) the eight-expert flagship through the CLI.
+    exp = cfg_dir / "user_exp"
+    cfg_path = cfg_dir / "user.json"
+    cfg = user_cli_config(data_dir, exp, USER_CLI_STEPS)
+    cfg_path.write_text(json.dumps(cfg))
+    tokens = cfg["train_sets"][0]["args"]["mix"][0]["max_expert_tokens"]
+    at = {k: len(v) for k, v in meter.seen.items()}
+    with video_lengths(torch) as lengths:
+      trainer = cli_run(ffn, similarity, ["--config", str(cfg_path),
+                                          "--device", "cuda"],
+                        want(USER_CLI_STEPS), "user expert, 8 experts")
+    out["launches"] = want(USER_CLI_STEPS)
+    model = trainer.model
+    seq = model.video_seq_len(tokens)
+    mods = model.modalities
+    if (len(mods) != 8 or USER_EXPERT not in mods
+        or model.expert_dims[USER_EXPERT] != {"dim": USER_DIM,
+                                              "idx": USER_IDX}):
+      raise RuntimeError("user expert: the model's experts "
+                         f"{model.expert_dims}")
+    shapes = sorted(set(lengths))
+    if seq != 1 + 8 * (1 + tokens) or {t for _, t in shapes} != {seq}:
+      raise RuntimeError(f"user expert: video_seq_len {seq}, sequences "
+                         f"{shapes}")
+    seen = {k: v[at.get(k, 0):] for k, v in meter.seen.items()}
+    steps_ms = [x * 1e3 for x in seen["train_batch.total"]]
+    eval_s = sum(seen[k][0] for k in ("valid.embds", "valid.conf_mat",
+                                      "valid.metrics"))
+    with open(exp / "perf_log.txt") as f:
+      losses = [json.loads(line)["loss"] for line in f]
+    print(f"user expert: {len(mods)} experts {mods}; video_seq_len "
+          f"{seq} = every sequence the video tower took ([batch, tokens] "
+          f"{shapes}); epoch loss {losses}; b32 step median "
+          f"{statistics.median(steps_ms):.3f} ms (all "
+          f"{[round(x, 3) for x in steps_ms]}); final eval of "
+          f"{CLI_VAL_VIDEOS} videos {eval_s:.6f} s (embed "
+          f"{seen['valid.embds'][0]:.6f}) card: {card}", flush=True)
+    if len(steps_ms) != USER_CLI_STEPS or not all(map(math.isfinite,
+                                                      losses)):
+      raise RuntimeError(f"user expert: steps {steps_ms}, losses {losses}")
+    out["step_median_ms"], out["eval_s"] = statistics.median(steps_ms), eval_s
+    del trainer, model
+    torch.cuda.empty_cache()
+    first_step_check(torch, ops, cfg_path, dev,
+                     "user expert first step kernel vs plain")
+
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    rows = 32 * seq
+    out["shapes"] = {
+        "ffn_block": [eval_ffn_case(torch, ffn, dev, gen, r, 512, what, card)
+                      for r, what in ((rows, "user expert eval"),
+                                      (50 * seq, "user expert, 50 videos"))],
+        **{k: [case] for k, case in train_ffn_cases(
+            torch, ffn, dropout, dev, gen, rows, 512, "user expert step",
+            card).items()},
+        "moe_similarity": [sim_case(torch, similarity, dev, gen, 32, 32, 8,
+                                    "user expert step and eval", card)]}
+    torch.cuda.empty_cache()
+
+    # (b) the switches, each in a run of its own.
+    first_losses = {}
+    for what, environ in SWITCH_RUNS:
+      plain = ops.switched_families(environ)
+      switch_exp = cfg_dir / "switch_exp"
+      path = cfg_dir / "switch.json"
+      cfg = user_cli_config(data_dir, switch_exp, SWITCH_CLI_STEPS)
+      # One loader thread: the three runs draw the same batches (with
+      # workers the order of the samples is the threads').
+      cfg["train_sets"][0]["args"]["num_workers"] = 0
+      path.write_text(json.dumps(cfg))
+      prev = {k: os.environ.pop(k, None) for k in ops.SWITCHES.values()}
+      os.environ.update(environ)
+      try:
+        with recorded_run() as rec:
+          cli_run(ffn, similarity, ["--config", str(path), "--device",
+                                    "cuda"],
+                  want(SWITCH_CLI_STEPS, plain), f"switch {what}")
+      finally:
+        for k, v in prev.items():
+          os.environ.pop(k, None)
+          if v is not None:
+            os.environ[k] = v
+      shutil.rmtree(switch_exp, ignore_errors=True)
+      out["switch_launches"][what] = want(SWITCH_CLI_STEPS, plain)
+      first_losses[what] = rec["losses"][0]
+    base = first_losses["both unset"]
+    diffs = {w: abs(x - base) for w, x in first_losses.items()}
+    print(f"switches: first-step losses {first_losses}; against both "
+          f"unset {diffs} (limit {STEP_LOSS_TOL})", flush=True)
+    if not all(d <= STEP_LOSS_TOL for d in diffs.values()):
+      raise RuntimeError(f"switches: first-step losses {first_losses}")
+
+    # B5 keeps its kernel under the similarity switch, as in JAX.
+    cands = torch.randn(64, 8 * 64, generator=gen, device=dev)
+    cw = torch.rand(64, 8, generator=gen, device=dev)
+    args = (cands[:16], cands, cw[:16], cw, torch.zeros(16, device=dev),
+            torch.arange(16, device=dev), torch.zeros(64, device=dev))
+    ranking.fused_counts_cuda.launches = 0
+    with ops.environment_switches({"MMT_TPU_PALLAS_SIMILARITY": "0"}):
+      closer, _ = ranking.fused_counts(*args)
+      if ops.use_kernel(cands, "similarity"):
+        raise RuntimeError("switches: B4 on its kernel under "
+                           "MMT_TPU_PALLAS_SIMILARITY=0")
+    torch.cuda.synchronize()
+    want_closer, _ = ranking.fused_counts_plain(*args)
+    if (ranking.fused_counts_cuda.launches != 1
+        or not torch.equal(closer, want_closer)):
+      raise RuntimeError("switches: under MMT_TPU_PALLAS_SIMILARITY=0 the "
+                         f"fused ranks launched "
+                         f"{ranking.fused_counts_cuda.launches} times")
+    out["switch_launches"]["fused ranks, MMT_TPU_PALLAS_SIMILARITY=0"] = {
+        "fused_ranks": 1}
+
+    # serve: an index build and one query batch with the FFN kernels off.
+    index_path = cfg_dir / "user_index.npz"
+    argv = ["--config", str(cfg_path), "--checkpoint",
+            str(exp / "trained_model.pth"), "--build_index",
+            str(index_path), "--topk", "5", "--device", "cuda"]
+    for q in SERVE_CLI_QUERIES:
+      argv += ["--query", q]
+    def quiet_main():
+      with contextlib.redirect_stdout(io.StringIO()):
+        return serve.main(argv)
+
+    os.environ["MMT_TPU_PALLAS_FFN"] = "0"
+    try:
+      results = serve_counted(torch, ffn, similarity, quiet_main,
+                              {"ffn_block": 0, "moe_similarity": 0},
+                              "MMT_TPU_PALLAS_FFN=0, build + query batch")
+    finally:
+      os.environ.pop("MMT_TPU_PALLAS_FFN", None)
+    ids = set(serving.RetrievalIndex.load(index_path).video_ids)
+    check_hits([r["hits"] for r in results], 5, ids, "MMT_TPU_PALLAS_FFN=0")
+    print(f"switches: serve with MMT_TPU_PALLAS_FFN=0 answered "
+          f"{len(results)} queries over {len(ids)} videos, 0 B1 launches; "
+          f"first hits {json.dumps(results[0]['hits'][:2])}", flush=True)
+    out["switch_launches"]["serve MMT_TPU_PALLAS_FFN=0"] = {"ffn_block": 0}
+    shutil.rmtree(exp, ignore_errors=True)
+  return out
+
+
 # Phase 16: the port's measurement commands on the card.
 GEOMETRY_REPS = 5         # bench_geometry's BENCH_REPS default
 GEOMETRY_TOL = 2e-2       # kernel path vs plain path, eval sims
@@ -4610,7 +4926,7 @@ def geometry_phase(torch, ops, ffn, dropout, similarity, dev, card):
     steps = 1 + bench.TRAIN_STEPS * max(2, GEOMETRY_REPS // 2)
     line = counted_run(
         torch, counters, lambda: bench_geometry.run_geometry(
-            name, dev, False, GEOMETRY_REPS, True, card),
+            name, dev, False, GEOMETRY_REPS, card),
         {k: evals * per_eval[k] + steps * per_step[k] for k in counters},
         f"geometry {name}: bench_geometry ({evals} evals, {steps} steps)")
     run_total = {k: c.launches for k, c in counters.items()}
@@ -4715,7 +5031,8 @@ BENCH_SETTINGS = {"BENCH_DTYPE": "fp32", "BENCH_TRAIN_BATCH": "128",
                   "BENCH_TRAIN_OPT": "Ranger", "BENCH_VIDEOS": "200",
                   "BENCH_REPS": "1"}
 BENCH_SETTINGS_KEYS = {"metric", "value", "unit", "latency_s_1kx1k",
-                       "backend", "dtype", "kernels", "card",
+                       "backend", "dtype", "kernels", "kernel_families",
+                       "card",
                        "train_step_ms_b128",
                        "train_samples_per_sec_per_chip"}
 FP32_SIMS_TOL = 1e-4      # phase 5's fp32 rule
@@ -5049,16 +5366,20 @@ def main():
     clock.done("tp-cli")
     fp32_cli = fp32_cli_phase(torch, ffn, similarity, cfg_path.parent,
                               data_dir, trainer_lib.AverageMeter, card)
-    return served_cli, matrix, dp_cli, tp_cli, fp32_cli
+    clock.done("fp32-cli")
+    user_cli = user_expert_cli_phase(
+        torch, ops, ffn, dropout, similarity, ranking, cfg_path.parent,
+        data_dir, trainer_lib.AverageMeter, dev, card)
+    return served_cli, matrix, dp_cli, tp_cli, fp32_cli, user_cli
 
   cli_launches, cli_loop, (serve_launches, matrix_launches,
                            dp_launches["c"], tp_cli_launches,
-                           (fp32_cli_launches, *_)) = (
+                           (fp32_cli_launches, *_), user_cli) = (
       train_cli_phase(torch, ops, ffn, similarity, staged_step_ms, k_s, card,
                       then=serve_cli))
   print(f"train-cli launches (2 epochs): {json.dumps(cli_launches)}",
         flush=True)
-  clock.done("fp32-cli")
+  clock.done("user-expert-cli")
   served = serve_scale_phase(torch, ops, ffn, similarity, flagship, dev,
                              card, clock)
   clock.done("serve-sharded")
@@ -5122,6 +5443,19 @@ def main():
   # Phase 18: the shipped config in fp32 through the CLI (its launches).
   for name, n in fp32_cli_launches.items():
     entries[name]["fp32_cli_launches"] = n
+  # Phase 19: the user expert's CLI run (its launches and the kernels at
+  # its shapes) and the switches' runs.
+  for name, n in user_cli["launches"].items():
+    entries[name]["user_expert_cli_launches"] = n
+  for name, cases in user_cli["shapes"].items():
+    entries[name]["user_expert_shapes"] = cases
+    entries[name]["max_abs_err"] = max(
+        [entries[name]["max_abs_err"]] + [c["max_abs_err"] for c in cases])
+  for name in entries:
+    runs = {what: counts[name] for what, counts in
+            user_cli["switch_launches"].items() if name in counts}
+    if runs:
+      entries[name]["switch_launches"] = runs
   # Phase 17 (c): B2 and B3 at b128's rows; B1's fp32 cases of phase 2.
   for name, cases in b128_cases.items():
     entries[name]["b128_shapes"] = cases

@@ -26,21 +26,24 @@ the best of max(2, BENCH_REPS // 2) after a warm step.
       python -m mmt_tpu_torch.bench_geometry --device cpu --tiny
 
 Settings: BENCH_BATCH (the eval chunk; the geometry's), BENCH_VIDEOS
-(1000), BENCH_REPS (5); BENCH_KERNELS=0 runs the plain PyTorch versions on
-the card (the JAX script's BENCH_PALLAS / BENCH_PALLAS_FFN).
+(1000), BENCH_REPS (5); the kernel switches, as ``bench`` reads them:
+BENCH_PALLAS=0 runs the similarity's plain PyTorch version on the card and
+BENCH_PALLAS_FFN=0 the FFN blocks', as the JAX script reads them, and
+BENCH_KERNELS=0 every family's.
 
-Prints one JSON line per geometry with the JAX script's keys ("routing"
-holds the port's choices: whether the kernels ran, ``ffn.gemm_route`` at
-each tower's widths, the row tile ``ffn.pick_gemm_tile`` takes at each FFN
-shape and the tile ``similarity.pick_tile`` takes at each similarity
-shape, None on the CPU, where the plain versions run), plus "card" (the
+Prints one JSON line per geometry with the JAX script's keys but its
+pallas_ffn and pallas_similarity ("routing" holds the port's choices:
+whether every family's kernels ran, ``ffn.gemm_route`` at each tower's
+widths, the row tile ``ffn.pick_gemm_tile`` takes at each FFN shape and
+the tile ``similarity.pick_tile`` takes at each similarity shape, None
+where that family runs its plain version, as on the CPU), plus
+"kernel_families" ({family: whether its kernels ran}) and "card" (the
 GPU's name and power limit, from nvidia-smi).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -129,17 +132,18 @@ def bench_eval(run, reps):
   return min(times)
 
 
-def routing(geom, chunk, n_videos, model, device, kernels):
-  """The port's counterpart of the JAX script's gates: whether the
-  kernels run, the FFN route at each tower's widths, and the row tile of
-  each FFN shape and the block tile of each similarity shape of the
-  geometry (None off the card)."""
+def routing(geom, chunk, n_videos, model, device, families):
+  """The port's counterpart of the JAX script's gates: whether every
+  family's kernels run (``families``: {family: whether its kernels
+  run}), the FFN route at each tower's widths, and the row tile of each
+  FFN shape and the block tile of each similarity shape of the geometry
+  (None where the family runs its plain version)."""
   towers = {"video": (model.vid_cfg, video_tokens(geom)),
             "text": (model.txt_bert.cfg, geom["max_text_words"])}
-  out = {"kernels": kernels, "gemm_route": {}, "gemm_tile_rows": {},
-         "sim_tile": {}}
+  out = {"kernels": all(families.values()), "gemm_route": {},
+         "gemm_tile_rows": {}, "sim_tile": {}}
   sms = (torch.cuda.get_device_properties(device).multi_processor_count
-         if kernels else None)
+         if torch.device(device).type == "cuda" else None)
   for name, (cfg, tokens) in towers.items():
     h, i = cfg.hidden_size, cfg.intermediate_size
     route = ffn.gemm_route(h, i, torch.bfloat16)
@@ -148,23 +152,25 @@ def routing(geom, chunk, n_videos, model, device, kernels):
       r = rows * tokens
       out["gemm_tile_rows"][f"{mode} {name} {r} x {h}"] = (
           ffn.GEMM_TILES[ffn.pick_gemm_tile(r, h, sms)]
-          if sms and route else None)
+          if sms and families["ffn"] and route else None)
   k = len(geom["modalities"]) * model.vid_cfg.hidden_size
   for mode, n in (("eval", n_videos), ("train", geom["train_batch"])):
     out["sim_tile"][f"{mode} {n} x {n}, K {k}"] = (
         "x".join(map(str, similarity.TILES[similarity.pick_tile(n, n, sms)]))
-        if sms else None)
+        if sms and families["similarity"] else None)
   return out
 
 
-def run_geometry(name, device, tiny, reps, kernels, card):
-  """One geometry's line (a dict with the JAX script's keys)."""
+def run_geometry(name, device, tiny, reps, card):
+  """One geometry's line (a dict with the JAX script's keys), the
+  families on their kernels or plain versions as they are forced now."""
+  families = ops.kernel_families(device)
   geom = GEOMETRIES[name]
   chunk = int(os.environ.get("BENCH_BATCH", geom["eval_chunk"]))
   n_videos = int(os.environ.get("BENCH_VIDEOS", geom["n_videos"]))
   n_videos -= n_videos % chunk
   model, staged, run = build_eval(geom, chunk, n_videos, device, tiny=tiny)
-  route = routing(geom, chunk, n_videos, model, device, kernels)
+  route = routing(geom, chunk, n_videos, model, device, families)
   eval_s = bench_eval(run, reps)
   del model, staged, run
   _, _, one = bench.train_stepper(device, tiny=tiny,
@@ -184,6 +190,7 @@ def run_geometry(name, device, tiny, reps, kernels, card):
       "train_samples_per_sec_per_chip": geom["train_batch"] * 1e3 / train_ms,
       "backend": torch.device(device).type,
       "routing": route,
+      "kernel_families": families,
       "card": card,
   }
 
@@ -207,12 +214,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = bench.card_line()
-  kernels = (device.type == "cuda"
-             and os.environ.get("BENCH_KERNELS", "1") == "1")
   lines = []
-  with contextlib.nullcontext() if kernels else ops.plain_versions():
+  with bench.kernel_path(device, bench.plain_families()):
     for name in args.geometries or list(GEOMETRIES):
-      lines.append(run_geometry(name, device, args.tiny, reps, kernels, card))
+      lines.append(run_geometry(name, device, args.tiny, reps, card))
       print(json.dumps(lines[-1]), flush=True)
   return lines
 

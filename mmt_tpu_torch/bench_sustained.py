@@ -28,9 +28,14 @@ here the pinned copy over PCIe) is the least of the N copies.
   python -m mmt_tpu_torch.bench_sustained --device cpu --tiny --samples 64 \\
       --videos 20
 
+The JAX script's kernel switches: MMT_TPU_PALLAS_FFN=0 runs the FFN
+blocks' plain PyTorch versions on the card, MMT_TPU_PALLAS_SIMILARITY=0
+the similarity's (``ops.environment_switches``).
+
 Prints one JSON line last with the JAX script's keys (``dispatch_rtt_s``:
 the best of 10 host round trips of one small kernel and a synchronisation)
-plus "card" (the GPU's name and power limit, from nvidia-smi).
+plus "kernel_families" ({family: whether its CUDA kernels ran}) and
+"card" (the GPU's name and power limit, from nvidia-smi).
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ import tempfile
 import time
 
 import torch
+
+from mmt_tpu_torch import ops
 
 FLAGSHIP_EXPERTS = {"face": 512, "ocr": 300, "rgb": 2048, "s3d": 1024,
                     "scene": 2208, "speech": 300, "vggish": 128}
@@ -289,6 +296,7 @@ def run(args):
         "loss": float(log["loss"]),
         "backend": device.type,
         **out_pre,
+        "kernel_families": ops.kernel_families(device),
         "card": card,
     }
   finally:
@@ -321,7 +329,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-  out = run(parse_args(argv))
+  args = parse_args(argv)
+  with ops.environment_switches():
+    out = run(args)
   print(json.dumps(out))
   return out
 

@@ -28,6 +28,11 @@ files (rank r logs to log.p<r>.txt).  With ``trainer.model_parallel`` M
 (or MMT_TPU_MODEL_PARALLEL) the processes are N / M data ranks of M
 model ranks each (tensor parallelism within a model group, one host),
 as the JAX CLI's 2-D mesh; the checkpoints keep the one-process format.
+
+The JAX CLI's kernel switches: MMT_TPU_PALLAS_FFN=0 runs the FFN blocks'
+plain PyTorch versions on the card for the whole run,
+MMT_TPU_PALLAS_SIMILARITY=0 the similarity's (``ops.environment_switches``;
+the other family keeps its kernels, and the fused ranks always do).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import os
 import random
 
 import numpy as np
+
+from mmt_tpu_torch import ops
 
 logger = logging.getLogger(__name__)
 
@@ -303,4 +310,7 @@ def main(argv=None):
       f"epochs ({epochs}) must be >= save_period ({save_period}), "
       "otherwise no checkpoint would ever be written")
 
-  return train(config, device=device, dp=dp)
+  # MMT_TPU_PALLAS_FFN=0 / MMT_TPU_PALLAS_SIMILARITY=0 run that family's
+  # plain versions for the whole run (ops.environment_switches).
+  with ops.environment_switches():
+    return train(config, device=device, dp=dp)

@@ -13,6 +13,11 @@ checkpoint (``serialization.msgpack_restore`` of a ``.msgpack`` the JAX
 trainer wrote) over to the port's checkpoint layout, its optax Adam or
 Ranger state included (``optimizer_state_from_flax``).
 
+``module_state_dict_from_flax`` does the same for one unit of
+mmt_tpu/models/components.py on its own (a ContextGating, a
+MimicCEGatedEmbeddingUnit, a GatedEmbeddingUnit, ...: Dense layers and
+TorchBatchNorms) onto the port's module of the same name.
+
 ``shard_state_dict`` cuts a whole state dict (from it or from a
 single-device model) to one tensor-parallel rank's shards, in the layout
 a ``CENet(tp=)`` reports in its ``shard_dims``; ``gather_state_dict``
@@ -171,6 +176,31 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping):
       raise KeyError(f"no port name for flax batch stat {path}")
     sd[f"{base}.running_{m[2]}"] = _tensor(arr)
     sd[f"{base}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+  return sd
+
+
+# A components.py unit's leaf -> (the port's leaf, transposed).
+_UNIT_LEAF = {"kernel": ("weight", True), "scale": ("weight", False),
+              "bias": ("bias", False), "mean": ("running_mean", False),
+              "var": ("running_var", False)}
+
+
+def module_state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
+  """A standalone unit's flax {params, batch_stats} -> the state dict of
+  the port's module of the same name: each path's ``/`` becomes ``.``,
+  TorchBatchNorm's inner ``bn`` level goes, Dense kernels become Linear
+  weights, BatchNorm scale / mean / var weight / running_mean /
+  running_var.  A leaf of another kind raises."""
+  sd = {}
+  for path, arr in {**_flatten(params), **_flatten(batch_stats or {})}.items():
+    *mods, leaf = [p for p in path.split("/") if p != "bn"]
+    if leaf not in _UNIT_LEAF:
+      raise KeyError(f"no port name for flax leaf {path}")
+    name, transpose = _UNIT_LEAF[leaf]
+    sd[".".join([*mods, name])] = _tensor(arr, transpose)
+    if leaf == "mean":
+      sd[".".join([*mods, "num_batches_tracked"])] = torch.tensor(
+          0, dtype=torch.int64)
   return sd
 
 

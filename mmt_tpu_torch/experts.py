@@ -79,6 +79,15 @@ EXPERT_REGISTRY: Dict[str, ExpertSpec] = {
 }
 
 
+def register_expert(spec: ExpertSpec) -> None:
+  """Add a user-defined expert stream (mmt_tpu/experts.py:register_expert):
+  ``compute_dims`` and the feature readers (``data/readers.py``) take it
+  by its name from then on.  Its ``idx`` must lie inside the video
+  tower's ``type_vocab_size``: ``CENet`` raises at construction
+  otherwise."""
+  EXPERT_REGISTRY[spec.name] = spec
+
+
 def compute_dims(config: Mapping) -> Dict[str, Dict[str, int]]:
   """Expert name -> {dim, idx}, sorted by name.
 

@@ -224,6 +224,16 @@ class CENet(nn.Module):
         raise ValueError(
             f"vid_bert hidden_size ({self.vid_cfg.hidden_size}) must equal "
             f"same_dim ({same_dim}) for the feature-additive embeddings")
+      outside = {m: int(d["idx"]) for m, d in self.expert_dims.items()
+                 if not 0 <= int(d["idx"]) < self.vid_cfg.type_vocab_size}
+      if outside:
+        # flax's nn.Embed gives NaN rows for such an index (ROADMAP C8);
+        # torch's lookup would fail inside a kernel.
+        raise ValueError(
+            f"expert token-type indices {outside} lie outside the video "
+            f"tower's type_vocab_size ({self.vid_cfg.type_vocab_size}): "
+            "register the expert with an idx below it, or raise "
+            "vid_bert_params.type_vocab_size")
       self.vid_bert = FeatureBert(self.vid_cfg, compute_dtype=compute_dtype,
                                   device=dev, tp=tp,
                                   positions=self.pos_enc != "none")
@@ -258,6 +268,15 @@ class CENet(nn.Module):
       logger.info("tensor parallelism: no BERT tower (txt_agg %s, vid_cont "
                   "%s) to split; every parameter is replicated on the %d "
                   "ranks", txt_agg, self.vid_cont, self.tp.size)
+
+  def video_seq_len(self, max_expert_tokens: int) -> int:
+    """Tokens of the video sequence [CLS, agg x M, temporal x M x L] at
+    L = ``max_expert_tokens`` (mmt_tpu/models/cenet.py:CENet.
+    video_seq_len): 1 + M under vid_inp 'agg', 1 + M L under 'temp' and
+    1 + M (1 + L) under 'both' and 'all'."""
+    per_expert = (int(self.vid_inp in AGG_INPUTS)
+                  + int(self.vid_inp in TEMP_INPUTS) * max_expert_tokens)
+    return 1 + len(self.modalities) * per_expert
 
   def init_weights(self, generator: torch.Generator):
     """Random weights from ``generator`` (BERT towers N(0, 0.02)-style,

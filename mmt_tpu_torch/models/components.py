@@ -5,9 +5,11 @@ Port of mmt_tpu/models/components.py.  The per-modality heads are
 parameter holders under the reference's names (``text_GU.{mod}.fc``,
 ``text_GU.{mod}.cg.fc``, ``text_GU.{mod}.cg.batch_norm``,
 ``video_dim_reduce.{mod}.fc``); the forward runs all modalities at once
-over stacked weights.  ``GatedEmbeddingUnitReasoning`` (vid_cont coll),
-``NetVLAD``, ``LSTMPooler`` and ``TxtEmbeddings`` (the word-embedding
-text path) are modules with a forward.  Heads run in fp32, as in the JAX
+over stacked weights.  ``ContextGating``, ``GatedEmbeddingUnitReasoning``
+(vid_cont coll), ``NetVLAD``, ``LSTMPooler`` and ``TxtEmbeddings`` (the
+word-embedding text path) are modules with a forward, and so are the
+reference's two units no config uses, ``MimicCEGatedEmbeddingUnit`` and
+``GatedLinearUnit``.  Heads run in fp32, as in the JAX
 package.
 
 Every BatchNorm here is flax's (mmt_tpu/models/components.py:
@@ -83,14 +85,43 @@ def batch_norm(x, bn, *, train, dp=None):
 
 
 class ContextGating(nn.Module):
-  """Holder: ``fc`` and, with ``use_bn``, ``batch_norm``
-  (x * sigmoid(BN(fc(x))))."""
+  """``fc`` and, with ``use_bn``, ``batch_norm``: x * sigmoid(BN(fc(x)))
+  (mmt_tpu/models/components.py:ContextGating).  The batched heads read
+  its parameters; its own forward serves ``MimicCEGatedEmbeddingUnit``."""
 
   def __init__(self, dim, *, use_bn=True, device=None):
     super().__init__()
+    self.use_bn = use_bn
     self.fc = nn.Linear(dim, dim, device=device)
     if use_bn:
       self.batch_norm = nn.BatchNorm1d(dim, eps=BN_EPS, device=device)
+
+  def forward(self, x, *, train=False, dp=None):
+    gate = self.fc(x)
+    if self.use_bn:
+      gate = batch_norm(gate, self.batch_norm, train=train, dp=dp)
+    return x * torch.sigmoid(gate)
+
+
+class MimicCEGatedEmbeddingUnit(nn.Module):
+  """``cg`` (a ContextGating at the input's width: no input projection),
+  then the L2 norm (mmt_tpu/models/components.py:
+  MimicCEGatedEmbeddingUnit)."""
+
+  def __init__(self, input_dimension, *, use_bn=True, device=None):
+    super().__init__()
+    self.cg = ContextGating(input_dimension, use_bn=use_bn, device=device)
+
+  def forward(self, x, *, train=False, dp=None):
+    return l2_normalize(self.cg(x, train=train, dp=dp))
+
+
+class GatedLinearUnit(nn.Module):
+  """x * sigmoid(mask), the glu of cat(x, mask)
+  (mmt_tpu/models/components.py:GatedLinearUnit); no parameters."""
+
+  def forward(self, x, mask):
+    return x * torch.sigmoid(mask)
 
 
 class GatedEmbeddingUnit(nn.Module):

@@ -326,7 +326,7 @@ def _eval_dispatch(x, kernel, plain, ref, args, kw):
   """The plain version for a CPU ``x``; else the kernel, and under
   autograd (an operand requiring grad) inside ``_RefVjp`` with ``ref``,
   so that the graph reaches the operands."""
-  if not ops.use_kernel(x):
+  if not ops.use_kernel(x, "ffn"):
     return plain(*args, **kw)
   if torch.is_grad_enabled() and any(a.requires_grad for a in args):
     return _RefVjp.apply(kernel, ref, kw, *args)
@@ -492,7 +492,7 @@ class FFNBlockTrain(torch.autograd.Function):
               tp):
     cd = compute_dtype
     w1c, w2c = w1.to(cd).contiguous(), w2.to(cd).contiguous()
-    use_kernel = ops.use_kernel(x)
+    use_kernel = ops.use_kernel(x, "ffn")
     if tp is None:
       fwd = ffn_train_fwd_cuda if use_kernel else ffn_train_fwd_plain
       out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,

@@ -156,7 +156,8 @@ fused_counts_cuda.launches = 0
 def fused_counts(queries, cands, qw, cw, gt, gtcol, colbias):
   """(closer, tied) counts: the kernel on the card, the plain version for
   CPU tensors (see ``fused_counts_plain`` for the arguments)."""
-  fn = fused_counts_cuda if ops.use_kernel(queries) else fused_counts_plain
+  fn = (fused_counts_cuda if ops.use_kernel(queries, "ranks")
+        else fused_counts_plain)
   return fn(queries, cands, qw, cw, gt, gtcol, colbias)
 
 

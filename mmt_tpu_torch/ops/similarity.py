@@ -127,7 +127,7 @@ class MoESimilarity(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, t, v, tw, vw):
-    fn = sim_cuda if ops.use_kernel(t) else sim_plain
+    fn = sim_cuda if ops.use_kernel(t, "similarity") else sim_plain
     sims = fn(t, v, tw, vw)
     ctx.save_for_backward(t, v, tw, vw, sims)
     return sims

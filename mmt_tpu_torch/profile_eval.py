@@ -20,7 +20,8 @@ the trace, then ``--reps`` times inside it; ``--mode train`` builds
 ``--steps`` (``bench.TRAIN_STEPS``, 20) chained steps inside it, the
 denominator being the number of steps.  The profiler's own processing
 takes seconds for each run traced.  Both read bench's settings (BENCH_VIDEOS, BENCH_BATCH,
-BENCH_DTYPE, BENCH_TRAIN_BATCH, BENCH_TRAIN_OPT, BENCH_KERNELS).
+BENCH_DTYPE, BENCH_TRAIN_BATCH, BENCH_TRAIN_OPT and the kernel switches
+BENCH_KERNELS, BENCH_PALLAS, BENCH_PALLAS_FFN).
 ``--logdir`` keeps the session as a Chrome trace (``<dir>/trace.json``,
 ``utils.timing.export_trace``); without it no trace is written.
 
@@ -250,7 +251,7 @@ def profile(mode="eval", reps=3, device="cuda", tiny=False, logdir=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
   cfg = bench.settings()
-  with bench.kernel_path(device, cfg["kernels"]):
+  with bench.kernel_path(device, cfg["plain"]):
     run, runs = program(mode, reps, steps or bench.TRAIN_STEPS, device,
                         tiny, cfg)
     prof, events, wall_ms, launched = session(run, device)

@@ -26,6 +26,9 @@ pass ``--device cpu``: the port never falls back to the CPU by itself.
 cards (``parallel.local_mesh``), in this one process, as scripts/serve.py
 shards it over its local chips; on one card (or the CPU) it serves
 unsharded, as the JAX CLI does on one chip, and logs so.
+MMT_TPU_PALLAS_FFN=0 runs the FFN blocks' plain PyTorch versions on the
+card, MMT_TPU_PALLAS_SIMILARITY=0 the similarity's, as in scripts/serve.py
+(``ops.environment_switches``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+
+from mmt_tpu_torch import ops
 
 logger = logging.getLogger(__name__)
 
@@ -142,7 +147,12 @@ def main(argv=None):
   if not (args.index or args.build_index):
     parser.error("one of --index or --build_index is required")
   logging.basicConfig(level=logging.INFO, format="%(message)s")
+  # MMT_TPU_PALLAS_FFN=0 / MMT_TPU_PALLAS_SIMILARITY=0, as scripts/serve.py.
+  with ops.environment_switches():
+    return _serve(args)
 
+
+def _serve(args):
   from mmt_tpu_torch.parallel.mesh import local_mesh
   from mmt_tpu_torch.serving import RetrievalEngine, RetrievalIndex, serve_http
   from mmt_tpu_torch.train.trainer import check_device

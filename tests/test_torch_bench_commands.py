@@ -18,10 +18,10 @@ GEOMETRY_KEYS = {"geometry", "modalities", "max_expert_tokens", "eval_chunk",
                  "n_videos", "eval_wall_s", "eval_videos_per_sec_per_chip",
                  "train_batch", "train_step_ms",
                  "train_samples_per_sec_per_chip", "backend", "routing",
-                 "card"}
+                 "kernel_families", "card"}
 SUSTAINED_KEYS = {"metric", "batch", "workers", "samples", "wall_s",
                   "samples_per_sec", "step_ms_implied", "dispatch_rtt_s",
-                  "loss", "backend", "card"}
+                  "loss", "backend", "kernel_families", "card"}
 PRESTAGE_KEYS = {"prestage_batches", "batch_mbytes", "h2d_ms_per_batch",
                  "bare_per_step_dispatch_ms"}
 PCT = {"p50", "p90", "p99", "max"}

@@ -15,7 +15,7 @@ from mmt_tpu_torch import bench
 # bench.py:264-283's keys with BENCH_TRAIN_BATCH=4 (the train step on),
 # less the TPU setup's own (vs_baseline, dispatch_rtt_s,
 # videos_per_sec_device_only, pallas_similarity, pallas_ffn), plus the
-# port's kernels and card.
+# port's kernels, kernel_families and card.
 JAX_KEYS = {"metric", "value", "unit", "vs_baseline", "latency_s_1kx1k",
             "dispatch_rtt_s", "videos_per_sec_device_only", "backend",
             "dtype", "pallas_similarity", "pallas_ffn", "train_step_ms_b4",
@@ -56,7 +56,8 @@ def test_fp32_b4_ranger(small, capsys):
   small.setattr(bench, "build_full_eval", eval_dtype)
   got = bench.main(["--device", "cpu", "--tiny"])
   assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == got
-  assert set(got) == JAX_KEYS - TPU_ONLY | {"kernels", "card"}
+  assert set(got) == JAX_KEYS - TPU_ONLY | {"kernels", "kernel_families",
+                                            "card"}
   assert got["dtype"] == "fp32" and got["train_step_ms_b4"] > 0
   assert got["train_samples_per_sec_per_chip"] == pytest.approx(
       4e3 / got["train_step_ms_b4"])

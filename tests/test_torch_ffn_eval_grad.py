@@ -84,7 +84,7 @@ def test_eval_block_kernel_path_has_the_plain_gradients(monkeypatch, block,
                         .astype(np.float32))
   want_out, want = _run(block, operands, dy)
   calls = _stand_in(monkeypatch, kernel, plain)
-  monkeypatch.setattr(ops, "use_kernel", lambda x: True)
+  monkeypatch.setattr(ops, "use_kernel", lambda x, family: True)
   got_out, got = _run(block, operands, dy)
   assert calls == [False]          # launched once, outside the graph
   assert got_out.grad_fn is not None
@@ -129,7 +129,7 @@ def test_eval_block_kernel_path_has_the_jax_gradients(monkeypatch, block,
                         .astype(np.float32))
   want = _jax_grads(operands, dy, getattr(jnp, dtype))
   calls = _stand_in(monkeypatch, kernel, plain)
-  monkeypatch.setattr(ops, "use_kernel", lambda x: True)
+  monkeypatch.setattr(ops, "use_kernel", lambda x, family: True)
   _, got = _run(block, operands, dy, getattr(torch, dtype))
   assert calls == [False]
   for name, g in want.items():
@@ -146,7 +146,7 @@ def test_eval_block_kernel_path_has_the_jax_gradients(monkeypatch, block,
 def test_eval_block_without_autograd_calls_the_kernel_directly(
     monkeypatch, grad_mode):
   calls = _stand_in(monkeypatch, "ffn_block_cuda", ffn.ffn_block_plain)
-  monkeypatch.setattr(ops, "use_kernel", lambda x: True)
+  monkeypatch.setattr(ops, "use_kernel", lambda x, family: True)
   entered = []
   monkeypatch.setattr(ffn._RefVjp, "apply",
                       lambda *a: entered.append(1))
@@ -184,7 +184,7 @@ def test_eval_model_kernel_path_has_the_plain_gradients(monkeypatch):
   want = grads()
   rng = np.random.RandomState(7)
   calls = _stand_in(monkeypatch, "ffn_block_cuda", ffn.ffn_block_plain)
-  monkeypatch.setattr(ops, "use_kernel", lambda x: True)
+  monkeypatch.setattr(ops, "use_kernel", lambda x, family: True)
   got = grads()
   n_layers = (model.txt_bert.cfg.num_hidden_layers
               + model.vid_bert.cfg.num_hidden_layers)

@@ -154,7 +154,7 @@ def test_tp_train_block_launches_b7_with_the_route_tile(h, i, cd, want,
   launches B7 once, with the tile the deciders give (gemm_route and
   pick_gemm_tile, f32_route and pick_f32_tile), and not B2."""
   check = ffn._check_operands
-  monkeypatch.setattr(ffn.ops, "use_kernel", lambda x: True)
+  monkeypatch.setattr(ffn.ops, "use_kernel", lambda x, family: True)
   monkeypatch.setattr(
       ffn, "_check_operands",
       lambda kernel, *, f32, cd, **kw: check(

@@ -371,7 +371,7 @@ def test_bench_streaming_eval_runs_tiny_on_cpu(monkeypatch, capsys):
   got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
   # bench.py's keys, less the TPU setup's own, plus the port's.
   assert set(got) == {"metric", "value", "unit", "latency_s_1kx1k",
-                      "backend", "dtype", "kernels", "card",
-                      "streaming_eval"}
+                      "backend", "dtype", "kernels", "kernel_families",
+                      "card", "streaming_eval"}
   assert got["backend"] == "cpu" and got["kernels"] is False
   assert set(got["streaming_eval"]) == set(res)

@@ -14,6 +14,7 @@ import torch
 
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.train import metrics as metrics_lib
+from mmt_tpu_torch.utils.timing import span
 
 
 def embed_corpus(model, batches):
@@ -25,13 +26,14 @@ def embed_corpus(model, batches):
                            "vid_weights", "query_masks")}
   with torch.inference_mode():
     for batch in batches:
-      out = model(batch)
-      b, k, m, d = out["text_embds"].shape
-      parts["text_embds"].append(out["text_embds"].reshape(b * k, m, d))
-      parts["text_weights"].append(out["text_weights"].reshape(b * k, m))
-      parts["vid_embds"].append(out["vid_embds"])
-      parts["vid_weights"].append(out["vid_weights"])
-      parts["query_masks"].append(batch["query_masks"])
+      with span("mmt.eval.embed"):
+        out = model(batch)
+        b, k, m, d = out["text_embds"].shape
+        parts["text_embds"].append(out["text_embds"].reshape(b * k, m, d))
+        parts["text_weights"].append(out["text_weights"].reshape(b * k, m))
+        parts["vid_embds"].append(out["vid_embds"])
+        parts["vid_weights"].append(out["vid_weights"])
+        parts["query_masks"].append(batch["query_masks"])
   return {k: torch.cat(v, 0) for k, v in parts.items()}
 
 
@@ -41,21 +43,26 @@ def retrieval_eval(model, batches, fused=False):
   Returns {"sims": [Q, V] tensor, "t2v_metrics": ..., "v2t_metrics": ...}.
   ``fused=True`` ranks straight from the embeddings
   (``metrics.fused_retrieval_metrics``): no sims matrix is built and the
-  result has no "sims".
+  result has no "sims".  Spans ``mmt.eval`` and, in it, a
+  ``mmt.eval.embed`` a chunk, ``mmt.eval.similarity`` (none when fused)
+  and ``mmt.eval.ranks``.
   """
-  emb = embed_corpus(model, batches)
-  if fused:
+  with span("mmt.eval"):
+    emb = embed_corpus(model, batches)
+    if fused:
+      with torch.inference_mode(), span("mmt.eval.ranks"):
+        return metrics_lib.fused_retrieval_metrics(
+            emb["text_embds"], emb["vid_embds"], emb["text_weights"],
+            emb["vid_weights"], emb["query_masks"],
+            device=emb["vid_embds"].device)
+    num_caps = emb["query_masks"].shape[1]
     with torch.inference_mode():
-      return metrics_lib.fused_retrieval_metrics(
-          emb["text_embds"], emb["vid_embds"], emb["text_weights"],
-          emb["vid_weights"], emb["query_masks"],
-          device=emb["vid_embds"].device)
-  num_caps = emb["query_masks"].shape[1]
-  with torch.inference_mode():
-    sims = similarity_ops.moe_similarity(
-        emb["text_embds"], emb["vid_embds"], emb["text_weights"],
-        emb["vid_weights"], merge="indep", num_caps=num_caps)
-    masks = emb["query_masks"].cpu().numpy()
-    return {"sims": sims,
-            "t2v_metrics": metrics_lib.t2v_metrics(sims, masks),
-            "v2t_metrics": metrics_lib.v2t_metrics(sims, masks)}
+      with span("mmt.eval.similarity"):
+        sims = similarity_ops.moe_similarity(
+            emb["text_embds"], emb["vid_embds"], emb["text_weights"],
+            emb["vid_weights"], merge="indep", num_caps=num_caps)
+      with span("mmt.eval.ranks"):
+        masks = emb["query_masks"].cpu().numpy()
+        return {"sims": sims,
+                "t2v_metrics": metrics_lib.t2v_metrics(sims, masks),
+                "v2t_metrics": metrics_lib.v2t_metrics(sims, masks)}

@@ -49,6 +49,7 @@ from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.ops.dropout import dropout
 from mmt_tpu_torch.parallel.mesh import row_part
+from mmt_tpu_torch.utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -351,86 +352,88 @@ class CENet(nn.Module):
   def embed_text(self, token_ids, *, train=False, generator=None, dp=None):
     """Caption tower only: token_ids [B,K,T,2] -> {text_embds [B,K,M,D],
     text_weights [B,K,M]} (the serving path's query embedding)."""
-    b, k, t, _ = token_ids.shape
-    m = len(self.modalities)
-    flat = token_ids.reshape(b * k, t, 2)
-    text = self._pooled_text(flat[:, :, 0].long(), flat[:, :, 1], train,
-                             generator, dp)
-    heads = [self.text_GU[mod] for mod in self.modalities]
-    if self.txt_pro == "lin":
-      stacked = C.batched_reduce_dim(text, heads)
-    else:
-      stacked = C.batched_gated_embedding(
-          text, heads, train=train, use_bn=self.txt_pro == "gbn",
-          normalize=self.normalize_experts, dp=dp)
-    if self.txt_wgh == "emb":
-      e = dropout(text, self.moe_txt_dropout if train else 0.0, generator,
-                  part=row_part(dp, text))
-      logits = C.batched_moe_logits(
-          e, [self.moe_fc_txt[mod] for mod in self.modalities])
-      text_weights = torch.softmax(logits, 1).reshape(b, k, m)
-    else:
-      text_weights = torch.ones((b, k, m), device=text.device)
-    if self.normalize_experts:
-      stacked = C.l2_normalize(stacked)
-    return {"text_embds": stacked.reshape(b, k, m, -1).float(),
-            "text_weights": C.l1_normalize(text_weights)}
+    with span("mmt.tower.text"):
+      b, k, t, _ = token_ids.shape
+      m = len(self.modalities)
+      flat = token_ids.reshape(b * k, t, 2)
+      text = self._pooled_text(flat[:, :, 0].long(), flat[:, :, 1], train,
+                               generator, dp)
+      heads = [self.text_GU[mod] for mod in self.modalities]
+      if self.txt_pro == "lin":
+        stacked = C.batched_reduce_dim(text, heads)
+      else:
+        stacked = C.batched_gated_embedding(
+            text, heads, train=train, use_bn=self.txt_pro == "gbn",
+            normalize=self.normalize_experts, dp=dp)
+      if self.txt_wgh == "emb":
+        e = dropout(text, self.moe_txt_dropout if train else 0.0, generator,
+                    part=row_part(dp, text))
+        logits = C.batched_moe_logits(
+            e, [self.moe_fc_txt[mod] for mod in self.modalities])
+        text_weights = torch.softmax(logits, 1).reshape(b, k, m)
+      else:
+        text_weights = torch.ones((b, k, m), device=text.device)
+      if self.normalize_experts:
+        stacked = C.l2_normalize(stacked)
+      return {"text_embds": stacked.reshape(b, k, m, -1).float(),
+              "text_weights": C.l1_normalize(text_weights)}
 
   def embed_video(self, batch, *, train=False, generator=None, dp=None):
     """Video tower only: expert-feature batch -> {vid_embds [B,M,D],
     vid_weights [B,M]} (index building, and the video half of the
     forward)."""
-    mods = self.modalities
-    b = batch["features_ind"][mods[0]].shape[0]
-    ind = torch.stack([batch["features_ind"][mod].amax(1) for mod in mods],
-                      1)                                      # [B, M]
-    reducers = [self.video_dim_reduce[mod] for mod in mods]
-    pooled = lambda key: C.batched_reduce_dim_ragged(
-        [batch[key][mod] for mod in mods], reducers)
-    vid_embd = None
-    if self.vid_inp not in AGG_INPUTS:
+    with span("mmt.tower.video"):
+      mods = self.modalities
+      b = batch["features_ind"][mods[0]].shape[0]
+      ind = torch.stack([batch["features_ind"][mod].amax(1) for mod in mods],
+                        1)                                      # [B, M]
+      reducers = [self.video_dim_reduce[mod] for mod in mods]
+      pooled = lambda key: C.batched_reduce_dim_ragged(
+          [batch[key][mod] for mod in mods], reducers)
+      vid_embd = None
+      if self.vid_inp not in AGG_INPUTS:
+        if self.vid_cont == "bert":
+          raise ValueError(
+              "vid_inp='temp' with vid_cont='bert' has no aggregated token "
+              "to read the expert embedding from; use 'both' or 'all'")
+        raise ValueError(f"vid_inp='temp' with vid_cont={self.vid_cont!r} "
+                         "has no pooled expert embedding")
       if self.vid_cont == "bert":
-        raise ValueError(
-            "vid_inp='temp' with vid_cont='bert' has no aggregated token "
-            "to read the expert embedding from; use 'both' or 'all'")
-      raise ValueError(f"vid_inp='temp' with vid_cont={self.vid_cont!r} "
-                       "has no pooled expert embedding")
-    if self.vid_cont == "bert":
-      agg = {"sep": None, "mxp": "features_maxpool",
-             "mnp": "features_avgpool"}[self.out_tok]
-      agg = (torch.zeros((b, len(mods), self.same_dim), device=ind.device)
-             if agg is None else pooled(agg))
-      temp = [C.l2_normalize(nn.functional.linear(
-          batch["features"][mod].float(), r.fc.weight, r.fc.bias))
-              for mod, r in zip(mods, reducers)
-              if self.vid_inp in TEMP_INPUTS]
-      seq = self._assemble_video_sequence(batch, b, agg, temp)
-      last = self.vid_bert(*seq, train=train, generator=generator, dp=dp)
-      vid_embd = last[:, 0]
-      experts = last[:, 1:1 + len(mods)]                      # agg tokens
-    else:
-      experts = pooled("features_maxpool")
-      if self.vid_cont == "coll":
-        experts = self._collaborative_gating(experts, ind, train, generator,
-                                             dp)
+        agg = {"sep": None, "mxp": "features_maxpool",
+               "mnp": "features_avgpool"}[self.out_tok]
+        agg = (torch.zeros((b, len(mods), self.same_dim), device=ind.device)
+               if agg is None else pooled(agg))
+        temp = [C.l2_normalize(nn.functional.linear(
+            batch["features"][mod].float(), r.fc.weight, r.fc.bias))
+                for mod, r in zip(mods, reducers)
+                if self.vid_inp in TEMP_INPUTS]
+        seq = self._assemble_video_sequence(batch, b, agg, temp)
+        last = self.vid_bert(*seq, train=train, generator=generator, dp=dp)
+        vid_embd = last[:, 0]
+        experts = last[:, 1:1 + len(mods)]                      # agg tokens
+      else:
+        experts = pooled("features_maxpool")
+        if self.vid_cont == "coll":
+          experts = self._collaborative_gating(experts, ind, train, generator,
+                                               dp)
 
-    if self.vid_wgh == "nrm":
-      norms = C.safe_norm(experts)                            # [B, M]
-      vid_weights = norms / norms.sum(-1, keepdim=True)
-    elif self.vid_wgh == "emb":
-      e = dropout(vid_embd, self.moe_vid_dropout if train else 0.0,
-                  generator, part=row_part(dp, vid_embd))
-      logits = C.batched_moe_logits(
-          e.float(), [self.moe_fc_vid[mod] for mod in mods])
-      vid_weights = torch.softmax(logits, 1)
-    else:
-      vid_weights = torch.ones((b, len(mods)), device=experts.device)
-    if not self.keep_missing_modalities:
-      vid_weights = vid_weights * ind.float()
-    if self.normalize_experts:
-      experts = C.l2_normalize(experts)
-    return {"vid_embds": experts.float(),
-            "vid_weights": C.l1_normalize(vid_weights)}
+      if self.vid_wgh == "nrm":
+        norms = C.safe_norm(experts)                            # [B, M]
+        vid_weights = norms / norms.sum(-1, keepdim=True)
+      elif self.vid_wgh == "emb":
+        e = dropout(vid_embd, self.moe_vid_dropout if train else 0.0,
+                    generator, part=row_part(dp, vid_embd))
+        logits = C.batched_moe_logits(
+            e.float(), [self.moe_fc_vid[mod] for mod in mods])
+        vid_weights = torch.softmax(logits, 1)
+      else:
+        vid_weights = torch.ones((b, len(mods)), device=experts.device)
+      if not self.keep_missing_modalities:
+        vid_weights = vid_weights * ind.float()
+      if self.normalize_experts:
+        experts = C.l2_normalize(experts)
+      return {"vid_embds": experts.float(),
+              "vid_weights": C.l1_normalize(vid_weights)}
 
   def _assemble_video_sequence(self, batch, b, agg_stack, temp_feats):
     """(features, attention_mask, token_type_ids, position_ids) of the

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from mmt_tpu_torch import _build, ops
 from mmt_tpu_torch.parallel import mesh as tp_lib
+from mmt_tpu_torch.utils.timing import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -342,9 +343,10 @@ def ffn_block(x, w1, b1, w2, b2, gamma, beta, *, eps,
   takes the plain version.
   """
   lead, h = x.shape[:-1], x.shape[-1]
-  out = _eval_dispatch(x, ffn_block_cuda, ffn_block_plain, ffn_block_ref,
-                       (x.reshape(-1, h), w1, b1, w2, b2, gamma, beta),
-                       dict(eps=eps, compute_dtype=compute_dtype))
+  with span("mmt.ffn_op.fwd"):
+    out = _eval_dispatch(x, ffn_block_cuda, ffn_block_plain, ffn_block_ref,
+                         (x.reshape(-1, h), w1, b1, w2, b2, gamma, beta),
+                         dict(eps=eps, compute_dtype=compute_dtype))
   return out.reshape(*lead, h)
 
 
@@ -495,12 +497,14 @@ class FFNBlockTrain(torch.autograd.Function):
     use_kernel = ops.use_kernel(x, "ffn")
     if tp is None:
       fwd = ffn_train_fwd_cuda if use_kernel else ffn_train_fwd_plain
-      out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,
-                          compute_dtype=cd)
+      with span("mmt.ffn_op.fwd"):
+        out, inter, z = fwd(x, drop, w1c, b1, w2c, b2, gamma, beta, eps=eps,
+                            compute_dtype=cd)
     else:
       fwd = (ffn_train_fwd_partial_cuda if use_kernel
              else ffn_train_fwd_partial_plain)
-      yp, inter = fwd(x, w1c, b1, w2c, compute_dtype=cd)
+      with span("mmt.ffn_op.fwd"):
+        yp, inter = fwd(x, w1c, b1, w2c, compute_dtype=cd)
       z = (tp.all_reduce(yp) + b2.float()) * drop.float() + x.float()
       out, z = layer_norm(z, gamma, beta, eps=eps), z.to(cd)
     ctx.save_for_backward(x, drop, w1c, w2c, gamma, inter, z)
@@ -512,15 +516,17 @@ class FFNBlockTrain(torch.autograd.Function):
     x, drop, w1c, w2c, gamma, inter, z = ctx.saved_tensors
     dy = dy.float().contiguous()
     bwd = ffn_train_bwd_cuda if ctx.use_kernel else ffn_train_bwd_plain
-    dx, dz, dinter = bwd(dy, z, inter, drop, w1c, w2c, gamma, eps=ctx.eps,
-                         compute_dtype=ctx.cd, add_dz=ctx.tp is None)
+    with span("mmt.ffn_op.bwd"):
+      dx, dz, dinter = bwd(dy, z, inter, drop, w1c, w2c, gamma, eps=ctx.eps,
+                           compute_dtype=ctx.cd, add_dz=ctx.tp is None)
     if ctx.tp is not None:
       dx = ctx.tp.all_reduce(dx) + dz.float()
     # Only the gradients autograd asks for: a frozen layer (bertfrz<N>)
     # still gets B3's dx, but no weight GEMM.
-    grads = ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter,
-                                   eps=ctx.eps, compute_dtype=ctx.cd,
-                                   need=ctx.needs_input_grad[2:8])
+    with span("mmt.ffn_wgrad"):
+      grads = ffn_train_weight_grads(x, dy, z, inter, drop, dz, dinter,
+                                     eps=ctx.eps, compute_dtype=ctx.cd,
+                                     need=ctx.needs_input_grad[2:8])
     return (dx, None, *grads, None, None, None)
 
 
@@ -612,9 +618,10 @@ def ffn_block_tp(x, w1, b1, w2, b2, gamma, beta, *, eps, tp,
   all-reduce of its partial, then + b2 + x and the LayerNorm."""
   lead, h = x.shape[:-1], x.shape[-1]
   x2 = x.reshape(-1, h)
-  part = _eval_dispatch(x, ffn_partial_cuda, ffn_partial_plain,
-                        ffn_partial_ref, (x2, w1, b1, w2),
-                        dict(compute_dtype=compute_dtype))
+  with span("mmt.ffn_op.fwd"):
+    part = _eval_dispatch(x, ffn_partial_cuda, ffn_partial_plain,
+                          ffn_partial_ref, (x2, w1, b1, w2),
+                          dict(compute_dtype=compute_dtype))
   y = tp_lib.reduce_from_tp(part, tp)
   out = layer_norm(y + b2.float() + x2.float(), gamma, beta, eps=eps)
   return out.reshape(*lead, h)

@@ -33,6 +33,7 @@ import torch
 
 from mmt_tpu_torch import _build, ops
 from mmt_tpu_torch.ops.similarity import k_major_scratch, pick_tile
+from mmt_tpu_torch.utils.timing import span
 
 MISSING_VAL = 1e8
 EPS_ZERO_GUARD = 1e-5
@@ -41,13 +42,14 @@ CHUNK = 4096
 
 def t2v_ranks(sims):
   """Rank of each caption's GT video (q // caps_per_video); fp32 [Q]."""
-  q, v = sims.shape
-  d = -sims.float()
-  gt_col = torch.arange(q, device=sims.device) // (q // v)
-  d_gt = d.gather(1, gt_col[:, None])
-  closer = (d < d_gt).sum(1).float()
-  tied = (d == d_gt).sum(1).float()
-  return closer + (tied - 1.0) / 2.0
+  with span("mmt.ranks"):
+    q, v = sims.shape
+    d = -sims.float()
+    gt_col = torch.arange(q, device=sims.device) // (q // v)
+    d_gt = d.gather(1, gt_col[:, None])
+    closer = (d < d_gt).sum(1).float()
+    tied = (d == d_gt).sum(1).float()
+    return closer + (tied - 1.0) / 2.0
 
 
 def v2t_ranks(sims, query_masks):
@@ -57,23 +59,24 @@ def v2t_ranks(sims, query_masks):
   MISSING_VAL (they still occupy a slot) and are never ranked; a video
   with no valid caption gets rank inf.
   """
-  q, v = sims.shape
-  cpv = q // v
-  mask = query_masks.reshape(-1).to(device=sims.device, dtype=torch.bool)
-  d = -sims.float().T                                  # [V, Q]
-  d = torch.where(mask[None, :], d, torch.full_like(d, MISSING_VAL))
-  own = d.reshape(v, v, cpv)[torch.arange(v), torch.arange(v)]  # [V, cpv]
-  own_valid = mask.reshape(v, cpv)
-  best = torch.full((v,), float("inf"), device=sims.device)
-  for j in range(cpv):
-    dj = own[:, j:j + 1]
-    closer = (d < dj).sum(1).float()
-    tied = (d == dj).sum(1).float()
-    rank_j = closer + (tied - 1.0) / 2.0
-    rank_j = torch.where(own_valid[:, j], rank_j,
-                         torch.full_like(rank_j, float("inf")))
-    best = torch.minimum(best, rank_j)
-  return best
+  with span("mmt.ranks"):
+    q, v = sims.shape
+    cpv = q // v
+    mask = query_masks.reshape(-1).to(device=sims.device, dtype=torch.bool)
+    d = -sims.float().T                                  # [V, Q]
+    d = torch.where(mask[None, :], d, torch.full_like(d, MISSING_VAL))
+    own = d.reshape(v, v, cpv)[torch.arange(v), torch.arange(v)]  # [V, cpv]
+    own_valid = mask.reshape(v, cpv)
+    best = torch.full((v,), float("inf"), device=sims.device)
+    for j in range(cpv):
+      dj = own[:, j:j + 1]
+      closer = (d < dj).sum(1).float()
+      tied = (d == dj).sum(1).float()
+      rank_j = closer + (tied - 1.0) / 2.0
+      rank_j = torch.where(own_valid[:, j], rank_j,
+                           torch.full_like(rank_j, float("inf")))
+      best = torch.minimum(best, rank_j)
+    return best
 
 
 def _guard(denom):
@@ -158,7 +161,8 @@ def fused_counts(queries, cands, qw, cw, gt, gtcol, colbias):
   CPU tensors (see ``fused_counts_plain`` for the arguments)."""
   fn = (fused_counts_cuda if ops.use_kernel(queries, "ranks")
         else fused_counts_plain)
-  return fn(queries, cands, qw, cw, gt, gtcol, colbias)
+  with span("mmt.ranks"):
+    return fn(queries, cands, qw, cw, gt, gtcol, colbias)
 
 
 def _scaled_flat(embds, weights):

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from mmt_tpu_torch import _build, ops
+from mmt_tpu_torch.utils.timing import span
 
 EPS_ZERO_GUARD = 1e-5
 
@@ -170,16 +171,17 @@ def moe_similarity(text_embds, vid_embds, text_weights, vid_weights,
   """
   if merge not in ("avg", "indep"):
     raise ValueError(f"unrecognised merge mode: {merge}")
-  q, m, d = text_embds.shape
-  nv = vid_embds.shape[0]
-  tw = text_weights.float().contiguous()
-  vw = vid_weights.float().contiguous()
-  t = (text_embds.float() * tw[:, :, None]).reshape(q, m * d)
-  v = (vid_embds.float() * vw[:, :, None]).reshape(nv, m * d)
-  if prefer_kernel is False:
-    sims = library_similarity(t, v, tw, vw)
-  else:
-    sims = MoESimilarity.apply(t, v, tw, vw)
-  if num_caps > 1 and merge == "avg":
-    sims = sims.reshape(q // num_caps, num_caps, nv).mean(1)
-  return sims
+  with span("mmt.similarity"):
+    q, m, d = text_embds.shape
+    nv = vid_embds.shape[0]
+    tw = text_weights.float().contiguous()
+    vw = vid_weights.float().contiguous()
+    t = (text_embds.float() * tw[:, :, None]).reshape(q, m * d)
+    v = (vid_embds.float() * vw[:, :, None]).reshape(nv, m * d)
+    if prefer_kernel is False:
+      sims = library_similarity(t, v, tw, vw)
+    else:
+      sims = MoESimilarity.apply(t, v, tw, vw)
+    if num_caps > 1 and merge == "avg":
+      sims = sims.reshape(q // num_caps, num_caps, nv).mean(1)
+    return sims

@@ -4,9 +4,11 @@ category.
 Port of scripts/profile_eval.py.  Runs the program ``python -m
 mmt_tpu_torch.bench`` times under torch.profiler (the CPU and CUDA
 activities) and prints the top device activities by self time per run,
-a rollup by category, the wall of the traced runs, the device's idle
-share (1 - busy / wall: one stream, so kernel times add up) and where
-the raw trace is:
+a rollup by category, a rollup by the program's spans (host and device
+ms a run of each ``mmt.*`` span, ``utils.timing.span``), the wall of the
+traced runs, the device's idle share (1 - the union of the device
+activities' intervals over the wall, which holds the profiler's own host
+work) and where the raw trace is:
 
   python -m mmt_tpu_torch.profile_eval                 # eval-1k, the card
   python -m mmt_tpu_torch.profile_eval --mode train    # the b32 step
@@ -33,12 +35,20 @@ over such a session reads low, so each session's kernels are counted
 against the wrappers' launch counters (``LAUNCH_MARKERS``): a short
 count runs the session again, up to PROFILE_TRIES times, then raises.
 On ``--device cpu`` there is no card: the rows are the CPU ops' self
-times, the output says so, and no idle share is given.
+times, the output says so, and no idle share and no span's device ms
+are given.
+
+A span's device ms are the union of the device activities that the
+host launched while the span was open (a kernel is matched to its
+launch by the profiler's correlation id), whichever thread launched them:
+autograd's device thread launches the backward's kernels while the main
+thread waits inside ``mmt.step.backward``.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import csv
 import re
@@ -74,6 +84,9 @@ CATEGORIES = (
         r"|scatter|pad", re.I)),
 )
 OTHER = "other"
+# The CUDA runtime and driver calls among the host events: a launch
+# carries the correlation id of the device activity it started.
+_RUNTIME = re.compile(r"cuda[A-Z]|cu[A-Z]")
 
 # The kernel each wrapper runs exactly once a launch, on each of its
 # routes (csrc/): B1 and B2 end in their residual GEMM on the bf16 GEMM
@@ -180,6 +193,70 @@ def session(run, device):
                      "sessions")
 
 
+def merged(intervals):
+  """Sorted, disjoint [start, end] covering [(start, end)] intervals."""
+  out = []
+  for s, e in sorted(intervals):
+    if out and s <= out[-1][1]:
+      out[-1][1] = max(out[-1][1], e)
+    else:
+      out.append([s, e])
+  return out
+
+
+def union_us(intervals):
+  """Microseconds of the union of [(start, end)] intervals."""
+  return sum(e - s for s, e in merged(intervals))
+
+
+def span_rollup(prof, device, runs):
+  """{span: {"host_ms", "device_ms"}} a run, for each of the program's
+  ``mmt.*`` spans the session recorded: the host ms of its events and,
+  on the card, the device ms of the union of the device activities
+  launched inside them (None on the CPU)."""
+  from torch.autograd import DeviceType
+
+  spans = collections.defaultdict(list)
+  launched_at, ops = {}, []
+  for e in prof.events():
+    if e.device_type == DeviceType.CPU:
+      if e.name.startswith("mmt."):
+        spans[e.name].append((e.time_range.start, e.time_range.end))
+      elif _RUNTIME.match(e.name):
+        launched_at[e.id] = e.time_range.start
+    elif not e.is_user_annotation:
+      ops.append(e)
+  cuda = torch.device(device).type == "cuda"
+  # A device activity shares its correlation id with its launch.
+  ops = [(launched_at[e.id], e.time_range.start, e.time_range.end)
+         for e in ops if e.id in launched_at]
+  out = {}
+  for name, ivs in sorted(spans.items()):
+    dev = None
+    if cuda:
+      open_ = merged(ivs)
+      starts = [lo for lo, _ in open_]
+
+      def launched_inside(t):
+        k = bisect.bisect_right(starts, t) - 1
+        return k >= 0 and t <= open_[k][1]
+
+      dev = union_us([(s, e) for t, s, e in ops
+                      if launched_inside(t)]) / 1e3 / runs
+    out[name] = {"host_ms": sum(e - s for s, e in ivs) / 1e3 / runs,
+                 "device_ms": dev}
+  return out
+
+
+def busy_us(prof):
+  """Microseconds of the union of the device activities' intervals."""
+  from torch.autograd import DeviceType
+
+  return union_us([(e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation])
+
+
 def breakdown(prof, events, device, runs):
   """(rows, rollup, total ms per run) of a session of ``runs`` runs: on
   the card its device ``events`` (``session``'s) by self device time, on
@@ -190,8 +267,9 @@ def breakdown(prof, events, device, runs):
   if torch.device(device).type == "cuda":
     self_us = lambda e: e.self_device_time_total
   else:
+    # The ops, not the program's spans (``span_rollup`` reports those).
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CPU]
+              if e.device_type == DeviceType.CPU and not e.is_user_annotation]
     self_us = lambda e: e.self_cpu_time_total
   total_us = sum(map(self_us, events))
   rows = sorted(({"name": short_kernel_name(e.key), "key": e.key,
@@ -240,9 +318,10 @@ def profile(mode="eval", reps=3, device="cuda", tiny=False, logdir=None,
   """The breakdown of ``mode``'s program on ``device`` (``reps`` evals or
   ``steps`` train steps traced, bench.TRAIN_STEPS by default): {"mode",
   "runs",
-  "device", "rows", "rollup", "wall_ms", "device_ms", "idle",
-  "launches", "trace"}; ms and launches are per run.  On the CPU
-  "device_ms" is the CPU ops' self time and "idle" is None."""
+  "device", "rows", "rollup", "spans", "wall_ms", "device_ms", "busy_ms",
+  "idle", "launches", "trace"}; ms and launches are per run.  On the CPU
+  "device_ms" is the CPU ops' self time and "busy_ms" and "idle" are
+  None."""
   from mmt_tpu_torch.train.trainer import check_device
   from mmt_tpu_torch.utils.timing import export_trace
 
@@ -256,12 +335,14 @@ def profile(mode="eval", reps=3, device="cuda", tiny=False, logdir=None,
                         tiny, cfg)
     prof, events, wall_ms, launched = session(run, device)
   rows, rollup, total_ms = breakdown(prof, events, device, runs)
+  spans = span_rollup(prof, device, runs)
+  busy_ms = busy_us(prof) / 1e3 / runs if device.type == "cuda" else None
   trace = None if logdir is None else str(export_trace(prof, logdir))
   wall_ms /= runs
   return {"mode": mode, "runs": runs, "device": device.type, "rows": rows,
-          "rollup": rollup, "wall_ms": wall_ms, "device_ms": total_ms,
-          "idle": (1 - total_ms / wall_ms if device.type == "cuda"
-                   else None),
+          "rollup": rollup, "spans": spans, "wall_ms": wall_ms,
+          "device_ms": total_ms, "busy_ms": busy_ms,
+          "idle": None if busy_ms is None else 1 - busy_ms / wall_ms,
           "launches": {f: n / runs for f, n in launched.items()},
           "trace": trace}
 
@@ -289,8 +370,15 @@ def report(res, top, card):
   print("\n== category rollup ==")
   for cat, ms in res["rollup"].items():
     print(f"{ms:12.3f}  {100 * ms / total if total else 0:5.1f}  {cat}")
+  print("\n== program spans (ms a run) ==")
+  print(f"{'host ms':>12}  {'device ms':>12}  span")
+  for name, t in res["spans"].items():
+    dev = ("not measured" if t["device_ms"] is None
+           else f"{t['device_ms']:12.3f}")
+    print(f"{t['host_ms']:12.3f}  {dev:>12}  {name}")
   idle = ("not measured (a CPU run)" if res["idle"] is None
-          else f"{res['idle']:.4f}")
+          else f"{res['idle']:.4f} (device busy {res['busy_ms']:.3f} ms a "
+          "run)")
   print(f"\nwall of the traced runs {res['wall_ms'] * runs:.3f} ms "
         f"({res['wall_ms']:.3f} per run); device idle share {idle}; "
         f"launches per run {res['launches']}; card: {card}")

@@ -27,21 +27,28 @@ from __future__ import annotations
 
 from mmt_tpu_torch.models.cenet import similarity_from_outputs
 from mmt_tpu_torch.parallel import mesh as mesh_lib
+from mmt_tpu_torch.utils.timing import span
 
 
 def train_step(model, optimizer, batch, *, loss_fn, lr, generator, dp=None):
   """One step on ``batch``; returns the loss (a device tensor, not
   synchronised).  ``generator`` draws the dropout masks; ``dp`` is the
-  data group (a model group lives in ``model``)."""
-  for group in optimizer.param_groups:
-    group["lr"] = lr
-  optimizer.zero_grad(set_to_none=True)
-  out = model(batch, train=True, generator=generator, dp=dp)
-  if dp is not None:
-    out = {k: mesh_lib.gather_rows(v, dp) for k, v in out.items()}
-  loss = loss_fn(similarity_from_outputs(out, merge="avg"))
-  loss.backward()
-  if dp is not None:
-    mesh_lib.all_reduce_grads(model.parameters(), dp)
-  optimizer.step()
-  return loss.detach()
+  data group (a model group lives in ``model``).  Spans ``mmt.step`` and,
+  in it, ``mmt.step.forward``, ``.loss``, ``.backward``, ``.optimizer``."""
+  with span("mmt.step"):
+    for group in optimizer.param_groups:
+      group["lr"] = lr
+    optimizer.zero_grad(set_to_none=True)
+    with span("mmt.step.forward"):
+      out = model(batch, train=True, generator=generator, dp=dp)
+      if dp is not None:
+        out = {k: mesh_lib.gather_rows(v, dp) for k, v in out.items()}
+    with span("mmt.step.loss"):
+      loss = loss_fn(similarity_from_outputs(out, merge="avg"))
+    with span("mmt.step.backward"):
+      loss.backward()
+      if dp is not None:
+        mesh_lib.all_reduce_grads(model.parameters(), dp)
+    with span("mmt.step.optimizer"):
+      optimizer.step()
+    return loss.detach()

@@ -98,7 +98,7 @@ from mmt_tpu_torch.train import metrics as metrics_lib
 from mmt_tpu_torch.train.optim import linear_warmup
 from mmt_tpu_torch.train.step import train_step
 from mmt_tpu_torch.utils.timing import (AverageMeter, profiler_trace,
-                                        update_perf_log)
+                                        spanned, update_perf_log)
 
 logger = logging.getLogger(__name__)
 
@@ -698,15 +698,27 @@ class Trainer:
     # window starts an async device->host copy and the PREVIOUS window
     # (whose copy has long since landed) is logged.
     pending_losses: List[Any] = []
-    # [(batch_idx, (host window, event), batch_time when it closed)]
+    # The device's step times: a pair of CUDA events around each step,
+    # read once the window holding them has landed (no added sync).
+    pending_steps: List[Any] = []
+    # [(batch_idx, (host window, event), batch_time when it closed,
+    #   the window's step events)]
     pending_reads: List[Any] = []
     total_loss = 0.0
+    cuda = self.device.type == "cuda"
+
+    def step_event():
+      ev = torch.cuda.Event(enable_timing=True)
+      ev.record(torch.cuda.current_stream(self.device))
+      return ev
 
     def drain(window):
       nonlocal total_loss
-      idx, (host, done), bt = window
+      idx, (host, done), bt, steps = window
       if done is not None:
         done.synchronize()
+      for start, end in steps:
+        self.timer.update("train_batch.step", start.elapsed_time(end) / 1e3)
       vals = host.numpy()
       total_loss += float(vals.sum())
       logger.info("Train Epoch: %d [%d/%d] Loss: %.6f batch_time=%.5f",
@@ -723,26 +735,35 @@ class Trainer:
     if self.dp is not None:
       batches = (mesh_lib.local_rows(b, self.dp) for b in batches)
     batches = loader_lib.device_prefetch(batches, self.device, size=2)
-    for batch_idx, batch in enumerate(batches):
+    for batch_idx, batch in enumerate(spanned(batches, "mmt.loader.wait")):
       self.timer.update("train_batch.data_loading", time.time() - data_start)
       self.n_samples += batch_size * n_pairs
       self.n_steps += 1
       lr = epoch_lr * self.warmup(self.n_steps - 1)
 
       step_start = time.time()
+      start = step_event() if cuda else None
       loss = train_step(self.model, self.optimizer, batch,
                         loss_fn=self.loss_fn, lr=lr,
                         generator=self.generator, dp=self.dp)
+      # The host's enqueue; off the card the step ran as it was enqueued.
+      dispatch = time.time() - step_start
+      if cuda:
+        pending_steps.append((start, step_event()))
+      else:
+        self.timer.update("train_batch.step", dispatch)
       self._maybe_preempt_exit(epoch - 1)
       pending_losses.append(loss)
-      self.timer.update("train_batch.step", time.time() - step_start)
+      self.timer.update("train_batch.dispatch", dispatch)
       self.timer.update("train_batch.total", time.time() - data_start)
 
       if batch_idx % log_step == 0:
         vals = torch.stack(pending_losses)
         pending_losses = []
         pending_reads.append((batch_idx, _read_async(vals),
-                              self.timer.dic["train_batch.total"]["val"]))
+                              self.timer.dic["train_batch.total"]["val"],
+                              pending_steps))
+        pending_steps = []
         while len(pending_reads) > 1:
           drain(pending_reads.pop(0))
       data_start = time.time()
@@ -750,7 +771,8 @@ class Trainer:
     if pending_losses:
       pending_reads.append((batch_idx,
                             _read_async(torch.stack(pending_losses)),
-                            self.timer.dic["train_batch.total"]["val"]))
+                            self.timer.dic["train_batch.total"]["val"],
+                            pending_steps))
     for window in pending_reads:
       drain(window)
     return {"loss": total_loss / max(batches_per_epoch, 1),
@@ -791,10 +813,10 @@ class Trainer:
     keys = ("vid_embds", "text_embds", "vid_weights", "text_weights")
     embds = {k: [] for k in keys}
     query_masks, raw_captions, paths = [], [], []
+    batches = loader_lib.device_prefetch(rank_rows(), self.device, size=2)
     data_start = time.time()
     with torch.inference_mode():
-      for batch in loader_lib.device_prefetch(rank_rows(), self.device,
-                                              size=2):
+      for batch in spanned(batches, "mmt.loader.wait"):
         host = hosts.popleft()
         # A SIGTERM landing during a long eval must not wait for the
         # whole eval to finish: eval state is safe to abandon, and the

@@ -3,6 +3,32 @@ utils/perf_log_utils.py:18-27 semantics) and a torch.profiler surface.
 
 Port of mmt_tpu/utils/timing.py: ``AverageMeter`` and ``update_perf_log``
 copied, ``profiler_trace`` on torch.profiler in place of jax.profiler.
+``span`` names the program's ranges on the profiler's timeline:
+
+  mmt.step                 train/step.py: one ``train_step`` call, and in it
+  mmt.step.forward           the towers (and the data group's gather)
+  mmt.step.loss              the similarity and the loss
+  mmt.step.backward          ``loss.backward()`` (and the gradients' all-reduce)
+  mmt.step.optimizer         ``optimizer.step()``
+  mmt.tower.text           models/cenet.py: ``embed_text``
+  mmt.tower.video          models/cenet.py: ``embed_video``
+  mmt.ffn_op.fwd           ops/ffn.py: the FFN block's forward (B1, B2, B6,
+                           B7 or their plain versions)
+  mmt.ffn_op.bwd           ops/ffn.py: its backward (B3 or its plain version)
+  mmt.ffn_wgrad            ops/ffn.py: its weight gradients (library GEMMs)
+  mmt.similarity           ops/similarity.py: ``moe_similarity``
+  mmt.ranks                ops/ranking.py: the matrix ranks, ``fused_counts``
+  mmt.eval                 evaluate.py: one ``retrieval_eval`` call, and in it
+  mmt.eval.embed             a chunk of the corpus through the towers
+  mmt.eval.similarity        the [Q, V] similarity
+  mmt.eval.ranks             the ranks, the metrics and their host reads
+  mmt.loader.wait          train/trainer.py: one batch from the loader
+
+On the card each range also becomes a device-side annotation, which holds
+the kernels launched in it by its own thread and outside any range
+nested in it: the backward's kernels, which autograd's device thread
+launches, lie in ``mmt.ffn_op.bwd`` and ``mmt.ffn_wgrad`` and in no range
+opened on the main thread.
 """
 
 from __future__ import annotations
@@ -11,6 +37,11 @@ import contextlib
 import json
 import time
 from typing import Dict
+
+from torch.autograd import profiler as _autograd_profiler
+
+_NULL = contextlib.nullcontext()
+_END = object()
 
 
 class AverageMeter:
@@ -54,6 +85,28 @@ def export_trace(prof, logdir):
   out.mkdir(parents=True, exist_ok=True)
   prof.export_chrome_trace(str(out / "trace.json"))
   return out / "trace.json"
+
+
+def span(name: str):
+  """A context manager naming a range of the program ``name``: while a
+  torch.profiler session records, ``torch.profiler.record_function(name)``
+  (a host event and, on the card, a device-side annotation, both on the
+  profiler's clock); otherwise one shared null context, after a single
+  flag check.  A span changes no value."""
+  if _autograd_profiler._is_profiler_enabled:
+    return _autograd_profiler.record_function(name)
+  return _NULL
+
+
+def spanned(iterable, name: str):
+  """The items of ``iterable``, each ``next()`` inside ``span(name)``."""
+  it = iter(iterable)
+  while True:
+    with span(name):
+      item = next(it, _END)
+    if item is _END:
+      return
+    yield item
 
 
 @contextlib.contextmanager

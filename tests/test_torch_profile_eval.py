@@ -63,6 +63,15 @@ def test_both_modes_on_the_cpu(mode, monkeypatch, tmp_path, capsys):
   trace = json.loads(pathlib.Path(res["trace"]).read_text())
   assert any(str(e.get("name", "")).startswith("aten::")
              for e in trace["traceEvents"])
+  # The program's spans, host ms a run; no device ms on the CPU.
+  top = {"eval": "mmt.eval", "train": "mmt.step"}[mode]
+  assert top in res["spans"] and "mmt.tower.text" in res["spans"]
+  assert all(t["device_ms"] is None for t in res["spans"].values())
+  assert res["spans"][top]["host_ms"] == pytest.approx(
+      max(t["host_ms"] for t in res["spans"].values()))
+  assert 0 < res["spans"][top]["host_ms"] <= res["wall_ms"]
+  assert "== program spans" in printed
+  assert not any(r["key"].startswith("mmt.") for r in res["rows"])
 
 
 def test_categories_of_the_kernels_and_library_names():
@@ -210,6 +219,54 @@ def test_a_short_launch_count_runs_again_then_raises(monkeypatch, capsys):
   recorded["n"] = 17
   with pytest.raises(RuntimeError, match="more launches"):
     profile_eval.session(run, "cpu")
+
+
+def _timed(name, start, end, device_type, corr=0, annotation=False):
+  return types.SimpleNamespace(
+      name=name, id=corr, device_type=device_type,
+      is_user_annotation=annotation,
+      time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def fake_session():
+  """A train step's events on the profiler's clock (us): the step's span
+  and its backward on the host, two launches (the second from autograd's
+  thread while the main thread waits in the backward), an op whose id
+  happens to equal a launch's, and three device activities, two of them
+  overlapping, with an annotation over them."""
+  from torch.autograd import DeviceType
+
+  cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+  return types.SimpleNamespace(events=lambda: [
+      _timed("mmt.step", 0, 100, cpu, 1, True),
+      _timed("mmt.step.backward", 50, 100, cpu, 2, True),
+      _timed("cudaLaunchKernel", 10, 12, cpu, 7),
+      _timed("cudaLaunchKernel", 60, 62, cpu, 8),
+      _timed("aten::mm", 200, 210, cpu, 7),
+      _timed("gemm_kernel", 20, 40, cuda, 7),
+      _timed("ffn_ln_bwd_rows_kernel", 30, 55, cuda, 8),
+      _timed("Memset (Device)", 300, 305, cuda, 9),
+      _timed("mmt.step", 20, 55, cuda, 1, True),
+  ])
+
+
+def test_idle_share_takes_the_union_of_the_device_activities():
+  """Overlapping activities count once: busy 35 + 5 us, where the sum of
+  their times reads 50."""
+  assert profile_eval.union_us([(20, 40), (30, 55), (300, 305)]) == 40
+  assert profile_eval.busy_us(fake_session()) == 40
+
+
+def test_a_span_holds_the_device_work_launched_inside_it():
+  """Each span's device ms: the union of the activities whose launch lies
+  inside it, from either thread; an op's id matching a launch's does not
+  count, and neither does a device activity with no launch."""
+  spans = profile_eval.span_rollup(fake_session(), "cuda", runs=1)
+  assert spans == {
+      "mmt.step": {"host_ms": 0.1, "device_ms": 0.035},
+      "mmt.step.backward": {"host_ms": 0.05, "device_ms": 0.025}}
+  cpu = profile_eval.span_rollup(fake_session(), "cpu", runs=2)
+  assert cpu["mmt.step"] == {"host_ms": 0.05, "device_ms": None}
 
 
 def test_it_runs_on_the_card_by_default():

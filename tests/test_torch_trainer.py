@@ -108,6 +108,11 @@ def test_loss_finite_and_logged(trained):
   assert [e["n_steps"] for e in log] == [0, 4, 8]
   losses = [e["loss"] for e in log[1:]]
   assert all(np.isfinite(x) and x > 0 for x in losses)
+  # Each trained epoch times its steps (on the card by CUDA events, here
+  # as they ran) and the host's enqueue of them.
+  for e in log[1:]:
+    assert e["timer.train_batch.step.sum"] > 0
+    assert e["timer.train_batch.dispatch.sum"] > 0
 
 
 def test_only_eval_warm_start(trained):

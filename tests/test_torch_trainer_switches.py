@@ -134,6 +134,12 @@ def test_profile_and_sanity_checks_from_the_environment(runs):
   trace = json.loads((root / "profile" / "trace.json").read_text())
   assert any(str(e.get("name")).startswith("aten::")
              for e in trace["traceEvents"])
+  # The program's spans: each of the epoch's 2 steps, and each wait for a
+  # train batch (2, and the wait that found the loader's end).
+  names = [e.get("name") for e in trace["traceEvents"]
+           if e.get("cat") == "user_annotation"]
+  assert names.count("mmt.step") == 2
+  assert names.count("mmt.loader.wait") == 3
   assert debug.sanity_checks and not plain.sanity_checks
   assert out["validated"] == 1          # the one trained epoch's first batch
 

@@ -1386,6 +1386,199 @@ def step_graph_phase(torch, flagship, ffn, similarity, dev, card,
   return gaps
 
 
+# The moonlight caption tower's routed experts (models/moe_text.py, the
+# grouped kernels of csrc/moe_grouped.cu) at the published widths of
+# Moonlight-16B-A3B and ActivityNet's b32 caption rows: 8 of its 64
+# experts held, 6 a token.
+MOE_TOKENS, MOE_H, MOE_I = 3200, 2048, 1408
+MOE_EXPERTS, MOE_HELD, MOE_TOPK = 64, 8, 6
+# Kernel against the plain loop (cuBLAS's products, another order of the
+# same fp32 sums over K <= 2,816): the widest gap of each output and
+# gradient over its largest value.
+MOE_TOL = 1e-5
+MOE_REPS = 10
+# The captured step against the eager one: the tower at 3 of its 27
+# layers (the dense one and two MoE), full widths, b32 x 100 words (a
+# depth cut, for the phase's time); 1 warm-up, 1 capture, 2 replays.
+MOE_GRAPH_LAYERS, MOE_GRAPH_STEPS = 3, 4
+MOE_GRAPH_TOWER = {"num_hidden_layers": MOE_GRAPH_LAYERS,
+                   "experts_held": list(range(MOE_HELD))}
+
+
+def moe_kernel_case(torch, ops, moe_ops, dev, gen, card):
+  """The grouped kernels' forward and backward against their plain
+  loop, twice bitwise equal to themselves, each output and gradient
+  within MOE_TOL; 8 launches a forward and backward.  Returns the case's
+  numbers."""
+  x = torch.randn(MOE_TOKENS, MOE_H, device=dev, generator=gen)
+  scores = torch.rand(MOE_TOKENS, MOE_EXPERTS, device=dev, generator=gen)
+  sel = torch.topk(scores, MOE_TOPK, -1).indices
+  w = torch.rand(MOE_TOKENS, MOE_TOPK, device=dev, generator=gen)
+  w_gu = 0.02 * torch.randn(MOE_HELD, 2 * MOE_I, MOE_H, device=dev,
+                            generator=gen)
+  w_d = 0.02 * torch.randn(MOE_HELD, MOE_H, MOE_I, device=dev, generator=gen)
+  slot_of = torch.full((MOE_EXPERTS,), MOE_HELD, dtype=torch.long,
+                       device=dev)
+  slot_of[:MOE_HELD] = torch.arange(MOE_HELD, device=dev)
+  dout = torch.randn(MOE_TOKENS, MOE_H, device=dev, generator=gen)
+  leaves = (x, w, w_gu, w_d)
+
+  def run():
+    args = [t.detach().requires_grad_(True) for t in leaves]
+    out = moe_ops.grouped_experts(args[0], args[1], sel, args[2], args[3],
+                                  slot_of)
+    out.backward(dout)
+    return [out.detach()] + [a.grad for a in args]
+
+  before = moe_ops.moe_grouped_cuda.launches
+  got = run()
+  launches = moe_ops.moe_grouped_cuda.launches - before
+  again = run()
+  with ops.plain_versions("moe"):
+    want = run()
+  names = ("out", "dx", "dweights", "dw_gate_up", "dw_down")
+  gaps = {n: float((g - r).abs().max() / r.abs().max())
+          for n, g, r in zip(names, got, want)}
+  bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+  rows = int((slot_of[sel] < MOE_HELD).sum())
+
+  def fwd():
+    moe_ops.grouped_experts(x, w, sel, w_gu, w_d, slot_of)
+
+  def both():
+    run()
+
+  fwd_ms, both_ms = time_ms(torch, fwd, MOE_REPS), time_ms(torch, both,
+                                                           MOE_REPS)
+  flop = 18 * rows * MOE_H * MOE_I
+  res = {"rows": rows, "launches": launches, "gaps": gaps,
+         "bitwise_repeat": bitwise, "fwd_ms": fwd_ms,
+         "fwd_bwd_ms": both_ms,
+         "bound_ms": 1e3 * flop / 67e12, "tflops": flop / both_ms / 1e9}
+  print(f"moe grouped kernels (T {MOE_TOKENS}, H {MOE_H}, I {MOE_I}, "
+        f"{MOE_HELD} of {MOE_EXPERTS} held, K {MOE_TOPK}): "
+        f"{json.dumps(res)} card: {card}", flush=True)
+  if launches != 8 or not bitwise or max(gaps.values()) > MOE_TOL:
+    raise RuntimeError(f"moe grouped kernels: {res}")
+  return res
+
+
+def moe_graph_case(torch, dev, card):
+  """The moonlight CENet at MOE_GRAPH_LAYERS layers, b32 x 100 words, two
+  ways from one seed on the same batches, dropout on: eager (a hook on
+  the model) with Adam made capturable, and through ``train_step``'s
+  graph path, every replayed call under
+  ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises).
+  Losses, parameters, moments and the routers' correction biases must be
+  bitwise equal; the graph run takes 1 warm-up, 1 capture and the rest
+  replays.  Returns the graph run's counters."""
+  from mmt_tpu_torch.models import moe_text
+  from mmt_tpu_torch.models.cenet import CENet
+  from mmt_tpu_torch.ops import moe as moe_ops
+  from mmt_tpu_torch.train import losses, optim, step
+
+  experts = {"s3d": {"dim": 1024, "idx": 1}, "vggish": {"dim": 128, "idx": 2}}
+  vid = {"hidden_size": 512, "num_hidden_layers": 4,
+         "num_attention_heads": 4, "intermediate_size": 3072,
+         "max_position_embeddings": 102, "type_vocab_size": 19,
+         "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1}
+  tower = MOE_GRAPH_TOWER
+  vocab = moe_text.TowerConfig.from_dict(tower).vocab_size
+  g = torch.Generator(device=dev).manual_seed(3)
+  b, words, rows = TRAIN_BATCH, 100, 100
+
+  def batch():
+    ids = torch.randint(0, vocab, (b, 1, words), device=dev, generator=g)
+    out = {"token_ids": torch.stack([ids, torch.ones_like(ids)], -1),
+           "query_masks": torch.ones(b, 1, device=dev)}
+    for key in ("features", "features_t", "features_ind",
+                "features_avgpool", "features_maxpool"):
+      out[key] = {}
+    for m, e in experts.items():
+      out["features"][m] = torch.randn(b, rows, e["dim"], device=dev,
+                                       generator=g)
+      out["features_t"][m] = torch.randint(0, 100, (b, rows), device=dev,
+                                           generator=g).float()
+      out["features_ind"][m] = torch.ones(b, rows, device=dev)
+      out["features_avgpool"][m] = torch.randn(b, e["dim"], device=dev,
+                                               generator=g)
+      out["features_maxpool"][m] = torch.randn(b, e["dim"], device=dev,
+                                               generator=g)
+    return out
+
+  batches = [batch() for _ in range(MOE_GRAPH_STEPS)]
+  loss_fn = losses.max_margin_ranking_loss(0.05, True)
+  lrs = [TRAIN_LR * (i + 1) / MOE_GRAPH_STEPS for i in range(MOE_GRAPH_STEPS)]
+
+  def run(way):
+    model = CENet(expert_dims=experts, vid_bert_params=vid,
+                  txt_bert_params={"hidden_dropout_prob": 0.1}, same_dim=512,
+                  device=dev, txt_agg=moe_text.KIND, text_tower=tower)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    model.train(True)
+    opt = optim.build_optimizer({"type": "Adam", "args": {
+        "lr": TRAIN_LR, "weight_decay": 0}}, model.parameters())[0]
+    if way == "eager":
+      model.register_forward_pre_hook(lambda module, args: None)
+      step.make_capturable(opt, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kinds = lambda: (step.train_step.captures, step.train_step.replays,
+                     step.train_step.eager_steps)
+    kinds0, seen = kinds(), []
+    launches0 = moe_ops.moe_grouped_cuda.launches
+    for i, (bt, lr) in enumerate(zip(batches, lrs)):
+      debug = way == "graph" and i >= 2
+      if debug:
+        torch.cuda.set_sync_debug_mode("error")
+      try:
+        seen.append(step.train_step(model, opt, bt, loss_fn=loss_fn, lr=lr,
+                                    generator=gen))
+      finally:
+        if debug:
+          torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    state = opt.state
+    out = {"losses": torch.stack(seen).cpu(),
+           "params": {n: p.detach().cpu() for n, p in
+                      model.named_parameters()},
+           "exp_avg": {n: state[p]["exp_avg"].cpu() for n, p in
+                       model.named_parameters()},
+           "buffers": {n: t.cpu() for n, t in model.named_buffers()},
+           "kinds": tuple(y - x for x, y in zip(kinds0, kinds())),
+           "launches": moe_ops.moe_grouped_cuda.launches - launches0}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+  eager, graph = run("eager"), run("graph")
+  same = lambda a, c: all(torch.equal(a[k], c[k]) for k in c)
+  bitwise = {"losses": torch.equal(graph["losses"], eager["losses"]),
+             **{k: same(graph[k], eager[k])
+                for k in ("params", "exp_avg", "buffers")}}
+  moe_layers = tower["num_hidden_layers"] - 1
+  res = {"kinds": graph["kinds"], "bitwise": bitwise,
+         "launches": (graph["launches"], eager["launches"]),
+         "want_launches": 8 * moe_layers * MOE_GRAPH_STEPS,
+         "losses": graph["losses"].tolist()}
+  print(f"moe step graph ({tower['num_hidden_layers']} layers): "
+        f"{json.dumps(res)} "
+        f"card: {card}", flush=True)
+  if (graph["kinds"] != (1, MOE_GRAPH_STEPS - 1, 1)
+      or not all(bitwise.values())
+      or res["launches"] != (res["want_launches"],) * 2):
+    raise RuntimeError(f"moe step graph: {res}")
+  return res
+
+
+def moe_phase(torch, ops, dev, gen, card):
+  """Phase 20: the moonlight tower's grouped kernels at its published
+  widths, and its captured train step against the eager one."""
+  from mmt_tpu_torch.ops import moe as moe_ops
+
+  return {"kernels": moe_kernel_case(torch, ops, moe_ops, dev, gen, card),
+          "graph": moe_graph_case(torch, dev, card)}
+
+
 # Kernels of B2 and B3 on the GEMM route, as the profiler names them (the
 # template GEMMs by their epilogues); the train step launches no B1, whose
 # cast and GEMM 1 epilogue would share B2's names.
@@ -5515,6 +5708,9 @@ def main():
   for cd in (torch.float32, torch.bfloat16):
     step_graph_phase(torch, flagship, ffn, similarity, dev, card, cd)
   clock.done("step-graph")
+  moe_phase(torch, ops, dev, gen, card)
+  torch.cuda.empty_cache()
+  clock.done("moe")
   tp_launches = tp_phase(torch, parallel, ranking, sims, step_ref, dev, card)
   del sims
   clock.done("tp")

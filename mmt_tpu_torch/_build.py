@@ -27,7 +27,7 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ffn_block.cu", "ffn_train_bwd.cu", "moe_similarity.cu",
-           "fused_ranks.cu")
+           "fused_ranks.cu", "moe_grouped.cu")
 HEADERS = ("ffn_common.cuh", "ffn_gemm.cuh", "ffn_sgemm.cuh",
            "sim_tile.cuh")
 NATIVE = CSRC.parent / "native"
@@ -60,6 +60,19 @@ _SIGNATURES = {
     # t, c, tw, cw, gt, gtcol, colbias, closer, tied, tt, ct, Q, C, K, M,
     # ldt, ldc, tile, stream
     "mmt_fused_ranks": [_P] * 11 + [_I] * 7 + [_P],
+    # x, tok, offsets, w_gu, gu, a, rows_bound, E, H, I, stream
+    "mmt_moe_gate_up": [_P] * 6 + [_I] * 4 + [_P],
+    # a, offsets, w_d, rw, ys, rows_bound, E, H, I, stream
+    "mmt_moe_down": [_P] * 5 + [_I] * 4 + [_P],
+    # dout, tok, offsets, w_d, gu, rw, dgu, a, g, rows_bound, E, H, I,
+    # stream
+    "mmt_moe_dgate_up": [_P] * 9 + [_I] * 4 + [_P],
+    # dgu, offsets, w_gu, dxs, rows_bound, E, H, I, stream
+    "mmt_moe_dx": [_P] * 4 + [_I] * 4 + [_P],
+    # a, a_idx, a_scale, M, b, b_idx, N, offsets, E, c, stream
+    "mmt_moe_wgrad": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
+    # ys, pos, offsets, E, T, K, H, out, stream
+    "mmt_moe_combine": [_P] * 3 + [_I] * 4 + [_P, _P],
 }
 
 _lib = None

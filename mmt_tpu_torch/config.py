@@ -60,9 +60,10 @@ class TxtAggSpec:
   """Parsed txt_agg micro-DSL (model/model.py:137-148).
 
   'bertftn' / 'bertfrz' / 'bertfrz4' / 'bertftnmxp' ... or one of
-  'vlad' | 'mxp' | 'mnp' | 'lstm'.
+  'vlad' | 'mxp' | 'mnp' | 'lstm' | 'moonlight' (the mixture-of-experts
+  caption tower of models/moe_text.py).
   """
-  kind: str                   # 'bert' | 'vlad' | 'mxp' | 'mnp' | 'lstm'
+  kind: str   # 'bert' | 'vlad' | 'mxp' | 'mnp' | 'lstm' | 'moonlight'
   state: Optional[str] = None  # 'ftn' | 'frz' (bert only)
   freeze_until: Optional[int] = None
   post_agg: str = "cls"       # 'cls' | 'mxp' | 'mnp'
@@ -80,7 +81,7 @@ class TxtAggSpec:
       return cls(kind="bert", state=state,
                  freeze_until=int(until) if until else None,
                  post_agg=post_agg)
-    assert txt_agg in ("vlad", "mxp", "mnp", "lstm"), txt_agg
+    assert txt_agg in ("vlad", "mxp", "mnp", "lstm", "moonlight"), txt_agg
     return cls(kind=txt_agg)
 
 

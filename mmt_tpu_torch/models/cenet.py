@@ -5,7 +5,11 @@ Port of mmt_tpu/models/cenet.py:
 * ``txt_agg``: bert{ftn,frz,scr}[N]{cls,mxp,mnp} (a BERT text tower and
   its CLS, max or mean over the tokens after the CLS) | vlad | mxp | lstm
   (the word-embedding path: ``TxtEmbeddings``, then ``NetVLAD``, a masked
-  max or ``LSTMPooler``);
+  max or ``LSTMPooler``) | moonlight (Moonlight-16B-A3B's MLA and
+  routed-expert decoder over ``text_tower``'s geometry, models/moe_text.py,
+  read as the mean of its valid tokens; it adds its balance loss to the
+  train forward's outputs as ``aux_loss``, and ``post_step`` updates its
+  routers' correction biases after each optimizer step);
 * ``txt_pro``: gbn | gem (gated embedding units with / without BatchNorm)
   | lin (a ReduceDim);
 * ``txt_wgh`` / ``vid_wgh``: emb (MoE weights from the caption / the
@@ -44,6 +48,7 @@ from torch import nn
 from mmt_tpu_torch import convert
 from mmt_tpu_torch.config import BertParams, TEXT_BERT_BASE_CASED, TxtAggSpec
 from mmt_tpu_torch.models import components as C
+from mmt_tpu_torch.models import moe_text
 from mmt_tpu_torch.models.bert import (FeatureBert, TextBert, init_normal_,
                                        shard_dims)
 from mmt_tpu_torch.ops import similarity as similarity_ops
@@ -100,9 +105,11 @@ def cenet_kwargs_from_arch_args(arch_args, tokenizer):
       raise ValueError(f"compute_dtype {name!r}: expected one of "
                        f"{sorted(COMPUTE_DTYPES)}")
     kwargs["compute_dtype"] = COMPUTE_DTYPES[name]
-  if tokenizer is not None and hasattr(tokenizer, "vocab_size"):
+  txt_agg = dict(arch_args).get("txt_agg", "bert")
+  if (tokenizer is not None and hasattr(tokenizer, "vocab_size")
+      and txt_agg != moe_text.KIND):
     geom = dict(kwargs.get("text_bert_geometry") or {})
-    if dict(arch_args).get("txt_agg", "bert")[:4] != "bert":
+    if txt_agg[:4] != "bert":
       kwargs.setdefault("we_vocab_size", tokenizer.vocab_size)
       if hasattr(tokenizer, "text_dim"):
         kwargs.setdefault("we_dim", tokenizer.text_dim)
@@ -141,7 +148,8 @@ class CENet(nn.Module):
                device="cuda", tp=None, txt_agg: str = "bertftn",
                keep_missing_modalities: bool = True,
                normalize_experts: bool = True, we_vocab_size: int = 0,
-               we_dim: int = 768, **switches):
+               we_dim: int = 768, text_tower: Optional[Mapping[str, Any]] = None,
+               **switches):
     super().__init__()
     for name, value in switches.items():
       if name in SWITCHES:
@@ -166,7 +174,7 @@ class CENet(nn.Module):
         compute_dtype=compute_dtype, txt_agg=txt_agg,
         keep_missing_modalities=keep_missing_modalities,
         normalize_experts=normalize_experts, we_vocab_size=we_vocab_size,
-        we_dim=we_dim, **switches)
+        we_dim=we_dim, text_tower=text_tower, **switches)
     self.tp = tp if tp is not None and tp.size > 1 else None
     self.expert_dims = dict(expert_dims)
     self.modalities = list(self.expert_dims)
@@ -189,6 +197,13 @@ class CENet(nn.Module):
       self.txt_bert = TextBert(txt_cfg, compute_dtype=compute_dtype,
                                device=dev, tp=tp)
       text_dim = txt_cfg.hidden_size
+    elif self.txt_agg_spec.kind == moe_text.KIND:
+      if self.tp is not None:
+        raise ValueError(f"txt_agg {txt_agg!r}: the {moe_text.KIND} tower "
+                         "runs on one device; it refuses tensor parallelism")
+      self.txt_tower = moe_text.MoETextTower(
+          moe_text.TowerConfig.from_dict(text_tower or {}), device=dev)
+      text_dim = self.txt_tower.cfg.hidden_size
     else:
       if we_vocab_size <= 0:
         raise ValueError("the word-embedding text path (txt_agg "
@@ -306,6 +321,8 @@ class CENet(nn.Module):
     if hasattr(self, "txt_bert"):
       init_normal_(self.txt_bert, generator,
                    self.txt_bert.cfg.initializer_range)
+    if hasattr(self, "txt_tower"):
+      self.txt_tower.init_weights(generator)
     if hasattr(self, "vid_bert"):
       init_normal_(self.vid_bert, generator, self.vid_cfg.initializer_range)
     for name in ("text_GU", "video_dim_reduce", "moe_fc_txt", "moe_fc_vid",
@@ -330,13 +347,21 @@ class CENet(nn.Module):
     ``train=True`` runs the train forward: dropout from ``generator`` (a
     torch.Generator on the batch's device) at the configured rates, and
     BatchNorm on batch statistics, whose running buffers it updates;
-    ``dp`` makes both the global batch's (see the class)."""
+    ``dp`` makes both the global batch's (see the class).  The
+    moonlight tower's train forward also returns its balance loss,
+    ``aux_loss``, which the step adds to the loss."""
     return {**self.embed_text(batch["token_ids"], train=train,
                               generator=generator, dp=dp),
             **self.embed_video(batch, train=train, generator=generator,
                                dp=dp)}
 
   # ------------------------------------------------------------------
+  def post_step(self):
+    """After an optimizer step: the moonlight tower's routers' correction
+    biases move by the step's loads (a no-op for every other tower)."""
+    if hasattr(self, "txt_tower"):
+      self.txt_tower.update_biases()
+
   def _pooled_text(self, ids, mask, train, generator, dp):
     """The caption embedding [B*K, text_dim] of ids / mask [B*K, T]."""
     spec = self.txt_agg_spec
@@ -368,8 +393,14 @@ class CENet(nn.Module):
       b, k, t, _ = token_ids.shape
       m = len(self.modalities)
       flat = token_ids.reshape(b * k, t, 2)
-      text = self._pooled_text(flat[:, :, 0].long(), flat[:, :, 1], train,
-                               generator, dp)
+      ids, mask, aux = flat[:, :, 0].long(), flat[:, :, 1], None
+      if hasattr(self, "txt_tower"):
+        if dp is not None:
+          raise ValueError(f"the {moe_text.KIND} tower runs on one device; "
+                           "it refuses data parallelism")
+        text, aux = self.txt_tower(ids, mask, train=train)
+      else:
+        text = self._pooled_text(ids, mask, train, generator, dp)
       heads = [self.text_GU[mod] for mod in self.modalities]
       if self.txt_pro == "lin":
         stacked = C.batched_reduce_dim(text, heads)
@@ -387,8 +418,11 @@ class CENet(nn.Module):
         text_weights = torch.ones((b, k, m), device=text.device)
       if self.normalize_experts:
         stacked = C.l2_normalize(stacked)
-      return {"text_embds": stacked.reshape(b, k, m, -1).float(),
-              "text_weights": C.l1_normalize(text_weights)}
+      out = {"text_embds": stacked.reshape(b, k, m, -1).float(),
+             "text_weights": C.l1_normalize(text_weights)}
+      if train and aux is not None:
+        out["aux_loss"] = aux
+      return out
 
   def embed_video(self, batch, *, train=False, generator=None, dp=None):
     """Video tower only: expert-feature batch -> {vid_embds [B,M,D],

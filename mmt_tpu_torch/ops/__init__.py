@@ -3,8 +3,9 @@ kernel with its plain PyTorch version beside it), attention and ranking.
 
 Dispatch rule of every kernel wrapper: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  The kernels fall
-into three families: ``"ffn"`` (the FFN blocks B1, B2, B3, B6, B7),
-``"similarity"`` (B4) and ``"ranks"`` (B5).  ``plain_versions()`` runs a
+into four families: ``"ffn"`` (the FFN blocks B1, B2, B3, B6, B7),
+``"similarity"`` (B4), ``"ranks"`` (B5) and ``"moe"`` (the grouped expert
+GEMMs of ``ops/moe.py``).  ``plain_versions()`` runs a
 family's plain versions on the card instead, when a user asks for it: to
 compare a whole run against them, or, through ``environment_switches``,
 by the JAX package's variables (mmt_tpu/ops/__init__.py:
@@ -20,7 +21,7 @@ import os
 
 logger = logging.getLogger(__name__)
 
-FAMILIES = ("ffn", "similarity", "ranks")
+FAMILIES = ("ffn", "similarity", "ranks", "moe")
 # The families a user may send to their plain versions by the environment,
 # under the JAX package's names ("0", or any value but "1", as there).  The
 # fused ranks have no switch, as in the JAX package.

@@ -70,11 +70,16 @@ CUDA_FFN_KERNELS = ("ffn_block_bf16_kernel", "ffn_block_f32_kernel",
                     "ffn_transpose_bf16_kernel", "ffn_ln_bwd_rows_kernel")
 CUDA_SIM_KERNELS = ("moe_similarity_kernel", "fused_ranks_kernel",
                     "k_major_kernel")
+# The grouped expert kernels of csrc/moe_grouped.cu (their names hold
+# "gemm", which would file them as the library's).
+CUDA_MOE_KERNELS = ("moe_grouped_gemm_kernel", "moe_grouped_wgrad_kernel",
+                    "moe_grouped_combine_kernel")
 # (category, pattern), the first that matches a name files it.
 CATEGORIES = (
     ("cuda ffn (B1-B3, B6, B7)", re.compile("|".join(CUDA_FFN_KERNELS))),
     ("cuda similarity/rank (B4, B5)",
      re.compile("|".join(CUDA_SIM_KERNELS))),
+    ("cuda moe experts", re.compile("|".join(CUDA_MOE_KERNELS))),
     ("library matmul", re.compile(
         r"gemm|gemv|cutlass|cublas|nvjet|xmma|splitKreduce"
         r"|aten::(?:mm|bmm|addmm|baddbmm|matmul|linear|_int_mm)\b", re.I)),

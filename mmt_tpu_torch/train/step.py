@@ -3,7 +3,10 @@
 Port of the jitted step of mmt_tpu/train/trainer.py:405-428 (and of
 bench.py's train-step bench): the train forward (dropout, batch-stat
 BatchNorm), the 'avg'-merged MoE similarity, the loss, the backward and
-the optimizer update at the given rate.
+the optimizer update at the given rate.  A model whose train forward
+returns an ``aux_loss`` (CENet's moonlight tower: its routers' balance
+loss) has it added to the loss, and the model's ``post_step`` (the
+routers' correction biases) runs after the update, inside the step.
 
 With a ``dp`` (``parallel.DataParallel``) the batch is this rank's rows
 of the global batch, and the step is the single-device step on that
@@ -51,6 +54,7 @@ import torch
 from mmt_tpu_torch import ops
 from mmt_tpu_torch.models.cenet import similarity_from_outputs
 from mmt_tpu_torch.ops import ffn as ffn_ops
+from mmt_tpu_torch.ops import moe as moe_ops
 from mmt_tpu_torch.ops import ranking as ranking_ops
 from mmt_tpu_torch.ops import similarity as similarity_ops
 from mmt_tpu_torch.parallel import mesh as mesh_lib
@@ -62,11 +66,13 @@ GRAPHS_PER_MODEL = 2
 # The optimizers whose update a graph may hold (their capturable mode).
 GRAPH_OPTIMIZERS = (torch.optim.Adam, torch.optim.AdamW)
 # The kernel wrappers whose ``launches`` count their kernels (B1, B2, B3,
-# B6, B7, B4, B5), by module and name: looked up at each capture.
+# B6, B7, B4, B5, the grouped expert GEMMs), by module and name: looked up
+# at each capture.
 COUNTED = ((ffn_ops, "ffn_block_cuda"), (ffn_ops, "ffn_train_fwd_cuda"),
            (ffn_ops, "ffn_train_bwd_cuda"), (ffn_ops, "ffn_partial_cuda"),
            (ffn_ops, "ffn_train_fwd_partial_cuda"),
-           (similarity_ops, "sim_cuda"), (ranking_ops, "fused_counts_cuda"))
+           (similarity_ops, "sim_cuda"), (ranking_ops, "fused_counts_cuda"),
+           (moe_ops, "moe_grouped_cuda"))
 
 _GRAPHS = weakref.WeakKeyDictionary()   # model -> StepGraphs
 _NEW = object()
@@ -111,12 +117,17 @@ def _step(model, optimizer, batch, loss_fn, generator, dp):
       out = {k: mesh_lib.gather_rows(v, dp) for k, v in out.items()}
   with span("mmt.step.loss"):
     loss = loss_fn(similarity_from_outputs(out, merge="avg"))
+    if "aux_loss" in out:
+      loss = loss + out["aux_loss"]
   with span("mmt.step.backward"):
     loss.backward()
     if dp is not None:
       mesh_lib.all_reduce_grads(model.parameters(), dp)
   with span("mmt.step.optimizer"):
     optimizer.step()
+    post_step = getattr(model, "post_step", None)
+    if post_step is not None:
+      post_step()
   return loss
 
 
@@ -275,6 +286,11 @@ class StepGraphs:
     inputs; nothing runs until the graph is replayed."""
     static = _map(batch, torch.Tensor.clone)
     inputs = [v for _, v in _leaves(static) if torch.is_tensor(v)]
+    # The graph's private pool is filled from memory the caching allocator
+    # does not hold, and entering the capture empties its cache: the
+    # warm-up's gradients go first, so that their memory is given back too
+    # (a model that fills most of the card needs it).
+    optimizer.zero_grad(set_to_none=True)
     counters = [getattr(mod, name) for mod, name in COUNTED]
     before = [c.launches for c in counters]
     graph = torch.cuda.CUDAGraph()

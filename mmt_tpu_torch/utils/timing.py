@@ -14,6 +14,12 @@ copied, ``profiler_trace`` on torch.profiler in place of jax.profiler.
                              four above (which run only while it is captured)
   mmt.tower.text           models/cenet.py: ``embed_text``
   mmt.tower.video          models/cenet.py: ``embed_video``
+  mmt.tower.text.mla       models/moe_text.py: a layer's latent attention
+  mmt.moe.route            models/moe_text.py: an MoE layer's router, its
+                           choices and counters (and its balance loss)
+  mmt.moe.experts          models/moe_text.py: the held experts' part
+                           (ops/moe.py, the grouped kernels on the card)
+  mmt.moe.shared           models/moe_text.py: the shared experts
   mmt.ffn_op.fwd           ops/ffn.py: the FFN block's forward (B1, B2, B6,
                            B7 or their plain versions)
   mmt.ffn_op.bwd           ops/ffn.py: its backward (B3 or its plain version)

@@ -59,15 +59,18 @@ def test_the_jax_values():
 
 
 def test_use_kernel_per_family():
-  assert _on_card() == {"ffn": True, "similarity": True, "ranks": True}
+  assert _on_card() == {"ffn": True, "similarity": True, "ranks": True,
+                        "moe": True}
   assert not any(ops.use_kernel(ON_CPU, f) for f in ops.FAMILIES)
   with ops.plain_versions("ffn"):
-    assert _on_card() == {"ffn": False, "similarity": True, "ranks": True}
+    assert _on_card() == {"ffn": False, "similarity": True, "ranks": True,
+                          "moe": True}
     with ops.plain_versions("similarity"):
       # The fused ranks keep their kernel, as in the JAX package.
       assert _on_card() == {"ffn": False, "similarity": False,
-                            "ranks": True}
-    assert _on_card() == {"ffn": False, "similarity": True, "ranks": True}
+                            "ranks": True, "moe": True}
+    assert _on_card() == {"ffn": False, "similarity": True, "ranks": True,
+                          "moe": True}
   with ops.plain_versions():
     assert _on_card() == dict.fromkeys(ops.FAMILIES, False)
     assert ops.kernel_families("cuda:0") == dict.fromkeys(ops.FAMILIES,

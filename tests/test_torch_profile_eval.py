@@ -76,11 +76,13 @@ def test_both_modes_on_the_cpu(mode, monkeypatch, tmp_path, capsys):
 
 def test_categories_of_the_kernels_and_library_names():
   kernels = csrc_kernels()
-  assert len(kernels) == 13
+  assert len(kernels) == 16
   assert kernels == set(profile_eval.CUDA_FFN_KERNELS
-                        + profile_eval.CUDA_SIM_KERNELS)
+                        + profile_eval.CUDA_SIM_KERNELS
+                        + profile_eval.CUDA_MOE_KERNELS)
   for name in kernels:
     want = ("cuda ffn (B1-B3, B6, B7)" if name.startswith("ffn_")
+            else "cuda moe experts" if name.startswith("moe_grouped_")
             else "cuda similarity/rank (B4, B5)")
     assert profile_eval.category(f"void (anonymous namespace)::{name}"
                                  "(float const*, int)") == want, name
